@@ -8,12 +8,24 @@ prints the wall-clock (main.cpp:968-1111).  Here:
 
     python -m distributionraytracer_tpu_torch render scene.p3f \\
         [--spp N] [--motion-blur] [--progressive N] [--seed S]
+
+    python -m distributionraytracer_tpu_torch pathtrace --scene 0 \\
+        -o PT_Output.png --res 800 600 --spp 16 [--bounces 10]
+
+Both run on the card (``--device cuda``) unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
 
 import argparse
 import time
+
+
+def _sync(device):
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def _cmd_render(args):
@@ -52,27 +64,69 @@ def _cmd_render(args):
     print(f"backend: {r.executed_backend()}")
     gen = torch.Generator(device=device).manual_seed(args.seed)
 
-    def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-
     t0 = time.perf_counter()
     if args.progressive:
         state = r.progressive_init()
         for _ in range(args.progressive):
             state = r.progressive_step(state, gen)
         img = state[0]
-        sync()
+        _sync(device)
         print(f"progressive {args.progressive} frames: "
               f"{time.perf_counter() - t0:.3f}s")
     else:
         img, nrays = r.render(gen, return_rays=True)
-        sync()
+        _sync(device)
         dt = time.perf_counter() - t0
         print(f"Whitted/distribution render: {dt:.3f}s, "
               f"{int(nrays)} rays ({int(nrays) / dt:.4g} rays/s, first "
               "call, kernel build included)")
     write_png(args.output, img)
+    print(f"Image file created: {args.output}")
+
+
+# default orbit camera per GLSL scene (P3D_RT.glsl:687-735 defaults)
+PT_CAMERAS = {0: ([6.0, 1.6, -6.0], [0.0, 0.5, 0.0]),
+              4: ([0.0, -1.0, -2.0], [0.0, -1.0, 10.0])}
+PT_CAMERA_DEFAULT = ([0.0, -3.0, -6.0], [0.0, -3.0, 10.0])
+
+
+def _cmd_pathtrace(args):
+    import torch
+
+    from distributionraytracer_tpu_torch.config import RenderConfig
+    from distributionraytracer_tpu_torch.integrator.pathtracer import (
+        render_pt, to_gamma,
+    )
+    from distributionraytracer_tpu_torch.renderer import resolve_device
+    from distributionraytracer_tpu_torch.scene.pt_scenes import (
+        SCENE_BUILDERS,
+    )
+    from distributionraytracer_tpu_torch.utils.image import write_png
+
+    device = resolve_device(args.device)
+    sky_faces = sky_res = None
+    if args.cubemap:
+        from distributionraytracer_tpu_torch.scene.skybox import load_skybox
+        sky_faces, sky_res = load_skybox(args.cubemap)
+    builder = SCENE_BUILDERS[args.scene]
+    scene = (builder() if args.scene == 0
+             else builder(sky_faces, sky_res)).to(device)
+    cfg = RenderConfig(max_bounces=args.bounces)
+    eye, at = PT_CAMERAS.get(args.scene, PT_CAMERA_DEFAULT)
+    eye = args.eye or eye
+    at = args.at or at
+    W, H = args.res
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+
+    t0 = time.perf_counter()
+    img = render_pt(scene, cfg, W, H, gen, eye=eye, at=at, spp=args.spp)
+    _sync(device)
+    dt = time.perf_counter() - t0
+    print(f"path trace: {dt:.3f}s ({W}x{H} @ {args.spp}spp, "
+          f"{cfg.max_bounces} bounces, device={device}, "
+          f"{W * H * args.spp / dt / 1e6:.4g} Msamples/s, first call, "
+          "kernel build included)")
+    write_png(args.output, to_gamma(img))
     print(f"Image file created: {args.output}")
 
 
@@ -92,9 +146,26 @@ def main(argv=None):
     r.add_argument("--seed", type=int, default=0)
     r.add_argument("--motion-blur", action="store_true")
     r.add_argument("--progressive", type=int, default=0, metavar="FRAMES")
-    r.add_argument("--device", default="cpu",
-                   help="torch device, e.g. 'cpu' or 'cuda'")
+    r.add_argument("--device", default="cuda",
+                   help="torch device, e.g. 'cuda' (default) or 'cpu'")
     r.set_defaults(fn=_cmd_render)
+
+    t = sub.add_parser("pathtrace",
+                       help="Monte Carlo path trace (GLSL scenes 0-4)")
+    t.add_argument("--scene", type=int, default=0, choices=range(5))
+    t.add_argument("-o", "--output", default="PT_Output.png")
+    t.add_argument("--res", type=int, nargs=2, default=[800, 600])
+    t.add_argument("--spp", type=int, default=16)
+    t.add_argument("--bounces", type=int, default=10)
+    t.add_argument("--seed", type=int, default=0)
+    t.add_argument("--cubemap", default=None,
+                   help="skybox dir with right/left/top/bottom/front/back.jpg"
+                        " (decoded with PIL)")
+    t.add_argument("--eye", type=float, nargs=3, default=None)
+    t.add_argument("--at", type=float, nargs=3, default=None)
+    t.add_argument("--device", default="cuda",
+                   help="torch device, e.g. 'cuda' (default) or 'cpu'")
+    t.set_defaults(fn=_cmd_pathtrace)
 
     args = p.parse_args(argv)
     args.fn(args)

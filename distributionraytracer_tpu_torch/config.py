@@ -2,8 +2,8 @@
 
 The reference drives these knobs from compile-time flags and the P3F scene
 file (main.cpp:29-39, scene.cpp:489-693).  Here they live in one frozen
-dataclass.  Only the knobs of the accel-NONE Whitted/distribution path are
-ported; the accel and path-tracer knobs arrive with their slices.
+dataclass.  The knobs of the accel-NONE Whitted/distribution path and of
+the GLSL path tracer are ported; the accel knobs arrive with their slice.
 """
 
 from __future__ import annotations
@@ -35,8 +35,14 @@ class RenderConfig:
                        plain torch versions on CPU tensors: one fused level
                        kernel per tree level where the scene has lights,
                        the closest/any-hit kernels with the staged shading
-                       where it has none; 'off' forces the plain staged
+                       where it has none, and one fused bounce kernel per
+                       path-tracer bounce; 'off' forces the plain staged
                        path everywhere.
+    - ``max_bounces``: path-tracer ``MAX_BOUNCES`` (P3D_RT.glsl:581).
+    - ``russian_roulette``: path termination on the max throughput channel
+                       with 1/p boost (P3D_RT.glsl:651-656).
+    - ``pt_tile_rays``: path-tracer paths per tile (0 = no tiling); bounds
+                       the live per-bounce state.
     """
 
     max_depth: int = 4
@@ -48,6 +54,9 @@ class RenderConfig:
     max_samples: int = 10000
     shadow_mode: str = "reference"  # 'reference' | 'correct'
     tile_rays: int = 65536
+    max_bounces: int = 10
+    russian_roulette: bool = True
+    pt_tile_rays: int = 131072
 
     def __post_init__(self):
         if self.shadow_mode not in ("reference", "correct"):
@@ -56,6 +65,8 @@ class RenderConfig:
             raise ValueError(f"bad kernels mode: {self.kernels}")
         if self.tile_rays <= 0:
             raise ValueError(f"bad tile_rays: {self.tile_rays}")
+        if self.pt_tile_rays < 0:
+            raise ValueError(f"bad pt_tile_rays: {self.pt_tile_rays}")
 
     def replace(self, **kw) -> "RenderConfig":
         return dataclasses.replace(self, **kw)

@@ -1,0 +1,632 @@
+// K4 pt_closest, K5 pt_any_hit and K6 pt_bounce: the GLSL path tracer's
+// scene queries and its fused bounce.
+//
+// Replaces distributionraytracer_tpu/ops/pallas_pt.py:
+//   K4 pt_closest (_closest_kernel over _fold),
+//   K5 pt_any_hit (_anyhit_kernel),
+//   K6 pt_bounce (_bounce_kernel): closest hit with the winner's material
+//      row; point lights with shadow folds; quad lights with no shadow ray
+//      and the GGX view-sign quirk; emission; scatter for the four
+//      materials; Russian roulette; the gradient sky, or the cubemap miss
+//      latched for one texel gather after the last bounce.
+// Bound: FP32 ALU.  Each lane tests every primitive once per closest query
+// and up to once more per point light (rays x primitives x (1 + lights)
+// tests); memory traffic is the lane's streams in and out, and the tables
+// are warp-uniform broadcast reads through __ldg that stay in L1.
+// Design: one thread per lane, primitives walked in hit_world's order
+// (triangles, spheres, moving spheres) with strict < so the first of equal
+// t wins; the three groups are separate loops, so there is no per-primitive
+// type branch.  The winner's normal and material are fetched once after the
+// fold (the same values as carrying them through it).  Skips that are exact:
+//   - K6 dead lanes (alive == 0) pass every state stream through unchanged
+//     in the Pallas kernel, so they only clear their time and return; most
+//     lanes die within a few bounces;
+//   - shadow folds stop at the first occluder (the fold is an OR) and run
+//     only for hit lanes facing the light (the contribution is gated by
+//     both);
+//   - scatter and roulette run only for hit lanes (their results are gated
+//     by live_hit).
+// The geometric tests (triangle, sphere, moving sphere) are evaluated
+// uncontracted (__f*_rn) in the plain version's operation order: the
+// sphere discriminant cancels catastrophically for small distant spheres,
+// and a contracted multiply-add there moves t and the normal visibly.  The
+// shading math keeps FMA contraction.  No --use_fast_math.
+//
+// Layouts (all contiguous f32 unless noted):
+//   table (K,12) rows: tri [v0, e1, e2, 0]; sphere [c, r, 0...];
+//     moving sphere [c0, c1-c0, r, 0...]; T triangles, then S spheres,
+//     then M moving spheres;
+//   mats (K,) i32; mrow (K,16) [type, albedo3, spec3, emissive3, rough,
+//     refidx, refract3, stripe];
+//   plights (Lp,6) [pos, color]; qlights (Lq,12) [pos, e1, e2, color];
+//   K4 rays (7,R) ox oy oz dx dy dz time -> out_f (4,R) t nx ny nz,
+//      out_i (R,) i32 material;
+//   K5 rays (8,R) ox oy oz dx dy dz time tmax -> occ (R,) u8;
+//   K6 state (20,R) ox oy oz dx dy dz time col3 thr3 alive mw3 md3, read
+//      and written in place; uni (8+2*Lq,R) uch u3a3 u3b3 urr uq...
+// Each launch function returns cudaGetLastError().
+
+#include <cfloat>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kRow = 12;
+constexpr int kMat = 16;
+constexpr float kEps = 1e-3f;  // common.glsl:7
+constexpr float kBig = 1e4f;   // hit_world's default tmax
+constexpr float kMissT = FLT_MAX;
+constexpr float kPi = 3.14159265358979f;
+enum MatType { kDiffuse = 0, kMetal = 1, kDielectric = 2, kPlastic = 3 };
+
+struct Ray {
+  float ox, oy, oz, dx, dy, dz;
+};
+
+__device__ __forceinline__ float ld(const float* p, int i) {
+  return __ldg(p + i);
+}
+// One IEEE rounding per operation, never contracted into an FMA.
+__device__ __forceinline__ float mul(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ float add(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ float sub(float a, float b) {
+  return __fsub_rn(a, b);
+}
+__device__ __forceinline__ float dot3(float ax, float ay, float az, float bx,
+                                      float by, float bz) {
+  return add(add(mul(ax, bx), mul(ay, by)), mul(az, bz));
+}
+
+// hit_triangle (common.glsl:418-447) in hit_world's formulation.
+__device__ __forceinline__ float tri_t(const Ray& r, const float* row) {
+  const float v0x = ld(row, 0), v0y = ld(row, 1), v0z = ld(row, 2);
+  const float e1x = ld(row, 3), e1y = ld(row, 4), e1z = ld(row, 5);
+  const float e2x = ld(row, 6), e2y = ld(row, 7), e2z = ld(row, 8);
+  const float hx = sub(mul(r.dy, e2z), mul(r.dz, e2y));
+  const float hy = sub(mul(r.dz, e2x), mul(r.dx, e2z));
+  const float hz = sub(mul(r.dx, e2y), mul(r.dy, e2x));
+  const float a = dot3(e1x, e1y, e1z, hx, hy, hz);
+  const float f = __fdiv_rn(1.0f, a != 0.0f ? a : 1.0f);
+  const float sx = sub(r.ox, v0x), sy = sub(r.oy, v0y), sz = sub(r.oz, v0z);
+  const float u = mul(f, dot3(sx, sy, sz, hx, hy, hz));
+  const float qx = sub(mul(sy, e1z), mul(sz, e1y));
+  const float qy = sub(mul(sz, e1x), mul(sx, e1z));
+  const float qz = sub(mul(sx, e1y), mul(sy, e1x));
+  const float v = mul(f, dot3(qx, qy, qz, r.dx, r.dy, r.dz));
+  const float t = mul(f, dot3(e2x, e2y, e2z, qx, qy, qz));
+  const bool ok = a != 0.0f && u >= 0.0f && u <= 1.0f && v >= 0.0f &&
+                  add(u, v) <= 1.0f && t > kEps;
+  return ok ? t : kMissT;
+}
+
+// The two roots of a*t^2 + b*t + c with disc = b^2 - 4ac; t1 > EPS picks
+// the near root, else the far one.
+__device__ __forceinline__ float quad_t(float a, float b, float disc,
+                                        bool* near_root) {
+  const float sq = disc > 0.0f ? __fsqrt_rn(disc) : 0.0f;
+  const float t1 = __fdiv_rn(sub(-b, sq), mul(2.0f, a));
+  const float t2 = __fdiv_rn(add(-b, sq), mul(2.0f, a));
+  *near_root = t1 > kEps;
+  const float t = *near_root ? t1 : t2;
+  return (disc >= 0.0f && t > kEps) ? t : kMissT;
+}
+
+// hit_sphere (common.glsl:513-549); a_dd = d.d.
+__device__ __forceinline__ float sph_t(const Ray& r, const float* row,
+                                       float a_dd) {
+  const float rad = ld(row, 3);
+  const float ocx = sub(r.ox, ld(row, 0)), ocy = sub(r.oy, ld(row, 1)),
+              ocz = sub(r.oz, ld(row, 2));
+  const float b = mul(2.0f, dot3(ocx, ocy, ocz, r.dx, r.dy, r.dz));
+  const float c = sub(dot3(ocx, ocy, ocz, ocx, ocy, ocz), mul(rad, rad));
+  const float disc = sub(mul(b, b), mul(mul(4.0f, a_dd), c));
+  bool near_root;
+  return quad_t(a_dd, b, disc, &near_root);
+}
+
+// hit_movingSphere (common.glsl:551-605): the shader's quadratic in
+// d1 = center(time+EPS) - center(time) = (c1-c0)*EPS.  `outside` is the
+// near-root flag that selects the normal's centre.
+__device__ __forceinline__ float msph_t(const Ray& r, const float* row,
+                                        float time, float a_dd,
+                                        bool* outside) {
+  const float bx = ld(row, 3), by = ld(row, 4), bz = ld(row, 5);
+  const float rad = ld(row, 6);
+  const float c0x = add(ld(row, 0), mul(bx, time));
+  const float c0y = add(ld(row, 1), mul(by, time));
+  const float c0z = add(ld(row, 2), mul(bz, time));
+  const float d1x = mul(bx, kEps), d1y = mul(by, kEps), d1z = mul(bz, kEps);
+  const float ocx = sub(r.ox, c0x), ocy = sub(r.oy, c0y),
+              ocz = sub(r.oz, c0z);
+  const float dd1 = dot3(r.dx, r.dy, r.dz, d1x, d1y, d1z);
+  const float a = sub(a_dd, mul(dd1, dd1));
+  const float oc_d = dot3(ocx, ocy, ocz, r.dx, r.dy, r.dz);
+  const float oc_d1 = dot3(ocx, ocy, ocz, d1x, d1y, d1z);
+  const float b = mul(2.0f, sub(oc_d, mul(oc_d1, dd1)));
+  const float c = sub(sub(dot3(ocx, ocy, ocz, ocx, ocy, ocz),
+                          mul(oc_d1, oc_d1)), mul(rad, rad));
+  const float disc = sub(mul(b, b), mul(mul(4.0f, a), c));
+  return quad_t(a, b, disc, outside);
+}
+
+// (x, y, z) / |(x, y, z)|, a zero vector staying zero (safe_normalize).
+__device__ __forceinline__ void unit_rn(float x, float y, float z, float* n) {
+  const float l2 = dot3(x, y, z, x, y, z);
+  const float len = l2 > 1e-20f ? __fsqrt_rn(l2) : 1.0f;
+  n[0] = l2 > 1e-20f ? __fdiv_rn(x, len) : 0.0f;
+  n[1] = l2 > 1e-20f ? __fdiv_rn(y, len) : 0.0f;
+  n[2] = l2 > 1e-20f ? __fdiv_rn(z, len) : 0.0f;
+}
+
+// Closest hit over all primitives (strict <, table order).  Returns the
+// winner's index or -1, its t (kBig when none) and its unit normal (zero
+// when none), as hit_world computes them.
+__device__ int closest_fold(const float* __restrict__ table, int T, int S,
+                            int M, const Ray& r, float time, float* t_out,
+                            float* n) {
+  const float a_dd = dot3(r.dx, r.dy, r.dz, r.dx, r.dy, r.dz);
+  float bt = kBig;
+  int best = -1;
+  bool best_out = false;
+  for (int g = 0; g < T; ++g) {
+    const float t = tri_t(r, table + (size_t)g * kRow);
+    if (t < bt) { bt = t; best = g; }
+  }
+  for (int g = T; g < T + S; ++g) {
+    const float t = sph_t(r, table + (size_t)g * kRow, a_dd);
+    if (t < bt) { bt = t; best = g; }
+  }
+  for (int g = T + S; g < T + S + M; ++g) {
+    bool out;
+    const float t = msph_t(r, table + (size_t)g * kRow, time, a_dd, &out);
+    if (t < bt) { bt = t; best = g; best_out = out; }
+  }
+  *t_out = bt;
+  n[0] = n[1] = n[2] = 0.0f;
+  if (best < 0) return best;
+  const float* row = table + (size_t)best * kRow;
+  if (best < T) {
+    const float e1x = ld(row, 3), e1y = ld(row, 4), e1z = ld(row, 5);
+    const float e2x = ld(row, 6), e2y = ld(row, 7), e2z = ld(row, 8);
+    unit_rn(sub(mul(e1y, e2z), mul(e1z, e2y)),
+            sub(mul(e1z, e2x), mul(e1x, e2z)),
+            sub(mul(e1x, e2y), mul(e1y, e2x)), n);
+    return best;
+  }
+  const float px = add(r.ox, mul(r.dx, bt));
+  const float py = add(r.oy, mul(r.dy, bt));
+  const float pz = add(r.oz, mul(r.dz, bt));
+  if (best < T + S) {
+    unit_rn(sub(px, ld(row, 0)), sub(py, ld(row, 1)), sub(pz, ld(row, 2)),
+            n);
+    if (ld(row, 3) < 0.0f) {  // negative radius flips (common.glsl:545)
+      n[0] = -n[0]; n[1] = -n[1]; n[2] = -n[2];
+    }
+    return best;
+  }
+  // the moving sphere's centre at `time`, moved by d1 for the far root
+  float c[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    c[k] = add(ld(row, k), mul(ld(row, 3 + k), time));
+    if (!best_out) c[k] = add(c[k], mul(ld(row, 3 + k), kEps));
+  }
+  unit_rn(sub(px, c[0]), sub(py, c[1]), sub(pz, c[2]), n);
+  return best;
+}
+
+// True at the first primitive with EPS < t < tmax.
+__device__ bool any_fold(const float* __restrict__ table, int T, int S, int M,
+                         const Ray& r, float time, float tmax) {
+  const float a_dd = dot3(r.dx, r.dy, r.dz, r.dx, r.dy, r.dz);
+  for (int g = 0; g < T; ++g)
+    if (tri_t(r, table + (size_t)g * kRow) < tmax) return true;
+  for (int g = T; g < T + S; ++g)
+    if (sph_t(r, table + (size_t)g * kRow, a_dd) < tmax) return true;
+  for (int g = T + S; g < T + S + M; ++g) {
+    bool out;
+    if (msph_t(r, table + (size_t)g * kRow, time, a_dd, &out) < tmax)
+      return true;
+  }
+  return false;
+}
+
+__global__ void pt_closest_kernel(const float* __restrict__ table,
+                                  const int* __restrict__ mats, int T, int S,
+                                  int M, const float* __restrict__ rays,
+                                  int n, float* __restrict__ out_f,
+                                  int* __restrict__ out_i) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const size_t N = n;
+  const Ray r{rays[i], rays[N + i], rays[2 * N + i],
+              rays[3 * N + i], rays[4 * N + i], rays[5 * N + i]};
+  float t, nrm[3];
+  const int g = closest_fold(table, T, S, M, r, rays[6 * N + i], &t, nrm);
+  out_f[i] = t;
+  out_f[N + i] = nrm[0];
+  out_f[2 * N + i] = nrm[1];
+  out_f[3 * N + i] = nrm[2];
+  out_i[i] = g >= 0 ? __ldg(mats + g) : 0;
+}
+
+__global__ void pt_any_hit_kernel(const float* __restrict__ table, int T,
+                                  int S, int M,
+                                  const float* __restrict__ rays, int n,
+                                  unsigned char* __restrict__ occ) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const size_t N = n;
+  const Ray r{rays[i], rays[N + i], rays[2 * N + i],
+              rays[3 * N + i], rays[4 * N + i], rays[5 * N + i]};
+  occ[i] = any_fold(table, T, S, M, r, rays[6 * N + i], rays[7 * N + i])
+               ? 1 : 0;
+}
+
+// --------------------------------------------------------------- K6 helpers
+__device__ __forceinline__ void norm3(float& x, float& y, float& z) {
+  const float inv = rsqrtf(fmaxf(x * x + y * y + z * z, 1e-24f));
+  x *= inv; y *= inv; z *= inv;
+}
+
+__device__ __forceinline__ float pow5(float c) {
+  return c * ((c * c) * (c * c));
+}
+
+__device__ __forceinline__ float fresnel1(float cos_t, float f0) {
+  return f0 + (1.0f - f0) * pow5(fmaxf(1.0f - cos_t, 0.0f));
+}
+
+struct Material {
+  float typ, alb[3], spec[3], emis[3], rough, refidx, refract[3];
+};
+
+// One light's Blinn-Phong / GGX contribution added to col (P3D_RT.glsl:
+// 496-520, 550-575); v_ggx is the (quirked) GGX view, v the Blinn view.
+__device__ __forceinline__ void light_add(
+    float* col, const float* thr, const Material& m, const float* n,
+    const float* l, const float* v, const float* v_ggx, const float* lcol) {
+  const float ndl = fmaxf(n[0] * l[0] + n[1] * l[1] + n[2] * l[2], 0.0f);
+  float hbx = l[0] + v[0], hby = l[1] + v[1], hbz = l[2] + v[2];
+  norm3(hbx, hby, hbz);
+  const float r2 = m.rough * m.rough;
+  const float r4 = r2 * r2;
+  const float shin = 8.0f / (r4 + kEps) - 2.0f;
+  const float spec_b =
+      powf(fmaxf(n[0] * hbx + n[1] * hby + n[2] * hbz, 0.0f), shin);
+  float hgx = hbx, hgy = hby, hgz = hbz;
+  if (v_ggx != v) {
+    hgx = l[0] + v_ggx[0]; hgy = l[1] + v_ggx[1]; hgz = l[2] + v_ggx[2];
+    norm3(hgx, hgy, hgz);
+  }
+  const float nov =
+      fmaxf(n[0] * v_ggx[0] + n[1] * v_ggx[1] + n[2] * v_ggx[2], 0.0f);
+  const float ndh = fmaxf(n[0] * hgx + n[1] * hgy + n[2] * hgz, 0.0f);
+  const float cos_vh =
+      fmaxf(v_ggx[0] * hgx + v_ggx[1] * hgy + v_ggx[2] * hgz, 0.0f);
+  const float bb = ndh * ndh * (r4 - 1.0f) + 1.0f;
+  const float dg = r4 / (kPi * bb * bb + kEps);
+  const float rr = 0.25f * m.rough;
+  const float kk = rr * rr / 2.0f;
+  const float g1l = fmaxf(ndl, 0.0f) / (ndl * (1.0f - kk) + kk + kEps);
+  const float g1v = fmaxf(nov, 0.0f) / (nov * (1.0f - kk) + kk + kEps);
+  const float DG = (dg * g1l * g1v) / (4.0f * nov * ndl + kEps);
+  const bool is_gm = m.typ == kMetal || m.typ == kPlastic;
+  const bool is_pla = m.typ == kPlastic;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float ks_f = fresnel1(fmaxf(nov, 0.0f), m.spec[k]);
+    const float spec_k =
+        is_gm ? DG * fresnel1(cos_vh, m.spec[k]) : m.spec[k] * spec_b;
+    const float diff_k =
+        is_pla ? (1.0f - ks_f) * m.alb[k] / kPi : m.alb[k] * ndl;
+    col[k] = col[k] + (diff_k + spec_k) * lcol[k] * ndl * thr[k];
+  }
+}
+
+// randomInUnitSphere from 3 uniforms (common.glsl:102-108)
+__device__ __forceinline__ void unit_sphere(float u0, float u1, float u2,
+                                            float* s3) {
+  const float h0 = u0 * 2.0f - 1.0f;
+  const float phi = u1 * 6.28318530718f;
+  const float r3 = powf(fmaxf(u2, 0.0f), 1.0f / 3.0f);
+  const float s = sqrtf(fmaxf(1.0f - h0 * h0, 0.0f));
+  s3[0] = r3 * s * sinf(phi);
+  s3[1] = r3 * s * cosf(phi);
+  s3[2] = r3 * h0;
+}
+
+// jnp.mod(x, 1.0): the remainder with the divisor's sign.
+__device__ __forceinline__ float mod1(float x) {
+  float r = fmodf(x, 1.0f);
+  return (r != 0.0f && r < 0.0f) ? r + 1.0f : r;
+}
+
+__global__ void pt_bounce_kernel(
+    const float* __restrict__ table, const float* __restrict__ mrow, int T,
+    int S, int M, const float* __restrict__ plights, int n_pl,
+    const float* __restrict__ qlights, int n_ql, float* __restrict__ state,
+    const float* __restrict__ uni, int n, int rr, int grad_sky) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const size_t N = n;
+  float* st = state + i;  // row k of the lane's state at st[k * N]
+  const float time = st[6 * N];
+  st[6 * N] = 0.0f;  // scattered rays carry time 0 (common.glsl:43-46)
+  if (!(st[13 * N] > 0.0f)) return;  // dead lane: state passes through
+
+  const Ray r{st[0], st[N], st[2 * N], st[3 * N], st[4 * N], st[5 * N]};
+  float col[3] = {st[7 * N], st[8 * N], st[9 * N]};
+  float thr[3] = {st[10 * N], st[11 * N], st[12 * N]};
+
+  // ---- closest hit ----
+  float t_hit, nrm[3];
+  const int g = closest_fold(table, T, S, M, r, time, &t_hit, nrm);
+  if (g < 0) {
+    // miss (P3D_RT.glsl:659-672): the path ends here
+    if (grad_sky) {
+      const float tsky = fminf(fmaxf(0.8f * (r.dy + 1.0f), 0.0f), 1.0f);
+      const float sky[3] = {1.0f - tsky + tsky * 0.5f,
+                            1.0f - tsky + tsky * 0.7f,
+                            1.0f - tsky + tsky * 1.0f};
+#pragma unroll
+      for (int k = 0; k < 3; ++k) st[(7 + k) * N] = col[k] + thr[k] * sky[k];
+    } else {
+      // latch (throughput, direction) for the cubemap gather
+#pragma unroll
+      for (int k = 0; k < 3; ++k) st[(14 + k) * N] = thr[k];
+      st[17 * N] = r.dx;
+      st[18 * N] = r.dy;
+      st[19 * N] = r.dz;
+    }
+    st[13 * N] = 0.0f;
+    return;
+  }
+
+  const float* mr = mrow + (size_t)g * kMat;
+  Material m;
+  m.typ = ld(mr, 0);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    m.alb[k] = ld(mr, 1 + k);
+    m.spec[k] = ld(mr, 4 + k);
+    m.emis[k] = ld(mr, 7 + k);
+    m.refract[k] = ld(mr, 12 + k);
+  }
+  m.rough = ld(mr, 10);
+  m.refidx = ld(mr, 11);
+  float nv[3] = {nrm[0], nrm[1], nrm[2]};
+  norm3(nv[0], nv[1], nv[2]);
+  const float p[3] = {r.ox + r.dx * t_hit, r.oy + r.dy * t_hit,
+                      r.oz + r.dz * t_hit};
+  if (ld(mr, 15) > 0.5f) {  // striped background shade (P3D_RT.glsl:149)
+    const float shade = floorf(mod1(p[0]) * 2.0f);
+    m.alb[0] = m.alb[1] = m.alb[2] = shade;
+  }
+
+  if (m.emis[0] != 0.0f || m.emis[1] != 0.0f || m.emis[2] != 0.0f) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) col[k] = col[k] + m.emis[k] * thr[k];
+  }
+
+  float v[3] = {r.dx, r.dy, r.dz};
+  norm3(v[0], v[1], v[2]);
+  v[0] = -v[0]; v[1] = -v[1]; v[2] = -v[2];  // viewDir (P3D_RT.glsl:526)
+
+  // ---- point lights with shadow folds (time 0) ----
+  for (int j = 0; j < n_pl; ++j) {
+    const float* L = plights + (size_t)j * 6;
+    float l[3] = {ld(L, 0) - p[0], ld(L, 1) - p[1], ld(L, 2) - p[2]};
+    const float dist =
+        sqrtf(fmaxf(l[0] * l[0] + l[1] * l[1] + l[2] * l[2], 1e-24f));
+    l[0] = l[0] / dist; l[1] = l[1] / dist; l[2] = l[2] / dist;
+    if (!(nv[0] * l[0] + nv[1] * l[1] + nv[2] * l[2] > 0.0f)) continue;
+    const Ray s{p[0] + nv[0] * kEps, p[1] + nv[1] * kEps,
+                p[2] + nv[2] * kEps, l[0], l[1], l[2]};
+    if (any_fold(table, T, S, M, s, 0.0f, dist - 1e-3f)) continue;
+    const float lcol[3] = {ld(L, 3), ld(L, 4), ld(L, 5)};
+    light_add(col, thr, m, nv, l, v, v, lcol);
+  }
+
+  // ---- quad lights: jittered point, NO shadow ray, and the GGX view
+  // sign quirk: BRDF_GGX receives -viewDir = the raw ray direction while
+  // Blinn-H keeps +viewDir (P3D_RT.glsl:483-523) ----
+  const float gview[3] = {-v[0], -v[1], -v[2]};
+  for (int j = 0; j < n_ql; ++j) {
+    const float* Q = qlights + (size_t)j * 12;
+    const float u1 = uni[(8 + 2 * j) * N + i];
+    const float u2 = uni[(9 + 2 * j) * N + i];
+    float l[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      l[k] = ld(Q, k) + ld(Q, 3 + k) * u1 + ld(Q, 6 + k) * u2 - p[k];
+    norm3(l[0], l[1], l[2]);
+    if (!(nv[0] * l[0] + nv[1] * l[1] + nv[2] * l[2] > 0.0f)) continue;
+    const float lcol[3] = {ld(Q, 9), ld(Q, 10), ld(Q, 11)};
+    light_add(col, thr, m, nv, l, v, gview, lcol);
+  }
+
+  // ---- scatter (common.glsl:300-407) ----
+  const float uch = uni[i];
+  const bool outside = (r.dx * nv[0] + r.dy * nv[1] + r.dz * nv[2]) < 0.0f;
+  const float sgn = outside ? 1.0f : -1.0f;
+  const float Nn[3] = {nv[0] * sgn, nv[1] * sgn, nv[2] * sgn};
+  float ua[3], sb[3];
+  unit_sphere(uni[N + i], uni[2 * N + i], uni[3 * N + i], ua);
+  norm3(ua[0], ua[1], ua[2]);
+  unit_sphere(uni[4 * N + i], uni[5 * N + i], uni[6 * N + i], sb);
+
+  const bool is_dif = m.typ == kDiffuse, is_met = m.typ == kMetal;
+  const bool is_die = m.typ == kDielectric;
+  // METAL: reflect + rough fuzz (also the specular lobes below)
+  const float ddn = r.dx * Nn[0] + r.dy * Nn[1] + r.dz * Nn[2];
+  float md[3] = {r.dx - 2.0f * ddn * Nn[0] + sb[0] * m.rough,
+                 r.dy - 2.0f * ddn * Nn[1] + sb[1] * m.rough,
+                 r.dz - 2.0f * ddn * Nn[2] + sb[2] * m.rough};
+  norm3(md[0], md[1], md[2]);
+  const bool ok_met = (md[0] * Nn[0] + md[1] * Nn[1] + md[2] * Nn[2]) > 0.0f;
+  const bool ok = !is_met || ok_met;
+
+  float new_d[3], atten[3];
+  bool refract_dir = false;
+  if (is_dif) {
+    // DIFFUSE: dir = N + unit vector, unnormalized
+#pragma unroll
+    for (int k = 0; k < 3; ++k) new_d[k] = Nn[k] + ua[k];
+    const float ndd = fmaxf(
+        Nn[0] * new_d[0] + Nn[1] * new_d[1] + Nn[2] * new_d[2], 0.0f);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) atten[k] = m.alb[k] * ndd;
+  } else if (is_met) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) { new_d[k] = md[k]; atten[k] = m.spec[k]; }
+  } else if (is_die) {
+    const float ior1 = outside ? 1.0f : m.refidx;
+    const float ior2 = outside ? m.refidx : 1.0f;
+    const float eta = ior1 / ior2;
+    const float vdn = v[0] * Nn[0] + v[1] * Nn[1] + v[2] * Nn[2];
+    const float vtx = Nn[0] * vdn - v[0], vty = Nn[1] * vdn - v[1],
+                vtz = Nn[2] * vdn - v[2];
+    const float sin_i = sqrtf(fmaxf(vtx * vtx + vty * vty + vtz * vtz, 0.0f));
+    const float sin_t = eta * sin_i;
+    const float cos_t = sqrtf(fmaxf(1.0f - sin_t * sin_t, 0.0f));
+    const float cos_sel = ior1 > ior2 ? cos_t : vdn;
+    const float q = (ior1 - ior2) / (ior1 + ior2);
+    const float r0 = q * q;
+    const float schl = r0 + (1.0f - r0) * pow5(fmaxf(1.0f - cos_sel, 0.0f));
+    const float refl_prob = sin_t >= 1.0f ? 1.0f : schl;
+    const bool take_refl = uch < refl_prob;
+    if (take_refl) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) new_d[k] = md[k];
+    } else {
+      float ix = r.dx, iy = r.dy, iz = r.dz;
+      norm3(ix, iy, iz);
+      const float ndi = Nn[0] * ix + Nn[1] * iy + Nn[2] * iz;
+      const float kref = 1.0f - eta * eta * (1.0f - ndi * ndi);
+      const bool kok = kref >= 0.0f;
+      const float rt = eta * ndi + sqrtf(fmaxf(kref, 0.0f));
+      new_d[0] = (kok ? eta * ix - rt * Nn[0] : 0.0f) + sb[0] * m.rough;
+      new_d[1] = (kok ? eta * iy - rt * Nn[1] : 0.0f) + sb[1] * m.rough;
+      new_d[2] = (kok ? eta * iz - rt * Nn[2] : 0.0f) + sb[2] * m.rough;
+      norm3(new_d[0], new_d[1], new_d[2]);
+      refract_dir = true;
+    }
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      atten[k] = (take_refl || outside) ? 1.0f
+                                        : expf(-m.refract[k] * t_hit);
+  } else {
+    // PLASTIC
+    float lx = r.ox - p[0], ly = r.oy - p[1], lz = r.oz - p[2];
+    norm3(lx, ly, lz);
+    float hx = v[0] + lx, hy = v[1] + ly, hz = v[2] + lz;
+    norm3(hx, hy, hz);
+    const float cos_p = v[0] * hx + v[1] * hy + v[2] * hz;
+    float f_vec[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) f_vec[k] = fresnel1(cos_p, m.spec[k]);
+    const float prob = (f_vec[0] + f_vec[1] + f_vec[2]) / 3.0f;
+    if (uch < prob) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        new_d[k] = md[k];
+        atten[k] = ok_met ? m.spec[k] / fmaxf(prob, 1e-8f) : 1.0f;
+      }
+    } else {
+      new_d[0] = Nn[0] + sb[0]; new_d[1] = Nn[1] + sb[1];
+      new_d[2] = Nn[2] + sb[2];
+      norm3(new_d[0], new_d[1], new_d[2]);
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        atten[k] = (1.0f - f_vec[k]) * m.alb[k] / kPi /
+                   fmaxf(1.0f - prob, 1e-8f);
+    }
+  }
+
+  bool alive2 = ok;
+  if (!ok) {
+    // no-scatter absorbed: col += thr * emissive (P3D_RT.glsl:641-645)
+#pragma unroll
+    for (int k = 0; k < 3; ++k) col[k] = col[k] + thr[k] * m.emis[k];
+  } else {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) thr[k] = thr[k] * atten[k];
+    if (rr) {  // Russian roulette (P3D_RT.glsl:651-656)
+      const float pmax = fmaxf(thr[0], fmaxf(thr[1], thr[2]));
+      if (uni[7 * N + i] > pmax) {
+        alive2 = false;
+      } else {
+        const float boost = 1.0f / fmaxf(pmax, 1e-12f);
+#pragma unroll
+        for (int k = 0; k < 3; ++k) thr[k] = thr[k] * boost;
+      }
+    }
+  }
+
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    st[(7 + k) * N] = col[k];
+    st[(10 + k) * N] = thr[k];
+  }
+  if (alive2) {
+    const float off = refract_dir ? -kEps : kEps;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      st[k * N] = p[k] + Nn[k] * off;
+      st[(3 + k) * N] = new_d[k];
+    }
+  }
+  st[13 * N] = alive2 ? 1.0f : 0.0f;
+}
+
+int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
+
+}  // namespace
+
+extern "C" int drt_pt_closest(const void* table, const void* mats, int T,
+                              int S, int M, const void* rays, int n,
+                              void* out_f, void* out_i, void* stream) {
+  if (n > 0) {
+    pt_closest_kernel<<<blocks_for(n), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(table), static_cast<const int*>(mats), T,
+        S, M, static_cast<const float*>(rays), n, static_cast<float*>(out_f),
+        static_cast<int*>(out_i));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int drt_pt_any_hit(const void* table, int T, int S, int M,
+                              const void* rays, int n, void* occ,
+                              void* stream) {
+  if (n > 0) {
+    pt_any_hit_kernel<<<blocks_for(n), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(table), T, S, M,
+        static_cast<const float*>(rays), n,
+        static_cast<unsigned char*>(occ));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int drt_pt_bounce(const void* table, const void* mrow, int T,
+                             int S, int M, const void* plights, int n_pl,
+                             const void* qlights, int n_ql, void* state,
+                             const void* uni, int n, int rr, int grad_sky,
+                             void* stream) {
+  if (n > 0) {
+    pt_bounce_kernel<<<blocks_for(n), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(table), static_cast<const float*>(mrow), T,
+        S, M, static_cast<const float*>(plights), n_pl,
+        static_cast<const float*>(qlights), n_ql, static_cast<float*>(state),
+        static_cast<const float*>(uni), n, rr, grad_sky);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -37,6 +37,7 @@ from distributionraytracer_tpu_torch.ops import cuda_whitted as CW
 from distributionraytracer_tpu_torch.ops.common import (
     OFFSET, clamp_color, dot, normalize, safe_div, safe_normalize, safe_sqrt,
 )
+from distributionraytracer_tpu_torch.ops.cubemap import skybox_color
 from distributionraytracer_tpu_torch.ops.intersect import (
     HitResult, any_hit_brute, closest_hit_brute,
 )
@@ -145,7 +146,6 @@ def trace_whitted(scene: SceneData, cfg: RenderConfig, o, d, time,
     node_valid = torch.ones((R, 1), dtype=torch.bool, device=dev)
     rays_traced = torch.zeros((), dtype=torch.int64, device=dev)
     shadow_rays = torch.zeros((), dtype=torch.int64, device=dev)
-    miss_rgb = clamp_color(scene.bg_color.to(torch.float32))
 
     for level in range(levels):
         depth = level + 1
@@ -166,7 +166,7 @@ def trace_whitted(scene: SceneData, cfg: RenderConfig, o, d, time,
                 flat(node_ior), flat(node_ls), fv, spawn=spawn,
                 tables=level_tabs)
             hit_flags = res.pop("_hit")
-            res["miss_color"] = miss_rgb.expand(R * n, 3)
+            res["miss_color"] = _miss_color(scene, flat(node_d))
         else:
             hit: HitResult = inter.closest(flat(node_o), flat(node_d),
                                            flat(node_t), valid=fv)
@@ -216,6 +216,14 @@ def trace_whitted(scene: SceneData, cfg: RenderConfig, o, d, time,
 
     return child_color[:, 0], {"rays_traced": rays_traced,
                                "shadow_rays": shadow_rays}
+
+
+def _miss_color(scene: SceneData, d):
+    """The colour of rays ``d`` that hit nothing: the skybox texel when the
+    scene has one, else the background colour (main.cpp:328-357)."""
+    if scene.static.has_skybox:
+        return clamp_color(skybox_color(scene.sky_faces, scene.sky_res, d))
+    return clamp_color(scene.bg_color.to(torch.float32)).expand(d.shape[0], 3)
 
 
 def _shade_node(scene: SceneData, cfg: RenderConfig, inter: Intersectors,
@@ -283,8 +291,7 @@ def _shade_node(scene: SceneData, cfg: RenderConfig, inter: Intersectors,
     out = {
         "direct": direct,
         "miss": valid & ~hit.hit,
-        "miss_color": clamp_color(scene.bg_color.to(torch.float32)).expand(
-            Rn, 3),
+        "miss_color": _miss_color(scene, d),
         "valid": valid,
     }
     if not spawn_children:

@@ -1,19 +1,25 @@
 """Build the CUDA kernels in ``csrc/`` at first use and load them with ctypes.
 
-The sources are compiled by ``nvcc`` for Hopper (``sm_90a``) into one shared
-library with a plain C interface:
+Each ``.cu`` source is compiled by its own ``nvcc`` for Hopper (``sm_90a``),
+all started together, and the objects are linked into one shared library
+with a plain C interface:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o _build/libdrt_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -c csrc/<name>.cu -o _build/<name>_<hash>.o
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \\
+         -o _build/libdrt_kernels_<hash>.so _build/*_<hash>.o
 
-The library name carries a hash of every source file, so a stale library
-is never loaded.  ``--use_fast_math`` is deliberately absent: the
+The compiles run side by side because the build is part of every fresh
+checkout's first run; a failed build leaves no object behind.  The library
+name carries a hash of every source file, so a stale library is never
+loaded.  ``--use_fast_math`` is deliberately absent: the
 intersection tests rely on IEEE ``inf`` and exact division.  Nothing here
 runs at import time; a missing ``nvcc`` or a failed build raises.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -26,8 +32,9 @@ from typing import NamedTuple
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,14 +48,25 @@ SIGNATURES = {
     # motion_blur, spawn, ref_shadow, out, stream
     "drt_whitted_level": [_P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I,
                           _P, _P],
+    # table, mats, n_tri, n_sph, n_msph, rays, n, out_f, out_i, stream
+    "drt_pt_closest": [_P, _P, _I, _I, _I, _P, _I, _P, _P, _P],
+    # table, n_tri, n_sph, n_msph, rays, n, occ, stream
+    "drt_pt_any_hit": [_P, _I, _I, _I, _P, _I, _P, _P],
+    # table, mrow, n_tri, n_sph, n_msph, plights, n_pl, qlights, n_ql,
+    # state, uniforms, n, russian_roulette, gradient_sky, stream
+    "drt_pt_bounce": [_P, _P, _I, _I, _I, _P, _I, _P, _I, _P, _P, _I, _I,
+                      _I, _P],
 }
 
 
 class Built(NamedTuple):
     lib: ctypes.CDLL
     path: str
-    seconds: float  # compile time, 0.0 when the library was already built
+    seconds: float  # build wall time, 0.0 when the library was already built
     log: str  # nvcc's output (register and spill report)
+    # wall seconds of each source's nvcc, run side by side (empty when the
+    # library was already built); their sum is what one after another takes
+    compile_seconds: dict
 
 
 def sources():
@@ -78,32 +96,62 @@ def _digest(paths) -> str:
     return h.hexdigest()[:16]
 
 
+def _run(cmd):
+    """(completed process, wall seconds) of one command."""
+    t0 = time.perf_counter()
+    p = subprocess.run(cmd, cwd=CSRC, stdout=subprocess.PIPE,
+                       stderr=subprocess.STDOUT, text=True)
+    return p, time.perf_counter() - t0
+
+
+def _run_all(cmds):
+    """Run the commands concurrently; raise on the first that fails.
+    Returns their combined output, in command order, and each one's wall
+    seconds."""
+    with concurrent.futures.ThreadPoolExecutor(len(cmds)) as pool:
+        done = list(pool.map(_run, cmds))
+    for c, (p, _) in zip(cmds, done):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(c)}\n{p.stdout}")
+    return "".join(p.stdout for p, _ in done), [s for _, s in done]
+
+
 @functools.lru_cache(maxsize=1)
 def load() -> Built:
     """Compile (when needed) and load the kernel library; cached per process."""
     srcs = sources()
-    path = os.path.join(BUILD_DIR, f"libdrt_kernels_{_digest(srcs)}.so")
-    seconds, log = 0.0, ""
+    tag = _digest(srcs)
+    path = os.path.join(BUILD_DIR, f"libdrt_kernels_{tag}.so")
+    seconds, log, compile_seconds = 0.0, "", {}
     if not os.path.exists(path):
         nvcc = _find_nvcc()
         os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
-               *[s for s in srcs if s.endswith(".cu")]]
+        pid = os.getpid()
+        cus = [s for s in srcs if s.endswith(".cu")]
+        objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)[:-3]}_{tag}"
+                             f".{pid}.o") for s in cus]
+        tmp = f"{path}.{pid}.tmp"
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=CSRC, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{log}")
-        os.replace(tmp, path)  # atomic: concurrent builders never see half
+        try:
+            log, secs = _run_all([[nvcc, *NVCC_FLAGS, "-c", s, "-o", o]
+                                  for s, o in zip(cus, objs)])
+            compile_seconds = {os.path.basename(s): x
+                               for s, x in zip(cus, secs)}
+            log += _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", tmp,
+                              *objs]])[0]
+            seconds = time.perf_counter() - t0
+            os.replace(tmp, path)  # atomic: concurrent builders never see half
+        finally:
+            for f in (*objs, tmp):
+                if os.path.exists(f):
+                    os.remove(f)
     lib = ctypes.CDLL(path)
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    return Built(lib, path, seconds, log)
+    return Built(lib, path, seconds, log, compile_seconds)
 
 
 def check(err: int, name: str):

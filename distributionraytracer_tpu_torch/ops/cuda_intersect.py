@@ -74,6 +74,32 @@ def _valid_stream(valid, like):
     return valid.to(torch.float32)
 
 
+# The launch_* functions run a kernel on streams that are already packed;
+# they count nothing.  The *_kernel wrappers pack, launch and count.
+def launch_closest_hit(tb: ObjectTables, n_obj: int, rays, motion_blur: bool,
+                       out_f, out_i):
+    """K1 on packed (8, R) rays into (4, R) f32 and (2, R) i32 outputs."""
+    with torch.cuda.device(rays.device):
+        err = build.load().lib.drt_closest_hit(
+            tb.data.data_ptr(), tb.types.data_ptr(), tb.mats.data_ptr(),
+            n_obj, rays.data_ptr(), rays.shape[1],
+            int(motion_blur), out_f.data_ptr(), out_i.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    build.check(err, "drt_closest_hit")
+
+
+def launch_any_hit(tb: ObjectTables, n_obj: int, rays, excl, mode: str,
+                   motion_blur: bool, occ):
+    """K2 on packed (8, R) rays and (R,) i32 excluded ids into (R,) bool."""
+    with torch.cuda.device(rays.device):
+        err = build.load().lib.drt_any_hit(
+            tb.data.data_ptr(), tb.types.data_ptr(), n_obj,
+            rays.data_ptr(), excl.data_ptr(), rays.shape[1],
+            ANY_HIT_MODES[mode], int(motion_blur), occ.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    build.check(err, "drt_any_hit")
+
+
 def closest_hit_kernel(scene: SceneData, o, d, time, motion_blur: bool,
                        valid=None, tables: Optional[ObjectTables] = None
                        ) -> HitResult:
@@ -85,14 +111,8 @@ def closest_hit_kernel(scene: SceneData, o, d, time, motion_blur: bool,
     require_cuda("closest_hit", rays, tb.data, tb.types, tb.mats)
     out_f = torch.empty((4, R), dtype=torch.float32, device=rays.device)
     out_i = torch.empty((2, R), dtype=torch.int32, device=rays.device)
-    lib = build.load().lib
-    with torch.cuda.device(rays.device):
-        err = lib.drt_closest_hit(
-            tb.data.data_ptr(), tb.types.data_ptr(), tb.mats.data_ptr(),
-            scene.static.n_objects, rays.data_ptr(), R, int(motion_blur),
-            out_f.data_ptr(), out_i.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    build.check(err, "drt_closest_hit")
+    launch_closest_hit(tb, scene.static.n_objects, rays, motion_blur, out_f,
+                       out_i)
     LAUNCHES["closest_hit"] += 1
     t = out_f[0]
     return HitResult(hit=t < FLT_MAX, t=t, normal=out_f[1:4].T,
@@ -116,14 +136,8 @@ def any_hit_kernel(scene: SceneData, o, d, max_dist, exclude_obj,
     excl = exclude_obj.to(torch.int32).contiguous()
     require_cuda("any_hit", rays, excl, tb.data, tb.types)
     occ = torch.empty((R,), dtype=torch.bool, device=rays.device)
-    lib = build.load().lib
-    with torch.cuda.device(rays.device):
-        err = lib.drt_any_hit(
-            tb.data.data_ptr(), tb.types.data_ptr(), scene.static.n_objects,
-            rays.data_ptr(), excl.data_ptr(), R, ANY_HIT_MODES[mode],
-            int(motion_blur), occ.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    build.check(err, "drt_any_hit")
+    launch_any_hit(tb, scene.static.n_objects, rays, excl, mode, motion_blur,
+                   occ)
     LAUNCHES["any_hit"] += 1
     return occ
 

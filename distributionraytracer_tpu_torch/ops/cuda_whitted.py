@@ -200,6 +200,20 @@ def fused_level_plain(scene: SceneData, cfg, o, d, time, ior, light_sample,
     return _unpack(torch.stack(outs), valid, spawn)
 
 
+def launch_level(tb: LevelTables, n_obj: int, rays, cfg, spawn: bool, out):
+    """K3 on packed (11, R) rays into (4 or 29, R) f32 outputs; counts
+    nothing (the wrapper below packs, launches and counts)."""
+    with torch.cuda.device(rays.device):
+        err = build.load().lib.drt_whitted_level(
+            tb.data.data_ptr(), tb.types.data_ptr(), tb.mrow.data_ptr(),
+            n_obj, tb.lights.data_ptr(),
+            tb.light_quad.data_ptr(), tb.lights.shape[0],
+            rays.data_ptr(), rays.shape[1], int(cfg.motion_blur), int(spawn),
+            int(cfg.shadow_mode == "reference"), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    build.check(err, "drt_whitted_level")
+
+
 def fused_level_kernel(scene: SceneData, cfg, o, d, time, ior, light_sample,
                        valid, spawn: bool,
                        tables: Optional[LevelTables] = None):
@@ -213,16 +227,7 @@ def fused_level_kernel(scene: SceneData, cfg, o, d, time, ior, light_sample,
                  tb.light_quad)
     n_out = 29 if spawn else 4
     out = torch.empty((n_out, R), dtype=torch.float32, device=rays.device)
-    lib = build.load().lib
-    with torch.cuda.device(rays.device):
-        err = lib.drt_whitted_level(
-            tb.data.data_ptr(), tb.types.data_ptr(), tb.mrow.data_ptr(),
-            scene.static.n_objects, tb.lights.data_ptr(),
-            tb.light_quad.data_ptr(), scene.static.n_lights,
-            rays.data_ptr(), R, int(cfg.motion_blur), int(spawn),
-            int(cfg.shadow_mode == "reference"), out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    build.check(err, "drt_whitted_level")
+    launch_level(tb, scene.static.n_objects, rays, cfg, spawn, out)
     LAUNCHES["fused_level"] += 1
     return _unpack(out, valid, spawn)
 

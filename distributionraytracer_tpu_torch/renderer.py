@@ -1,7 +1,8 @@
 """High-level renderer facade (counterpart of ``distributionraytracer_tpu.renderer``).
 
-Covers the accel-NONE branch: the scene's tensors move to ``device`` once,
-and every render runs the Whitted/distribution tree there.
+Covers the accel-NONE branch: the scene's tensors move to ``device`` once
+(the card unless the caller asks for ``"cpu"``), and every render runs the
+Whitted/distribution tree there.
 
 Usage:
     r = Renderer(create_random_scene(0), device="cuda")
@@ -37,7 +38,7 @@ def resolve_device(device) -> torch.device:
 
 class Renderer:
     def __init__(self, scene: SceneData, cfg: Optional[RenderConfig] = None,
-                 device="cpu"):
+                 device="cuda"):
         if scene.static.accel != ACCEL_NONE:
             raise NotImplementedError(
                 "grid and BVH scenes are not ported yet (ROADMAP: Slice D, "

@@ -13,7 +13,8 @@ Token-for-token equivalent of ``Scene::load_p3f`` (scene.cpp:474-740):
 - ``light punctual pos color`` / ``light quad pos color v1 v2 gridRes``
 - ``camera eye.. at.. up.. angle hither resolution aperture focal``
 - ``bclr r g b``
-- ``env skydir``                          — skybox: not yet supported here
+- ``env skydir``                          — skybox (``scene/skybox.py``,
+                                            which needs PIL)
 - ``# ...``                               — comment to end of line
 
 Parsing is whitespace-token based like ``ifstream >>`` so layouts with
@@ -23,11 +24,13 @@ numbers spread across lines parse identically.  Numbers are parsed with
 
 from __future__ import annotations
 
+import os
 from typing import List, Optional
 
 import numpy as np
 
 from distributionraytracer_tpu_torch.scene.builder import SceneBuilder
+from distributionraytracer_tpu_torch.scene.skybox import load_skybox
 from distributionraytracer_tpu_torch.scene.types import (
     ACCEL_BVH, ACCEL_GRID, ACCEL_NONE, SceneData,
 )
@@ -82,11 +85,17 @@ class _Tokens:
 
 def load_p3f(path: str) -> SceneData:
     with open(path, "r") as f:
-        return parse_p3f(f.read())
+        return parse_p3f(f.read(), os.path.dirname(os.path.abspath(path)))
 
 
-def parse_p3f(text: str) -> SceneData:
-    """Parse P3F text into a CPU :class:`SceneData`."""
+def parse_p3f(text: str, base_dir: Optional[str] = None) -> SceneData:
+    """Parse P3F text into a CPU :class:`SceneData`.
+
+    ``env`` resolves its skybox directory against ``base_dir`` (the scene
+    file's directory; the working directory when None), then its parent.
+    """
+    if base_dir is None:
+        base_dir = os.getcwd()
     tk = _Tokens(text)
     b = SceneBuilder()
 
@@ -160,9 +169,16 @@ def parse_p3f(text: str) -> SceneData:
         elif cmd == "bclr":
             b.bg_color = np.array(tk.floats(3), np.float32)
         elif cmd == "env":
-            raise NotImplementedError(
-                f"P3F 'env {tk.next()}': skyboxes are not ported yet "
-                "(ROADMAP: Slice B, skybox and env)")
+            sky_dir = tk.next()
+            # the reference resolves the skybox dir relative to its CWD
+            # (the project root), one level above P3D_Scenes/
+            for root in (base_dir, os.path.dirname(base_dir)):
+                cand = os.path.join(root, sky_dir)
+                if os.path.isdir(cand):
+                    b.sky_faces, b.sky_res = load_skybox(cand)
+                    break
+            else:
+                raise FileNotFoundError(f"skybox dir {sky_dir!r}")
         else:
             raise ValueError(f"unknown P3F command {cmd!r}")
 

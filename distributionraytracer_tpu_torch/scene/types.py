@@ -8,7 +8,7 @@ the other through numpy (:func:`scene_from_numpy`):
 - a materials table indexed per primitive (``Material``, scene.h:34-66);
 - a lights table (``Light``, scene.h:68-107);
 - camera eye/at/up leaves, the uvn frame derived by :func:`derive_camera`;
-- the skybox leaves (zeros until the skybox slice).
+- the skybox leaves (a (6,1,1,3) zero face table when there is none).
 
 Static metadata (counts, accel type, resolution, spp, insertion order)
 lives in the frozen, hashable :class:`SceneStatic`.

@@ -7,11 +7,14 @@ Needs no JAX, so it runs where the card is:
 Every test here skips on a machine without a CUDA device.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from distributionraytracer_tpu_torch.config import RenderConfig
+from distributionraytracer_tpu_torch.integrator import pathtracer as PT
 from distributionraytracer_tpu_torch.integrator.render import (
     default_config, make_samples, render_from_samples,
 )
@@ -20,18 +23,19 @@ from distributionraytracer_tpu_torch.integrator.whitted import (
 )
 from distributionraytracer_tpu_torch.ops import build
 from distributionraytracer_tpu_torch.ops import cuda_intersect as CI
+from distributionraytracer_tpu_torch.ops import cuda_pt as CP
 from distributionraytracer_tpu_torch.ops import cuda_whitted as CW
 from distributionraytracer_tpu_torch.ops.intersect import (
     any_hit_brute, closest_hit_brute,
 )
 from distributionraytracer_tpu_torch.renderer import Renderer
 from distributionraytracer_tpu_torch.scene import (
-    SceneBuilder, create_random_scene,
+    SCENE_BUILDERS, SceneBuilder, create_random_scene,
 )
 
 from torch_scenes import (
     compare_levels, crowd_scene, level_inputs, occlusion_inputs, prim_scene,
-    random_rays,
+    PT_PRIM_LEAVES, PT_VIEWS, pt_rays, random_rays, synthetic_faces,
 )
 
 torch.set_num_threads(1)
@@ -175,3 +179,144 @@ def test_kernels_take_scenes_past_1024_objects(dev):
     assert _launches()[0] == 1
     assert 0.05 < float(ref.hit.float().mean())
     assert _mismatch(ref.obj_id, h.obj_id) <= BUDGET
+
+
+# ---------------------------------------------------------- path tracer
+def _pt_scene(dev, si):
+    args = () if si == 0 else synthetic_faces(si)
+    return SCENE_BUILDERS[si](*args).to(dev)
+
+
+@pytest.mark.parametrize("si", [0, 3])
+def test_pt_query_kernels_match_plain(dev, si):
+    """K4 and K5 against hit_world / any_hit: hit and material equal, t to
+    rtol 2e-4, normals beyond 1e-3 on under 0.5% of the hits; at most
+    BUDGET of the lanes may flip at the measure-zero edges."""
+    scene = _pt_scene(dev, si)
+    o, d, tm = random_rays(N, seed=20 + si, spread=5.0)
+    if si == 3:  # origins inside the open Cornell box
+        o = np.random.default_rng(si).uniform((-12, -12, 15), (12, 12, 25),
+                                              (N, 3))
+    o, d, tm = _cuda(dev, o.astype(np.float32), d, tm)
+    ref = PT.hit_world(scene, o, d, tm)
+    h = CP.pt_closest_kernel(scene, o, d, tm)
+    torch.cuda.synchronize()
+    assert 0.05 < float(ref.hit.float().mean()) < 0.95
+    same = (ref.hit == h.hit) & (~ref.hit | (ref.mat == h.mat))
+    both = same & ref.hit
+    near = (h.t - ref.t).abs() <= 2e-4 * ref.t.abs()
+    assert float((~same | (both & ~near)).float().mean()) <= BUDGET
+    dn = (h.normal - ref.normal).abs().amax(-1) > 1e-3
+    assert float(dn[both].float().mean()) < 0.005
+    tmax = torch.rand(N, device=dev) * 20 + 0.5
+    ref_occ = PT.any_hit(scene, o, d, tm, 1e-3, tmax)
+    occ = CP.pt_any_hit_kernel(scene, o, d, tm, tmax)
+    torch.cuda.synchronize()
+    assert 0.05 < float(ref_occ.float().mean()) < 0.95
+    assert _mismatch(ref_occ, occ) <= BUDGET
+
+
+def _bounce_lanes_off(ref, got):
+    """K6 states that differ per lane: alive flags, origins beyond 1e-5 of
+    their magnitude, any other row beyond atol 2e-3 + rtol 2e-3."""
+    off = (ref[CP.ST_ALIVE] > 0) != (got[CP.ST_ALIVE] > 0)
+    o_lim = 1e-5 * torch.clamp(ref[CP.ST_O].abs().amax(0), min=1.0)
+    off |= ~((got[CP.ST_O] - ref[CP.ST_O]).abs() <= o_lim).all(0)
+    rest = ref[3:]
+    off |= ~((got[3:] - rest).abs() <= 2e-3 + 2e-3 * rest.abs()).all(0)
+    return off
+
+
+@pytest.mark.parametrize("si", [0, 1, 2, 3, 4])
+def test_pt_bounce_kernel_matches_plain(dev, si):
+    """K6 against its plain version, one bounce from camera rays and one
+    from the plain state after three bounces, on the same uniforms, in
+    every scene: all four materials, point and quad lights, gradient and
+    cubemap skies."""
+    scene = _pt_scene(dev, si)
+    o, d, tm = _cuda(dev, *pt_rays(N, 30 + si, *PT_VIEWS[si]))
+    n_ql = scene.qlight_pos.shape[0]
+    g = torch.Generator(device=dev).manual_seed(si)
+    state = CP.bounce_state(o, d, tm)
+    for b in range(4):
+        u = PT.draw_uniforms(scene, N, g, dev)
+        uni = CP.bounce_streams(u.uch, u.u3a, u.u3b, u.urr, u.uq, n_ql)
+        if b in (0, 3):
+            got = CP.pt_bounce_kernel(scene, state.clone(), uni, True)
+            ref = CP.pt_bounce_plain(scene, state.clone(), uni, True)
+            torch.cuda.synchronize()
+            assert 0 < int((ref[CP.ST_ALIVE] > 0).sum()) < N
+            assert float(_bounce_lanes_off(ref, got).float().mean()) <= \
+                BUDGET
+        CP.pt_bounce_plain(scene, state, uni, True)
+
+
+@pytest.mark.parametrize("si", [0, 3])
+def test_pt_scene_without_primitives_launches_kernels(dev, si):
+    """A scene with no primitive runs K6 on the fused route and K4/K5 on
+    the staged one, like any other, and matches the plain route: every
+    path sees the sky at once."""
+    full = _pt_scene(dev, si)
+    scene = dataclasses.replace(
+        full, **{n: getattr(full, n)[:0] for n in PT_PRIM_LEAVES})
+    cfg = RenderConfig(max_bounces=3)
+    run = lambda c, q=None: PT.render_pt(
+        scene, c, 16, 12, torch.Generator(device=dev).manual_seed(1),
+        spp=2, queries=q)
+    CP.reset_launches()
+    fused = run(cfg)
+    torch.cuda.synchronize()
+    assert CP.LAUNCHES == {"pt_closest": 0, "pt_any_hit": 0, "pt_bounce": 3}
+    CP.reset_launches()
+    staged = run(cfg, PT.kernel_queries(scene))
+    torch.cuda.synchronize()
+    n_pl = scene.plight_pos.shape[0]
+    assert CP.LAUNCHES == {"pt_closest": 3, "pt_any_hit": 3 * n_pl,
+                           "pt_bounce": 0}
+    plain = run(cfg.replace(kernels="off"))
+    assert float(plain.min()) > 0.0
+    for img in (fused, staged):
+        torch.testing.assert_close(img, plain, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("si", [0, 3])
+def test_pt_routes_match_plain_on_card(dev, si):
+    """A small frame on the fused route (K6 only) and the staged kernel
+    route (K4 and K5 only) against the plain staged route, on injected
+    uniforms, with the statistic of test_pallas_pt."""
+    scene = _pt_scene(dev, si)
+    W, H, S, B = 32, 24, 4, 6
+    eye, at = ([6, 1.6, -6], [0, 0.5, 0]) if si == 0 else (
+        [0, -3, -6], [0, -3, 10])
+    g = torch.Generator(device=dev).manual_seed(7)
+    R = W * H * S
+    nq = max(scene.qlight_pos.shape[0], 1)
+    samples = PT.PTSamples(
+        torch.rand((H, W, S, 2), generator=g, device=dev),
+        torch.rand((H, W, S), generator=g, device=dev),
+        PT.BounceUniforms(*(torch.rand((B,) + sh, generator=g, device=dev)
+                            for sh in ((R, 2 * nq), (R,), (R, 3), (R, 3),
+                                       (R,)))))
+    cfg = RenderConfig(max_bounces=B, pt_tile_rays=1024)
+    run = lambda c, q=None: PT.render_pt(scene, c, W, H, eye=eye, at=at,
+                                         spp=S, samples=samples, queries=q)
+    CP.reset_launches()
+    fused = run(cfg)
+    torch.cuda.synchronize()
+    tiles = -(-R // cfg.pt_tile_rays)
+    assert CP.LAUNCHES == {"pt_closest": 0, "pt_any_hit": 0,
+                           "pt_bounce": tiles * B}
+    CP.reset_launches()
+    staged = run(cfg, PT.kernel_queries(scene))
+    torch.cuda.synchronize()
+    n_pl = scene.plight_pos.shape[0]
+    assert CP.LAUNCHES == {"pt_closest": tiles * B,
+                           "pt_any_hit": tiles * B * n_pl, "pt_bounce": 0}
+    CP.reset_launches()
+    plain = run(cfg.replace(kernels="off"))
+    assert CP.LAUNCHES == {"pt_closest": 0, "pt_any_hit": 0, "pt_bounce": 0}
+    assert float(plain.std()) > 0.02
+    for img in (fused, staged):
+        assert torch.isfinite(img).all()
+        assert float(((img - plain).abs() > 1e-3).float().mean()) < 0.05
+        assert abs(float(img.mean() - plain.mean())) < 5e-3

@@ -1,6 +1,7 @@
-"""The port's whole slice vs the JAX package: render_from_samples on shared
-SampleSets, ray counts, Renderer, progressive checkpoints, the CLI, the
-no-jax import, and the kernels' refusal of CPU tensors."""
+"""The port's Whitted slice vs the JAX package: render_from_samples on
+shared SampleSets (with and without a skybox), ray counts, Renderer,
+progressive checkpoints, the CLI, the no-jax import, the card as the
+default device, and the kernels' refusal of CPU tensors."""
 
 import dataclasses
 import os
@@ -18,6 +19,9 @@ from distributionraytracer_tpu.integrator.render import (
     SampleSet as JaxSampleSet,
 )
 from distributionraytracer_tpu.renderer import _render_none
+from distributionraytracer_tpu.scene.builder import (
+    SceneBuilder as JaxSceneBuilder,
+)
 from distributionraytracer_tpu.scene.procedural import (
     create_random_scene as jax_random_scene,
 )
@@ -39,7 +43,7 @@ from distributionraytracer_tpu_torch.utils.image import read_png
 
 from test_whitted import assert_images_close, small_scene
 from torch_port_util import prim_scene, to_port, torch_samples
-from torch_scenes import crowd_scene
+from torch_scenes import crowd_scene, synthetic_faces
 
 torch.set_num_threads(1)
 
@@ -98,7 +102,7 @@ def test_render_motion_blur_matches_jax():
 def test_renderer_end_to_end():
     scene = create_random_scene(0, 24, 18)
     cfg = default_config(scene, spp=4)
-    r = Renderer(scene, cfg)
+    r = Renderer(scene, cfg, device="cpu")
     assert r.executed_backend() == "fused-level"
     img, nrays = r.render(torch.Generator().manual_seed(1), return_rays=True)
     assert img.shape == (18, 24, 3) and img.dtype == torch.float32
@@ -109,7 +113,7 @@ def test_renderer_end_to_end():
     staged = render_from_samples(r.scene, cfg, samples,
                                  inter=brute_intersectors(r.scene, cfg))
     assert_images_close(img.numpy(), staged.numpy())
-    off = Renderer(scene, cfg.replace(kernels="off"))
+    off = Renderer(scene, cfg.replace(kernels="off"), device="cpu")
     assert off.executed_backend() == "plain"
     again = off.render(torch.Generator().manual_seed(1))
     assert_images_close(img.numpy(), again.numpy())
@@ -133,16 +137,17 @@ def test_brute_kernel_route_without_lights():
         scene.static, n_lights=0, light_quad=(), light_grid=()))
     dark.light_pos = dark.light_pos[:0]
     dark.light_e1, dark.light_e2 = dark.light_e1[:0], dark.light_e2[:0]
-    r = Renderer(dark, RenderConfig(spp=1))
+    r = Renderer(dark, RenderConfig(spp=1), device="cpu")
     assert r.executed_backend() == "brute-kernel"
     img = r.render()
-    off = Renderer(dark, RenderConfig(spp=1, kernels="off")).render()
+    off = Renderer(dark, RenderConfig(spp=1, kernels="off"),
+                   device="cpu").render()
     assert torch.equal(img, off)
 
 
 def test_progressive_checkpoint_round_trip(tmp_path):
     scene = create_random_scene(0, 16, 12)
-    r = Renderer(scene, default_config(scene))
+    r = Renderer(scene, default_config(scene), device="cpu")
     g = torch.Generator().manual_seed(3)
     state = r.progressive_init()
     for _ in range(3):
@@ -179,8 +184,9 @@ def test_port_imports_without_jax():
         "bad = sorted(k for k in sys.modules if k == 'jax'\n"
         "             or k.startswith(('jax.', 'distributionraytracer_tpu.')))\n"
         "assert not bad, bad\n"
-        "assert 'distributionraytracer_tpu_torch.ops.cuda_whitted' in "
-        "sys.modules\n")
+        "for m in ('ops.cuda_whitted', 'ops.cuda_pt', 'ops.cubemap',\n"
+        "          'integrator.pathtracer', 'scene.pt_scenes'):\n"
+        "    assert 'distributionraytracer_tpu_torch.' + m in sys.modules\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)
 
@@ -210,6 +216,50 @@ def test_renderer_refusals():
     with pytest.raises(ValueError, match="kernels"):
         RenderConfig(kernels="on")
     if torch.cuda.is_available():
-        return  # the refusal below is for machines without a card
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        Renderer(scene, device="cuda")
+        return  # the refusals below are for machines without a card
+    # the card is the default, and there is no quiet CPU fallback
+    for kw in ({}, {"device": "cuda"}):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            Renderer(scene, **kw)
+    for cmd in (["render", "random"], ["pathtrace"]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main(cmd + ["--res", "8", "6", "--spp", "1"])
+
+
+def sky_scene():
+    """Spheres under a skybox with faces of unequal sizes, seen by a camera
+    that sees sky in most pixels, and in the metal and glass spheres;
+    a point and a quad light."""
+    b = JaxSceneBuilder()
+    b.set_camera([0, 1, 5], [0, 0, 0], [0, 1, 0], 60, 0.01, 24, 18, 0, 1)
+    red = b.add_material([0.9, 0.1, 0.1], 0.9, [1, 1, 1], 0.3, 50, 0, 1)
+    metal = b.add_material([0, 0, 0], 0.0, [0.9, 0.8, 0.7], 0.9, 200, 0, 1)
+    glass = b.add_material([0.2, 0.9, 0.2], 0.0, [1, 1, 1], 0.5, 30, 1, 1.5)
+    b.add_sphere([-1.2, 0, 0], 0.6, red)
+    b.add_sphere([0.2, 0, 0.3], 0.5, metal)
+    b.add_sphere([1.3, 0.2, 0], 0.5, glass)
+    b.add_point_light([2, 4, 2], [1, 1, 1])
+    b.add_quad_light([-2, 4, 2], [1, 1, 1], [-1, 4, 2], [-2, 4, 3], 4)
+    b.bg_color = np.array([0.1, 0.2, 0.4], np.float32)
+    b.sky_faces, b.sky_res = synthetic_faces(4)
+    return b.build()
+
+
+@pytest.mark.parametrize("kernels", ["auto", "off"])
+def test_whitted_skybox_matches_jax(kernels):
+    """Misses take the skybox texel, as in the JAX package: on the fused
+    level route (plain K3, 'auto') and the staged plain route ('off'), with
+    one shared SampleSet."""
+    scene = sky_scene()
+    assert scene.static.has_skybox
+    port = to_port(scene)
+    cfg = RenderConfig(spp=2, kernels=kernels, tile_rays=128)
+    assert level_route(port, cfg) == ("fused-level" if kernels == "auto"
+                                      else "plain")
+    samples = shared_samples(scene, 2, seed=4)
+    ref = np.asarray(_render_none(scene.device_put(), JaxConfig(spp=2),
+                                  samples))
+    img = render_from_samples(port, cfg, torch_samples(samples)).numpy()
+    bg = np.abs(ref - np.array([0.1, 0.2, 0.4], np.float32)).max(-1) < 1e-3
+    assert bg.mean() < 0.05  # the sky, not the background colour
+    assert_images_close(img, ref)

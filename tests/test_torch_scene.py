@@ -1,5 +1,6 @@
 """Port scene layer vs the JAX package: builder, procedural scene, P3F
-parser, packed object table, numpy carry-over."""
+parser (with the skybox ``env`` command), packed object table, numpy
+carry-over, and the path tracer's five scenes."""
 
 import dataclasses
 
@@ -9,15 +10,21 @@ import torch
 
 from distributionraytracer_tpu.scene import builder as jax_builder
 from distributionraytracer_tpu.scene import load_p3f as jax_load_p3f
+from distributionraytracer_tpu.scene import pt_scenes as jax_pt_scenes
 from distributionraytracer_tpu.scene.procedural import (
     create_random_scene as jax_random_scene,
 )
+from distributionraytracer_tpu.scene.skybox import (
+    load_skybox as jax_load_skybox,
+)
 from distributionraytracer_tpu_torch.scene import (
-    SceneBuilder, create_random_scene, parse_p3f, scene_from_numpy,
+    SCENE_BUILDERS, PTScene, SceneBuilder, create_random_scene, load_p3f,
+    load_skybox, parse_p3f, pt_scene_from_numpy, scene_from_numpy,
 )
 from distributionraytracer_tpu_torch.scene.types import SceneData
 
 from torch_port_util import leaves_equal, to_port
+from torch_scenes import synthetic_faces
 
 torch.set_num_threads(1)
 
@@ -91,8 +98,8 @@ def test_p3f_every_command_matches_jax(tmp_path):
 
 
 def test_p3f_refusals():
-    with pytest.raises(NotImplementedError, match="skybox"):
-        parse_p3f(P3F_TEXT + "env skybox_dir\n")
+    with pytest.raises(FileNotFoundError, match="skybox dir"):
+        parse_p3f(P3F_TEXT + "env no_such_skybox_dir\n")
     with pytest.raises(ValueError, match="unknown P3F command"):
         parse_p3f(P3F_TEXT + "teapot 1 2 3\n")
     with pytest.raises(ValueError, match="no camera"):
@@ -119,3 +126,71 @@ def test_scene_from_numpy_round_trip():
     with pytest.raises(ValueError, match="missing scene leaves"):
         scene_from_numpy({"sph_center": leaves["sph_center"]},
                          dataclasses.asdict(s.static))
+
+
+def _write_skybox(sky_dir, seed=0):
+    """Six small JPEG faces of unequal sizes, as the reference names them."""
+    Image = pytest.importorskip("PIL.Image")
+    sky_dir.mkdir(parents=True)
+    rng = np.random.default_rng(seed)
+    for i, name in enumerate(["right", "left", "top", "bottom", "front",
+                              "back"]):
+        h, w = 4 + i, 9 - i
+        px = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        Image.fromarray(px).save(sky_dir / f"{name}.jpg")
+
+
+def test_load_skybox_and_p3f_env_match_jax(tmp_path):
+    """``load_skybox`` and P3F ``env`` (the directory found one level above
+    the scene file, as the reference finds it) give the JAX package's
+    leaves."""
+    _write_skybox(tmp_path / "sky")
+    faces, res = load_skybox(str(tmp_path / "sky"))
+    ref_faces, ref_res = jax_load_skybox(str(tmp_path / "sky"))
+    assert faces.dtype == ref_faces.dtype and res.dtype == ref_res.dtype
+    np.testing.assert_array_equal(faces, ref_faces)
+    np.testing.assert_array_equal(res, ref_res)
+    assert len(np.unique(res[:, 0])) == 6
+    (tmp_path / "scenes").mkdir()
+    path = tmp_path / "scenes" / "sky.p3f"
+    path.write_text(P3F_TEXT + "env sky\n")
+    a = jax_load_p3f(str(path))
+    b = load_p3f(str(path))
+    leaves_equal(a, b)
+    assert b.static.has_skybox
+    leaves_equal(a, parse_p3f(P3F_TEXT + "env sky\n",
+                              str(tmp_path / "scenes")))
+
+
+@pytest.mark.parametrize("si", sorted(SCENE_BUILDERS))
+def test_pt_scene_leaves_equal_jax(si):
+    """The path tracer's scenes, built by both packages (cubemap scenes with
+    the same synthetic faces): every leaf bit-equal, same sky mode."""
+    args = () if si == 0 else synthetic_faces(si)
+    a = jax_pt_scenes.SCENE_BUILDERS[si](*args)
+    b = SCENE_BUILDERS[si](*args)
+    assert a.sky_mode == b.sky_mode
+    for n in PTScene._LEAVES:
+        x, y = np.asarray(getattr(a, n)), getattr(b, n).numpy()
+        assert x.dtype == y.dtype, (n, x.dtype, y.dtype)
+        np.testing.assert_array_equal(x, y, err_msg=n)
+    T, S, M = (b.tri_v0.shape[0], b.sph_center.shape[0],
+               b.msph_c0.shape[0])
+    if si == 0:
+        assert (T, S, M, b.mat_type.shape[0]) == (2, 78, 25, 104)
+        assert (b.plight_pos.shape[0], b.qlight_pos.shape[0]) == (3, 0)
+    else:
+        assert 15 <= T + S + M <= 27 and b.qlight_pos.shape[0] == 1
+
+
+def test_pt_scene_from_numpy_round_trip():
+    s = SCENE_BUILDERS[3](*synthetic_faces(3))
+    leaves = {n: getattr(s, n).numpy() for n in PTScene._LEAVES}
+    back = pt_scene_from_numpy(leaves, s.sky_mode)
+    assert back.sky_mode == s.sky_mode and back.device.type == "cpu"
+    for n in PTScene._LEAVES:
+        assert torch.equal(getattr(s, n), getattr(back, n)), n
+    moved = back.to("cpu")
+    assert moved is not back and torch.equal(moved.sky_faces, s.sky_faces)
+    with pytest.raises(ValueError, match="missing path-tracer scene leaves"):
+        pt_scene_from_numpy({"tri_v0": leaves["tri_v0"]}, s.sky_mode)

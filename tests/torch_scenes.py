@@ -72,6 +72,52 @@ def level_inputs(n, seed):
     return o, d, t, ior, ls, valid
 
 
+def synthetic_faces(seed=0, sizes=((8, 6), (5, 7), (6, 6), (4, 3), (7, 5),
+                                   (6, 8))):
+    """A six-face skybox as ``load_skybox`` returns it: (6, H, W, 3) f32
+    faces padded to the largest face, and a (6, 2) i32 (width, height)
+    table.  Each face has its own base colour plus per-texel noise, and the
+    faces differ in size."""
+    rng = np.random.default_rng(seed)
+    H = max(h for _, h in sizes)
+    W = max(w for w, _ in sizes)
+    faces = np.zeros((6, H, W, 3), np.float32)
+    res = np.zeros((6, 2), np.int32)
+    base = np.eye(3)[[0, 1, 2, 0, 1, 2]] * 0.6 + 0.2 * (np.arange(6)[:, None]
+                                                       % 2)
+    for i, (w, h) in enumerate(sizes):
+        faces[i, :h, :w] = base[i] + 0.2 * rng.random((h, w, 3))
+        res[i] = (w, h)
+    return faces, res
+
+
+# Per path-tracer scene: an eye and a box of ray targets around the
+# scene's spheres (scenes 1 and 2 share their layout).
+# The path-tracer scene leaves that hold primitives (triangles, spheres,
+# moving spheres); emptying them leaves materials, lights and sky.
+PT_PRIM_LEAVES = ("tri_v0", "tri_e1", "tri_e2", "tri_mat", "sph_center",
+                  "sph_radius", "sph_mat", "msph_c0", "msph_c1",
+                  "msph_radius", "msph_mat")
+
+PT_VIEWS = {
+    0: ([6, 1.6, -6], (-3, 0, -3), (3, 2, 3)),
+    1: ([0, 2, -8], (-20, -12, -2), (20, 4, 4)),
+    2: ([0, 2, -8], (-20, -12, -2), (20, 4, 4)),
+    3: ([0, -3, -4], (-8, -12, 15), (8, 6, 25)),
+    4: ([0, -1, -2], (-8, -9, 16), (8, 2, 24)),
+}
+
+
+def pt_rays(n, seed, eye, lo=(-3, 0, -3), hi=(3, 2, 3)):
+    """Rays from ``eye`` towards random targets in the box [lo, hi], with
+    motion times in [0, 1) (the rays of ``test_pallas_pt``)."""
+    rng = np.random.default_rng(seed)
+    o = np.tile(np.asarray(eye, np.float32)[None], (n, 1))
+    d = rng.uniform(lo, hi, (n, 3)).astype(np.float32) - o
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    return o, d, rng.random(n).astype(np.float32)
+
+
 # Fused-level outputs that are points in space: the children's origins,
 # offset from hit points that reach |x| ~ 1e3 on the infinite planes.
 POINT_KEYS = ("refr_o", "refl_o")
