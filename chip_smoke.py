@@ -50,16 +50,39 @@
    kernel routes to plain with the statistic of test_pallas_pt (under 5%
    of elements beyond 1e-3, |mean difference| under 5e-3).  Times FRAMES
    warm frames and prints Msamples/s and the peak device memory.
+6b. Builds the host builders of ``native/drt_native.cpp`` (fails if the
+   native builder is not the one that builds the tables) and renders the
+   accelerated frame, ``tests/torch_scenes.py::mesh_scene`` (100,000
+   triangles, a ground sphere and four spheres, 512x512, spp 0, depth 4),
+   on five routes, each between a reset and a read of the launch counters:
+   - the main path, ``Renderer.render_with_samples`` on the BVH scene
+     (``binned-primary+grouped-packet``): K9 once, on the primary level,
+     and K7 on every other level and every shadow query, nothing else;
+   - the grid scene (``binned-primary+grid-packet``): K9 and K7;
+   - ``packet_kernel='legacy'`` (``legacy-packet``): K8 only;
+   - the 1,005-object scene, BVH and grid (``cost-brute``): K1 and K2;
+   - ``render_from_samples(..., fused_grid=)`` on the small grid scene:
+     K3 in grid mode only.
+   Rows 240:272 of each are held to plain torch on the same SampleSet
+   (``assert_images_close``'s budget), then five warm frames of the main
+   path are timed (rays/s by the whitted.py counters, peak memory).
+   K9, K7 and K8 (closest at level 1; shadow, both modes, at the primary
+   level) are held to their plain versions on the main path's own inputs
+   (ids and occlusion equal, t within 1e-5 relative); K9 and K7 (closest,
+   and shadow in grid mode) also on the grid route's own inputs and
+   emulation tree; K3 grid mode on a 65,536-lane tile of the small grid
+   scene (the K3 budgets).
 7. Times each kernel and its plain version at its main path's shapes (K1
    to K3: one 65,536-sample tile of the Whitted frame; K4 to K6: one
-   131,072-path tile at bounce 0 of the path-traced frame) with CUDA
+   131,072-path tile at bounce 0 of the path-traced frame; K7 to K9 and
+   K3's grid mode: the inputs of 6b) with CUDA
    events: the bare launch on packed streams (``ms``) and the wrapper with
    its stream packing (``wrapper_ms``).  Beside each, the least time the
    card could take for the same work (``bound_ms``): the larger of the
    bytes over 3.35 TB/s and the FP32 operations over 67 TFLOP/s, counted
    from these inputs (tests up to the first occluder where a fold stops
    there; dead lanes skipped; per-lane branches as the constants below
-   say).
+   say; for K7 to K9, the node and object tests their plain walks made).
 8. Profiles one more warm frame of each main path under ``torch.profiler``
    and prints the device-busy time, the idle share and the top device
    kernels.
@@ -98,7 +121,7 @@ FP32_OPS = 67e12
 # adds one), and the winner's normal once per hit (the fold recomputes it
 # at each closer hit; the repeats are not counted).
 W_TEST_OPS = (33, 46, 13, 25)
-W_NORMAL_OPS = (18, 19, 0, 7)
+W_NORMAL_OPS = (18, 18, 0, 7)
 W_LANE_OPS = 40  # K3 per lane: unit normal, point, facing, view, shadow origin
 W_LIGHT_OPS = 40  # K3 per lane and light: direction, distance, half vector
 W_QUAD_OPS = 12  # K3 per lane and quad light: the jittered light point
@@ -266,6 +289,506 @@ def profile_frame(torch, render, wall_s, label):
         print(f"  {name[:64]:64s} {n:6d} x {us / 1e3:9.3f} ms")
 
 
+# ---------------------------------------------------------------------------
+# Slice D: grid and BVH scenes (K7, K8, K9, K3 grid mode)
+MESH = dict(n_tri=100_000, res=(512, 512), seed=0)  # the accelerated frame
+SMALL_TRI = 1000  # 1,005 objects and no plane: the cost-brute route
+ACCEL_SLAB = (240, 272)  # pixel rows of the accelerated frames' plain slab
+NODE_OPS = 16  # a packet walk's node test: 12 sub/mul, 4 min/max
+LANE_OPS = 3  # a packet lane's reciprocal direction
+GRID_SLAB_OPS = 19  # K3 grid mode's slab over the grid box: 3 div, 12, 4
+ACCEL_META = {
+    "K7c": ("grouped_closest", "bvh.cu",
+            "distributionraytracer_tpu/accel/pallas_packet.py:625"),
+    "K7s": ("grouped_shadow", "bvh.cu",
+            "distributionraytracer_tpu/accel/pallas_packet.py:625"),
+    "K8c": ("legacy_closest", "bvh.cu",
+            "distributionraytracer_tpu/accel/pallas_bvh.py:470"),
+    "K8s": ("legacy_shadow", "bvh.cu",
+            "distributionraytracer_tpu/accel/pallas_bvh.py:470"),
+    "K9": ("binned_closest", "binned.cu",
+           "distributionraytracer_tpu/accel/pallas_binned.py:768"),
+    "K3g": ("fused_level_grid", "whitted_level.cu",
+            "distributionraytracer_tpu/ops/pallas_whitted.py:320"),
+}
+
+
+def recording(inter, log):
+    """``inter`` that keeps the inputs of its first two closest queries
+    (the primary level and level 1) and of its first shadow query."""
+    from distributionraytracer_tpu_torch.integrator.whitted import (
+        Intersectors,
+    )
+    calls = {"closest": 0, "shadow": 0}
+
+    def closest(o, d, time, valid=None):
+        calls["closest"] += 1
+        if calls["closest"] <= 2:
+            log[f"closest{calls['closest']}"] = (o, d, time, valid)
+        return inter.closest(o, d, time, valid=valid)
+
+    def shadow(o, d, dist, exclude_obj, valid=None):
+        calls["shadow"] += 1
+        if calls["shadow"] == 1:
+            log["shadow1"] = (o, d, dist, valid)
+        return inter.shadow(o, d, dist, exclude_obj, valid=valid)
+
+    return Intersectors(closest, shadow)
+
+
+def type_ops(torch, type_tests, table=W_TEST_OPS):
+    """FP32 operations of object tests counted by slot type + 1 (index 0:
+    inert slots, which cost a compare)."""
+    per = torch.tensor((0,) + tuple(table), dtype=torch.float64)
+    return float((type_tests.double() * per).sum())
+
+
+def winner_normal_ops(torch, sc, gid):
+    """The winners' normals, once per hit lane (W_NORMAL_OPS by type)."""
+    per = torch.tensor([W_NORMAL_OPS[t] for t in sc.static.obj_types],
+                       dtype=torch.float64, device=gid.device)
+    return float(per[gid[gid >= 0].long()].sum())
+
+
+def grid_fold_ops(torch, sc, o, d, dist, lanes, gb):
+    """K3 grid mode's shadow work on these rays: the slab over the grid
+    box for every lane, then (where it succeeds) every test up to the first
+    ``t < dist`` occluder; lanes only."""
+    from distributionraytracer_tpu_torch.accel.grid import grid_slab
+    from distributionraytracer_tpu_torch.ops.intersect import _type_tmats
+    n_obj = sc.static.n_objects
+    okm = torch.zeros((o.shape[0], n_obj), dtype=torch.bool,
+                      device=o.device)
+    zt = torch.zeros_like(dist)
+    for _typ, gids, tmat in _type_tmats(sc, o, d, zt, False):
+        okm[:, gids.long()] = tmat < dist[:, None]
+    cum = torch.cumsum(torch.tensor([W_TEST_OPS[t]
+                                     for t in sc.static.obj_types],
+                                    dtype=torch.float64, device=o.device), 0)
+    first = torch.where(okm.any(1), okm.float().argmax(1), n_obj - 1)
+    slab_ok = grid_slab(*gb, o, d)[0]
+    fold = torch.where(slab_ok, cum[first], torch.zeros_like(cum[first]))
+    return float((fold + GRID_SLAB_OPS)[lanes].sum()), okm.any(1) | ~slab_ok
+
+
+def k3_grid_ops(torch, CW, sc, cfg, o, d, t, ls, gb):
+    """K3 grid mode's FP32 operations on one spawning level: the closest
+    fold over every object and the slab gate, the lane's shading setup,
+    per light its direction and the grid shadow (for gated hits), the
+    shading of lit lights, and the spawn."""
+    from distributionraytracer_tpu_torch.accel.grid import grid_slab
+    from distributionraytracer_tpu_torch.ops.common import OFFSET
+    from distributionraytracer_tpu_torch.ops.intersect import (
+        closest_hit_brute,
+    )
+    n = o.shape[0]
+    h = closest_hit_brute(sc, o, d, t, False)
+    ok, *_, t1 = grid_slab(*gb, o, d)
+    hit = h.hit & ok & (h.t < t1)
+    ops = n * (sum(W_TEST_OPS[k] for k in sc.static.obj_types)
+               + GRID_SLAB_OPS + W_LANE_OPS)
+    ops += winner_normal_ops(torch, sc, h.obj_id)
+    p = o + d * torch.where(h.hit, h.t, torch.ones_like(h.t))[:, None]
+    nn_ = CW._norm3(h.normal)
+    N_ = nn_ * torch.where((d * nn_).sum(-1) < 0, 1.0, -1.0)[:, None]
+    ltab = CW.level_tables(sc)
+    for j in range(sc.static.n_lights):
+        lp = ltab.lights[j, 0:3].expand(n, 3)
+        if sc.static.light_quad[j]:
+            lp = (lp + ltab.lights[j, 3:6] * ls[:, 0:1]
+                  + ltab.lights[j, 6:9] * ls[:, 1:2])
+            ops += n * W_QUAD_OPS
+        ul = lp - p
+        L_ = ul / torch.sqrt(torch.clamp((ul * ul).sum(-1), min=1e-24))[:,
+                                                                       None]
+        fold, occ = grid_fold_ops(torch, sc, p + N_ * OFFSET, L_,
+                                  torch.ones(n, device=o.device), hit, gb)
+        ops += fold + n * W_LIGHT_OPS + float((hit & ~occ).sum()) * W_SHADE_OPS
+    ones = torch.ones(n, device=o.device)
+    lv = CW.fused_level_plain(sc, cfg, o, d, t, ones, ls,
+                              torch.ones_like(h.hit), True, tables=ltab,
+                              grid_bbox=gb)
+    ops += (n * W_SPAWN_OPS
+            + float((~((d * nn_).sum(-1) < 0)).sum()) * W_BEER_OPS
+            + float(lv["refr_valid"].sum()) * W_REFR_OPS
+            + float(lv["refl_valid"].sum()) * W_REFL_OPS)
+    return ops
+
+
+def accel_phase(torch, np, dev, card, counted, mesh=MESH, slab=ACCEL_SLAB,
+                small_tri=SMALL_TRI, frames=FRAMES):
+    """The accelerated Whitted frame (``mesh_scene``, 100,000 triangles,
+    512x512, spp 0, depth 4) on each route, between a reset and a read of
+    the launch counters; 32-row slabs against plain torch; warm frames of
+    the main route; its profile.  Returns what the kernel rows need."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_scenes import mesh_scene
+
+    from distributionraytracer_tpu_torch import native
+    from distributionraytracer_tpu_torch.accel import cuda_bvh as CBV
+    from distributionraytracer_tpu_torch.accel import cuda_grid as CG
+    from distributionraytracer_tpu_torch.config import RenderConfig
+    from distributionraytracer_tpu_torch.integrator.render import (
+        make_samples, render_from_samples,
+    )
+    from distributionraytracer_tpu_torch.renderer import (
+        Renderer, _brute_bvh_intersectors,
+    )
+    from distributionraytracer_tpu_torch.scene import SceneBuilder
+    from distributionraytracer_tpu_torch.scene.types import (
+        ACCEL_BVH, ACCEL_GRID,
+    )
+
+    t0 = time.perf_counter()
+    ok = native.available()
+    print(f"native host builder: {native.builder()} "
+          f"({time.perf_counter() - t0:.2f}s to build or load "
+          "native/drt_native.cpp)")
+    check(ok, "the native host builder did not build")
+
+    cfg = RenderConfig(spp=0)
+    W, H = mesh["res"]
+
+    def renderer(label, accel, n_tri, **over):
+        sc = mesh_scene(SceneBuilder, n_tri=n_tri, accel=accel,
+                        seed=mesh["seed"], res=mesh["res"])
+        r = Renderer(sc, cfg.replace(**over), device=dev)
+        ab = r.accel_build
+        print(f"accel build, {label}: {sc.static.n_objects} objects, "
+              f"{ab.builder} builder, {ab.seconds:.2f}s; route "
+              f"{r.executed_backend()}")
+        check(ab.builder == "native", f"{label}: built by {ab.builder}")
+        return r
+
+    n = mesh["n_tri"]
+    bvh = renderer("bvh", ACCEL_BVH, n)
+    grid = renderer("grid", ACCEL_GRID, n)
+    leg = renderer("bvh, packet_kernel='legacy'", ACCEL_BVH, n,
+                   packet_kernel="legacy")
+    cb = renderer("small bvh", ACCEL_BVH, small_tri)
+    cbg = renderer("small grid", ACCEL_GRID, small_tri)
+    for r, label in ((bvh, "binned-primary+grouped-packet"),
+                     (grid, "binned-primary+grid-packet"),
+                     (leg, "legacy-packet"), (cb, "cost-brute"),
+                     (cbg, "cost-brute")):
+        check(r.executed_backend() == label,
+              f"route {r.executed_backend()}, not {label}")
+    samples = make_samples(bvh.scene, cfg,
+                           torch.Generator(device=dev).manual_seed(0))
+    gb = (cbg.tabs.bbox_min, cbg.tabs.bbox_max)
+
+    runs = {}
+
+    def route(key, label, render, expect):
+        out, got, secs = counted(label, render, expect)
+        runs[key] = (got, dict(CBV.LAUNCHES), secs)
+        img, nr = out
+        check(tuple(img.shape) == (H, W, 3), f"{key} image shape")
+        check(bool(torch.isfinite(img).all()), f"{key}: non-finite pixels")
+        check(float(img.std()) > 0.05, f"{key}: constant image")
+        return img, nr
+
+    img_b, rays_b = route(
+        "bvh", "accelerated main path, Renderer.render_with_samples "
+        "(binned-primary+grouped-packet)",
+        lambda: bvh.render_with_samples(samples, return_rays=True),
+        {"K7": True, "K9": True})
+    check(runs["bvh"][0]["K9"] == 1, "K9 is launched once, on the primary "
+          f"level, not {runs['bvh'][0]['K9']} times")
+    img_g, _ = route(
+        "grid", "Renderer.render_with_samples on the grid scene "
+        "(binned-primary+grid-packet)",
+        lambda: grid.render_with_samples(samples, return_rays=True),
+        {"K7": True, "K9": True})
+    img_l, rays_l = route(
+        "legacy", "Renderer.render_with_samples, packet_kernel='legacy' "
+        "(legacy-packet)",
+        lambda: leg.render_with_samples(samples, return_rays=True),
+        {"K8": True})
+    check(rays_l == rays_b, f"ray counts: legacy {int(rays_l)}, grouped "
+          f"{int(rays_b)}")
+    img_cb, _ = route(
+        "cost-brute", "Renderer.render_with_samples, 1,005 objects "
+        "(cost-brute, bvh)",
+        lambda: cb.render_with_samples(samples, return_rays=True),
+        {"K1": True, "K2": True})
+    img_cbg, _ = route(
+        "cost-brute-grid", "Renderer.render_with_samples, 1,005 objects "
+        "(cost-brute, grid)",
+        lambda: cbg.render_with_samples(samples, return_rays=True),
+        {"K1": True, "K2": True})
+    img_fg, _ = route(
+        "fused-grid", "render_from_samples(..., fused_grid=) on the 1,005 "
+        "objects grid scene (K3 grid mode)",
+        lambda: render_from_samples(cbg.scene, cfg, samples,
+                                    return_rays=True, fused_grid=gb),
+        {"K3grid": True})
+
+    # plain torch on rows a:b of the same SampleSet
+    a, b = slab
+    part = samples.rows(a, b)
+    off = cfg.replace(kernels="off")
+    t0 = time.perf_counter()
+    plain_b = render_from_samples(
+        bvh.scene, off, part, row_offset=a,
+        inter=CBV.packet_intersectors(bvh.scene, bvh.tabs, plain=True))
+    plain_g = render_from_samples(
+        grid.scene, off, part, row_offset=a,
+        inter=CG.make_cuda_grid_intersectors(grid.scene, grid.tabs,
+                                             plain=True))
+    plain_cb = render_from_samples(
+        cb.scene, off, part, row_offset=a,
+        inter=_brute_bvh_intersectors(cb.scene, off))
+    plain_cbg = render_from_samples(
+        cbg.scene, off, part, row_offset=a,
+        inter=CG.make_brute_grid_intersectors(cbg.scene, cbg.tabs,
+                                              plain=True))
+    plain_fg = render_from_samples(cbg.scene, off, part, row_offset=a,
+                                   fused_grid=gb)
+    print(f"plain torch slabs (rows {a}:{b}, five routes): "
+          f"{time.perf_counter() - t0:.2f}s")
+    for name, got, ref in (("binned-primary+grouped-packet", img_b, plain_b),
+                           ("binned-primary+grid-packet", img_g, plain_g),
+                           ("legacy-packet", img_l, plain_b),
+                           ("cost-brute bvh", img_cb, plain_cb),
+                           ("cost-brute grid", img_cbg, plain_cbg),
+                           ("fused grid level", img_fg, plain_fg)):
+        diff = (got[a:b] - ref).abs()
+        out = float((diff > 3e-3).float().mean())
+        check(out <= 0.005 and float(diff.max()) <= 0.05,
+              f"{name} slab vs plain: {out:.4%} beyond 3e-3, max "
+              f"{float(diff.max()):.4f}")
+        print(f"mesh frame rows {a}:{b} {name} kernels vs plain torch: "
+              f"{out:.4%} of elements beyond 3e-3, max diff "
+              f"{float(diff.max()):.4f}  PASS")
+
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(frames):
+        t0 = time.perf_counter()
+        img2, rays2 = bvh.render_with_samples(samples, return_rays=True)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        check(torch.equal(img_b, img2) and int(rays_b) == int(rays2),
+              "two accelerated renders of one SampleSet differ")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = statistics.median(times)
+    print(f"accelerated frame 512x512 spp0 depth4, 100,005 objects "
+          f"(binned-primary+grouped-packet): {len(times)} warm frames "
+          f"{' '.join(f'{x:.4f}' for x in times)} s (median {med:.4f}, min "
+          f"{min(times):.4f}, max {max(times):.4f}; first "
+          f"{runs['bvh'][2]:.4f} s), {int(rays_b)} rays, "
+          f"{int(rays_b) / med:.4e} rays/s at the median, peak "
+          f"{peak:.2f} GiB | {card}")
+    for key in ("grid", "legacy"):
+        print(f"accelerated frame, {key} route: {runs[key][2]:.4f} s (one "
+              f"frame) | {card}")
+    return dict(bvh=bvh, grid=grid, leg=leg, cbg=cbg, samples=samples,
+                gb=gb, runs=runs, median=med, cfg=cfg)
+
+
+def accel_rows(torch, np, dev, card, st, errs, add_row):
+    """K7, K8, K9 and K3 grid mode against their plain versions at the
+    main path's shapes, and their rows (bare launch, wrapper, plain,
+    bound from the plain walks' own counts)."""
+    from distributionraytracer_tpu_torch.accel import cuda_binned as CBN
+    from distributionraytracer_tpu_torch.accel import cuda_bvh as CBV
+    from distributionraytracer_tpu_torch.accel.bvh import threaded_walk
+    from distributionraytracer_tpu_torch.integrator.render import (
+        _rays_from_samples, render_from_samples,
+    )
+    from distributionraytracer_tpu_torch.ops import cuda_intersect as CI
+    from distributionraytracer_tpu_torch.ops import cuda_whitted as CW
+
+    bvh, samples, cfg = st["bvh"], st["samples"], st["cfg"]
+    W, H = bvh.scene.static.res_x, bvh.scene.static.res_y
+    bins = bvh._bins_for(H, W, 1)
+    inter, tile = bvh._intersectors(bins)
+    log = {}
+    render_from_samples(bvh.scene, bvh.cfg, samples,
+                        inter=recording(inter, log), accel_tile=tile)
+    torch.cuda.synchronize()
+    f4 = lambda k: 4 * k
+    types = tuple(sorted(set(bvh.scene.static.obj_types)))
+
+    def table_bytes(tabs):
+        return (tabs.nodes.numel() + tabs.objs.numel()) * 4
+
+    def check_closest(k, got, ref, valid, where="main path"):
+        (t, nrm, gid), (rt, rn, rid) = got, ref
+        check(torch.equal(gid[valid], rid[valid]),
+              f"{k} ({where}): {int((gid != rid)[valid].sum())} lanes differ "
+              "in id")
+        hit = valid & (rid >= 0)
+        et = float(((t - rt).abs() / rt.abs().clamp(min=1.0))[hit].max())
+        check(et <= 1e-5, f"{k} ({where}): t off by {et:.2e} relative")
+        en = float((nrm - rn).abs()[hit].max())
+        check(en <= 2e-5, f"{k} ({where}): normals off by {en:.2e}")
+        err = max(float((t - rt).abs()[hit].max()), en)
+        errs[k] = max(errs.get(k, 0.0), err)
+        print(f"{k} vs plain, {where}, on {int(valid.sum())} lanes: ids "
+              f"equal, max abs err {err:.3e} (t relative {et:.2e})  PASS")
+
+    def check_shadow(k, tabs, o, d, dist, valid, mode, where="main path"):
+        occ = CBV.packet_shadow_kernel(tabs, o, d, dist, valid,
+                                       shadow_mode=mode)
+        stats = {}
+        ref = threaded_walk(tabs, o, d, None, valid, shadow_dist=dist,
+                            shadow_mode=mode, types_present=types,
+                            stats=stats)
+        bad = int((occ != ref)[valid].sum())
+        check(bad == 0, f"{k} shadow ({mode} mode, {where}): {bad} lanes "
+              "differ")
+        print(f"{k} shadow ({mode} mode) vs plain, {where}, on "
+              f"{int(valid.sum())} lanes: occlusion equal "
+              f"({float(ref[valid].float().mean()):.3f} occluded)  PASS")
+        return stats
+
+    # ---- K9 on the primary level ----
+    o, d, t, valid = log["closest1"]
+    valid = torch.ones_like(t, dtype=torch.bool) if valid is None else valid
+    pb = bins.primary
+    got = CBN.binned_closest_kernel(bvh.tabs, pb, o, d, t, valid)
+    stats = {}
+    ref = CBN.binned_closest_plain(bvh.tabs, pb, o, d, t, valid,
+                                   types_present=types, stats=stats)
+    check_closest("K9", got, ref, valid)
+    rays = CBV._rays(o, d, t, valid)
+    nl = o.shape[0]
+    of = torch.empty((4, nl), device=dev)
+    oi = torch.empty((nl,), dtype=torch.int32, device=dev)
+    add_row("K9", st["runs"]["bvh"][0]["K9"], "accelerated main path frame",
+            nl, lambda: CBN.launch_binned_closest(bvh.tabs, pb, rays, False,
+                                                  of, oi),
+            lambda: CBN.binned_closest_kernel(bvh.tabs, pb, o, d, t, valid),
+            lambda: CBN.binned_closest_plain(bvh.tabs, pb, o, d, t, valid,
+                                             types_present=types),
+            nl * f4(8 + 5) + bvh.tabs.objs.numel() * 4
+            + sum(x.numel() * 4 for x in pb),
+            type_ops(torch, stats["type_tests"])
+            + winner_normal_ops(torch, bvh.scene, ref[2]),
+            f"{nl} primary rays in {pb.n_chains} chains, "
+            f"{stats['groups']} groups streamed")
+
+    # ---- K7 and K8 on level 1 (closest) and the primary shadows ----
+    for kk, r, run_key in (("K7", bvh, "bvh"), ("K8", st["leg"], "legacy")):
+        tabs = r.tabs
+        o, d, t, valid = log["closest2"]
+        got = CBV.packet_closest_kernel(tabs, o, d, t, valid)
+        stats = {}
+        ref = threaded_walk(tabs, o, d, t, valid, types_present=types,
+                            stats=stats)
+        check_closest(kk + "c", got, ref, valid)
+        rays = CBV._rays(o, d, t, valid)
+        nl = o.shape[0]
+        of = torch.empty((4, nl), device=dev)
+        oi = torch.empty((nl,), dtype=torch.int32, device=dev)
+        launches = st["runs"][run_key][1]
+        walk = "grouped" if kk == "K7" else "legacy"
+        add_row(kk + "c", launches[walk + "_closest"],
+                f"{run_key} route frame", nl,
+                lambda: CBV.launch_packet_closest(tabs, rays, False, of, oi),
+                lambda: CBV.packet_closest_kernel(tabs, o, d, t, valid),
+                lambda: threaded_walk(tabs, o, d, t, valid,
+                                      types_present=types),
+                nl * f4(8 + 5) + table_bytes(tabs),
+                nl * LANE_OPS + stats["node_tests"] * NODE_OPS
+                + type_ops(torch, stats["type_tests"])
+                + winner_normal_ops(torch, r.scene, ref[2]),
+                f"{nl} level-1 lanes ({int(valid.sum())} live), "
+                f"{tabs.n_nodes} nodes")
+        o, d, dist, valid = log["shadow1"]
+        modes = ("grid", "bvh") if kk == "K7" else ("bvh",)
+        for mode in modes:  # the bvh mode's counts make the bound
+            stats = check_shadow(kk, tabs, o, d, dist, valid, mode)
+        errs[kk + "s"] = 0.0
+        rays = CBV._rays(o, d, dist, valid)
+        nl = o.shape[0]
+        occ_out = torch.empty((nl,), dtype=torch.bool, device=dev)
+        add_row(kk + "s", launches[walk + "_shadow"], f"{run_key} route frame",
+                nl,
+                lambda: CBV.launch_packet_shadow(tabs, rays, False, "bvh",
+                                                 occ_out),
+                lambda: CBV.packet_shadow_kernel(tabs, o, d, dist, valid),
+                lambda: threaded_walk(tabs, o, d, None, valid,
+                                      shadow_dist=dist, types_present=types),
+                nl * (f4(8) + 1) + table_bytes(tabs),
+                nl * LANE_OPS + stats["node_tests"] * NODE_OPS
+                + type_ops(torch, stats["type_tests"]),
+                f"{nl} primary-level shadow lanes ({int(valid.sum())} live)")
+
+    # ---- K9 and K7 on the grid route's own inputs and emulation tree ----
+    grid = st["grid"]
+    gbins = grid._bins_for(H, W, 1)
+    ginter, gtile = grid._intersectors(gbins)
+    glog = {}
+    render_from_samples(grid.scene, grid.cfg, samples,
+                        inter=recording(ginter, glog), accel_tile=gtile)
+    torch.cuda.synchronize()
+    gtabs, where = grid.tabs.tabs, "grid route"
+    o, d, t, valid = glog["closest1"]
+    valid = torch.ones_like(t, dtype=torch.bool) if valid is None else valid
+    check_closest("K9", CBN.binned_closest_kernel(gtabs, gbins.primary, o, d,
+                                                  t, valid),
+                  CBN.binned_closest_plain(gtabs, gbins.primary, o, d, t,
+                                           valid, types_present=types),
+                  valid, where)
+    o, d, t, valid = glog["closest2"]
+    check_closest("K7c", CBV.packet_closest_kernel(gtabs, o, d, t, valid),
+                  threaded_walk(gtabs, o, d, t, valid, types_present=types),
+                  valid, where)
+    o, d, dist, valid = glog["shadow1"]
+    check_shadow("K7", gtabs, o, d, dist, valid, "grid", where)
+
+    # ---- K3 grid mode: one tile of the fused grid route's first level ----
+    cbg, gb = st["cbg"], st["gb"]
+    sc = cbg.scene
+    o, d, t, ls = (x[:cfg.tile_rays].contiguous()
+                   for x in _rays_from_samples(sc, cfg, samples))
+    nl = o.shape[0]
+    ones = torch.ones(nl, device=dev)
+    allv = torch.ones(nl, dtype=torch.bool, device=dev)
+    ltab = CW.level_tables(sc)
+    ref = CW.fused_level_plain(sc, cfg, o, d, t, ones, ls, allv, True,
+                               tables=ltab, grid_bbox=gb)
+    res = CW.fused_level_kernel(sc, cfg, o, d, t, ones, ls, allv, True,
+                                tables=ltab, grid_bbox=gb)
+    torch.cuda.synchronize()
+    bad = torch.zeros_like(allv)
+    err = 0.0
+    for k, x in ref.items():
+        if x.dtype == torch.bool:
+            bad |= x != res[k]
+            continue
+        lim = (1e-5 * torch.clamp(x.abs().amax(-1, keepdim=True), min=1.0)
+               if k in POINT_KEYS else 2e-4)
+        off_ = ~((res[k] - x).abs() <= lim)
+        bad |= off_ if off_.dim() == 1 else off_.any(-1)
+        err = max(err, float((res[k] - x).abs().max()))
+    share = float(bad.float().mean())
+    check(share <= LANE_BUDGET, f"K3 grid mode: {share} of lanes differ")
+    errs["K3g"] = err
+    print(f"K3 fused_level grid mode vs plain on {nl} lanes: lanes differing "
+          f"{share:.2e}, max abs err {err:.3e}  PASS")
+    rays3 = CI.ray_streams(nl, o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1],
+                           d[:, 2], t, ones, ls[:, 0], ls[:, 1], ones)
+    out3 = torch.empty((29, nl), device=dev)
+    gbox = CW.grid_box(gb, dev)
+    n_obj = sc.static.n_objects
+    add_row("K3g", st["runs"]["fused-grid"][0]["K3grid"], "fused grid route "
+            "frame", nl,
+            lambda: CW.launch_level(ltab, n_obj, rays3, cfg, True, out3,
+                                    gbox),
+            lambda: CW.fused_level_kernel(sc, cfg, o, d, t, ones, ls, allv,
+                                          True, tables=ltab, grid_bbox=gb),
+            lambda: CW.fused_level_plain(sc, cfg, o, d, t, ones, ls, allv,
+                                         True, tables=ltab, grid_bbox=gb),
+            nl * f4(11 + 29) + n_obj * f4(12 + 1 + 13)
+            + sc.static.n_lights * f4(10) + f4(6),
+            k3_grid_ops(torch, CW, sc, cfg, o, d, t, ls, gb),
+            f"{nl} lanes of level 0, {n_obj} objects, spawn")
+
+
 def main():
     import numpy as np
     import torch
@@ -275,6 +798,8 @@ def main():
               file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    from distributionraytracer_tpu_torch.accel import cuda_binned as CBN
+    from distributionraytracer_tpu_torch.accel import cuda_bvh as CBV
     from distributionraytracer_tpu_torch.config import RenderConfig
     from distributionraytracer_tpu_torch.integrator import pathtracer as PT
     from distributionraytracer_tpu_torch.integrator.render import (
@@ -500,17 +1025,21 @@ def main():
 
     # ---- 4. the Whitted frame: 800x600, 16 spp, depth 4, three routes ----
     def reset_launches():
-        CI.reset_launches()
-        CW.reset_launches()
-        CP.reset_launches()
+        for m in (CI, CW, CP, CBV, CBN):
+            m.reset_launches()
 
     def launches():
+        bv = CBV.LAUNCHES
         return {"K1": CI.LAUNCHES["closest_hit"],
                 "K2": CI.LAUNCHES["any_hit"],
                 "K3": CW.LAUNCHES["fused_level"],
+                "K3grid": CW.LAUNCHES["fused_level_grid"],
                 "K4": CP.LAUNCHES["pt_closest"],
                 "K5": CP.LAUNCHES["pt_any_hit"],
-                "K6": CP.LAUNCHES["pt_bounce"]}
+                "K6": CP.LAUNCHES["pt_bounce"],
+                "K7": bv["grouped_closest"] + bv["grouped_shadow"],
+                "K8": bv["legacy_closest"] + bv["legacy_shadow"],
+                "K9": CBN.LAUNCHES["binned_closest"]}
 
     def counted(label, render, expect):
         """Run ``render`` between a reset and a read of the launch
@@ -683,6 +1212,9 @@ def main():
           f"Msamples/s at the median, peak {ppeak:.2f} GiB | {card}")
     print(f"PT frame staged body (K4+K5): {pst_s:.4f} s (one warm frame), "
           f"{paths / pst_s / 1e6:.4f} Msamples/s | {card}")
+
+    # ---- 5b. the accelerated frame: 100,000 triangles, five routes ----
+    acc = accel_phase(torch, np, dev, card, counted)
 
     # ---- 6. kernel times and bounds at the main paths' shapes ----
     def w_fold_ops(sc, mb):
@@ -959,10 +1491,33 @@ def main():
         n * f4(2 * CP.STATE_ROWS + uni.shape[0]) + K * f4(12 + 16)
         + n_pl * f4(6), k6_ops, setup=restore)
 
+    def add_row(k, count, run, lanes, bare, wrapper, plain, nbytes, ops,
+                shape):
+        ms = timed_ms(torch, bare, 20)
+        wrapper_ms = timed_ms(torch, wrapper, 20)
+        plain_ms = timed_ms(torch, plain, 1)
+        b_ms, b_by = bound(nbytes, ops)
+        name, src, rep = ACCEL_META[k]
+        print(f"{k} {name}: kernel {ms:.4f} ms (with the wrapper's packing "
+              f"{wrapper_ms:.4f}), plain torch {plain_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.2f} MB, "
+              f"{ops / 1e9:.3f} GFLOP); {shape} | {card}")
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"distributionraytracer_tpu_torch/csrc/{src}",
+                     "replaces": rep, "launches": count, "run": run,
+                     "max_abs_err": errs[k], "ms": ms,
+                     "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": None})
+
+    accel_rows(torch, np, dev, card, acc, errs, add_row)
+
     # ---- 7. profiles of one warm frame of each main path ----
     profile_frame(torch, lambda: r.render_with_samples(samples), med,
                   "Whitted frame")
     profile_frame(torch, pt_frame, pmed, "PT frame")
+    profile_frame(torch, lambda: acc["bvh"].render_with_samples(
+        acc["samples"]), acc["median"], "accelerated frame")
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -9,6 +9,9 @@ prints the wall-clock (main.cpp:968-1111).  Here:
     python -m distributionraytracer_tpu_torch render scene.p3f \\
         [--spp N] [--motion-blur] [--progressive N] [--seed S]
 
+A grid or BVH scene prints its accel build (cells or nodes, seconds, which
+builder) before its backend.
+
     python -m distributionraytracer_tpu_torch pathtrace --scene 0 \\
         -o PT_Output.png --res 800 600 --spp 16 [--bounces 10]
 
@@ -60,7 +63,7 @@ def _cmd_render(args):
         cfg = cfg.replace(spp=args.spp)
     if args.motion_blur:
         cfg = cfg.replace(motion_blur=True)
-    r = Renderer(scene, cfg, device=device)
+    r = Renderer(scene, cfg, device=device, verbose=True)  # grid/BVH build
     print(f"backend: {r.executed_backend()}")
     gen = torch.Generator(device=device).manual_seed(args.seed)
 

@@ -2,8 +2,9 @@
 
 The reference drives these knobs from compile-time flags and the P3F scene
 file (main.cpp:29-39, scene.cpp:489-693).  Here they live in one frozen
-dataclass.  The knobs of the accel-NONE Whitted/distribution path and of
-the GLSL path tracer are ported; the accel knobs arrive with their slice.
+dataclass: the knobs of the Whitted/distribution path (accel NONE, grid
+and BVH) and of the GLSL path tracer.  ``accel_backend`` (the JAX package's
+choice of its differentiable XLA traversals) arrives with those traversals.
 """
 
 from __future__ import annotations
@@ -35,9 +36,22 @@ class RenderConfig:
                        plain torch versions on CPU tensors: one fused level
                        kernel per tree level where the scene has lights,
                        the closest/any-hit kernels with the staged shading
-                       where it has none, and one fused bounce kernel per
+                       where it has none, the packet and binned kernels of
+                       grid and BVH scenes, and one fused bounce kernel per
                        path-tracer bounce; 'off' forces the plain staged
-                       path everywhere.
+                       path of accel-NONE scenes, and the plain versions on
+                       the same route for grid and BVH scenes.
+    - ``packet_kernel``: the packet kernel of grid and BVH scenes: 'grouped'
+                       (K7, over 8-object groups; the binned route needs
+                       its tables) or 'legacy' (K8, the union walk; also
+                       taken where the grouped packer refuses a tree).
+                       The renderer traces these scenes in tiles of
+                       ``tile_rays`` primary samples, the binned route in
+                       one tile of the whole frame.
+    - ``accel_cost_threshold``: grid/BVH scenes with at most this many
+                       objects (and no plane, no moving sphere) take the
+                       brute kernels with the accel's gates ('cost-brute');
+                       0 disables it.
     - ``max_bounces``: path-tracer ``MAX_BOUNCES`` (P3D_RT.glsl:581).
     - ``russian_roulette``: path termination on the max throughput channel
                        with 1/p boost (P3D_RT.glsl:651-656).
@@ -49,6 +63,8 @@ class RenderConfig:
     spp: int = 0
     static_prune: bool = True
     kernels: str = "auto"  # 'auto' | 'off'
+    packet_kernel: str = "grouped"  # 'grouped' | 'legacy'
+    accel_cost_threshold: int = 1024
     dof: bool = False
     motion_blur: bool = False
     max_samples: int = 10000
@@ -63,6 +79,8 @@ class RenderConfig:
             raise ValueError(f"bad shadow_mode: {self.shadow_mode}")
         if self.kernels not in ("auto", "off"):
             raise ValueError(f"bad kernels mode: {self.kernels}")
+        if self.packet_kernel not in ("grouped", "legacy"):
+            raise ValueError(f"bad packet_kernel: {self.packet_kernel}")
         if self.tile_rays <= 0:
             raise ValueError(f"bad tile_rays: {self.tile_rays}")
         if self.pt_tile_rays < 0:

@@ -1,4 +1,4 @@
-// Ray-primitive tests shared by the brute-force kernels.
+// Ray-primitive tests shared by the brute-force and packet kernels.
 //
 // Device counterparts of _sphere_step, _triangle_step, _plane_step and
 // _box_step in distributionraytracer_tpu/ops/pallas_intersect.py, with the
@@ -14,9 +14,11 @@
 // by direction components that may be zero and needs IEEE inf.
 //
 // Objects live in a packed (O,12) f32 table in insertion order with an
-// (O,) i32 type array (scene/types.py::packed_objects).  Every thread of a
-// block reads the same row at the same time, so rows are read straight
-// from global memory through __ldg: one broadcast, cached load per field.
+// (O,) i32 type array (scene/types.py::packed_objects), or in the packet
+// kernels' (S,16) slot records.  Every thread of a block reads the same row
+// at the same time, so rows are read straight from global memory through
+// __ldg: one broadcast, cached load per field (or from shared memory, for
+// rows a block stages itself: the <false> instances).
 #pragma once
 
 #include <cfloat>
@@ -46,8 +48,12 @@ __device__ __forceinline__ float max_nan(float a, float b) {
   return r;
 }
 
+// A row field: through the read-only cache from global memory (kGlobal),
+// or a plain load (rows staged in shared memory by a block).
+template <bool kGlobal = true>
 __device__ __forceinline__ float ld(const float* p, int i) {
-  return __ldg(p + i);
+  if constexpr (kGlobal) return __ldg(p + i);
+  return p[i];
 }
 
 // One IEEE rounding per operation, never contracted into an FMA.
@@ -62,9 +68,11 @@ __device__ __forceinline__ float dot3_rn(float ax, float ay, float az,
 // so a single contracted multiply-add moves t and the normal visibly.  It
 // is evaluated uncontracted, left to right, with the rounding of the
 // reference (pallas_intersect.py::_sphere_step) and of the plain version.
+template <bool G = true>
 __device__ __forceinline__ float sphere_t(const Ray& r, const float* row,
                                           float time, bool motion_blur) {
-  float cx = ld(row, 0), cy = ld(row, 1), cz = ld(row, 2), rad = ld(row, 3);
+  float cx = ld<G>(row, 0), cy = ld<G>(row, 1), cz = ld<G>(row, 2);
+  float rad = ld<G>(row, 3);
   if (motion_blur) cy = cy + time;
   float ocx = r.ox - cx, ocy = r.oy - cy, ocz = r.oz - cz;
   float a = dot3_rn(r.dx, r.dy, r.dz, r.dx, r.dy, r.dz);
@@ -79,36 +87,50 @@ __device__ __forceinline__ float sphere_t(const Ray& r, const float* row,
   return (disc >= 0.0f && t > kEpsilon) ? t : kFltMax;
 }
 
+__device__ __forceinline__ float sub_mul_rn(float a, float b, float c,
+                                            float d) {
+  return __fsub_rn(__fmul_rn(a, b), __fmul_rn(c, d));
+}
+
+// Moller-Trumbore and the plane test decide hits at shared mesh edges and
+// grazing angles, so they are uncontracted too, in the plain version's
+// order (ops/intersect.py::hit_packed): the packet kernels must pick the
+// same winner as the plain walk.
+template <bool G = true>
 __device__ __forceinline__ float triangle_t(const Ray& r, const float* row) {
-  float v0x = ld(row, 0), v0y = ld(row, 1), v0z = ld(row, 2);
-  float e1x = ld(row, 3), e1y = ld(row, 4), e1z = ld(row, 5);
-  float e2x = ld(row, 6), e2y = ld(row, 7), e2z = ld(row, 8);
-  float hx = r.dy * e2z - r.dz * e2y;
-  float hy = r.dz * e2x - r.dx * e2z;
-  float hz = r.dx * e2y - r.dy * e2x;
-  float a = e1x * hx + e1y * hy + e1z * hz;
-  float f = 1.0f / (a != 0.0f ? a : 1.0f);
-  float sx = r.ox - v0x, sy = r.oy - v0y, sz = r.oz - v0z;
-  float u = f * (sx * hx + sy * hy + sz * hz);
-  float qx = sy * e1z - sz * e1y;
-  float qy = sz * e1x - sx * e1z;
-  float qz = sx * e1y - sy * e1x;
-  float v = f * (qx * r.dx + qy * r.dy + qz * r.dz);
-  float t = f * (e2x * qx + e2y * qy + e2z * qz);
+  float v0x = ld<G>(row, 0), v0y = ld<G>(row, 1), v0z = ld<G>(row, 2);
+  float e1x = ld<G>(row, 3), e1y = ld<G>(row, 4), e1z = ld<G>(row, 5);
+  float e2x = ld<G>(row, 6), e2y = ld<G>(row, 7), e2z = ld<G>(row, 8);
+  float hx = sub_mul_rn(r.dy, e2z, r.dz, e2y);
+  float hy = sub_mul_rn(r.dz, e2x, r.dx, e2z);
+  float hz = sub_mul_rn(r.dx, e2y, r.dy, e2x);
+  float a = dot3_rn(e1x, e1y, e1z, hx, hy, hz);
+  float f = __fdiv_rn(1.0f, a != 0.0f ? a : 1.0f);
+  float sx = __fsub_rn(r.ox, v0x), sy = __fsub_rn(r.oy, v0y),
+        sz = __fsub_rn(r.oz, v0z);
+  float u = __fmul_rn(f, dot3_rn(sx, sy, sz, hx, hy, hz));
+  float qx = sub_mul_rn(sy, e1z, sz, e1y);
+  float qy = sub_mul_rn(sz, e1x, sx, e1z);
+  float qz = sub_mul_rn(sx, e1y, sy, e1x);
+  float v = __fmul_rn(f, dot3_rn(qx, qy, qz, r.dx, r.dy, r.dz));
+  float t = __fmul_rn(f, dot3_rn(e2x, e2y, e2z, qx, qy, qz));
   bool ok = a != 0.0f && u >= 0.0f && u <= 1.0f && v >= 0.0f &&
-            u + v <= 1.0f && t > kEpsilon;
+            __fadd_rn(u, v) <= 1.0f && t > kEpsilon;
   return ok ? t : kFltMax;
 }
 
+template <bool G = true>
 __device__ __forceinline__ float plane_t(const Ray& r, const float* row) {
-  float nx = ld(row, 0), ny = ld(row, 1), nz = ld(row, 2), pd = ld(row, 3);
-  float denom = r.dx * nx + r.dy * ny + r.dz * nz;
+  float nx = ld<G>(row, 0), ny = ld<G>(row, 1), nz = ld<G>(row, 2);
+  float pd = ld<G>(row, 3);
+  float denom = dot3_rn(r.dx, r.dy, r.dz, nx, ny, nz);
   bool par_ok = fabsf(denom) >= kEpsilon;
-  float t = -((r.ox * nx + r.oy * ny + r.oz * nz) + pd) /
-            (par_ok ? denom : 1.0f);
+  float t = __fdiv_rn(-__fadd_rn(dot3_rn(r.ox, r.oy, r.oz, nx, ny, nz), pd),
+                      par_ok ? denom : 1.0f);
   return (par_ok && t > 0.0f) ? t : kFltMax;
 }
 
+template <bool G = true>
 __device__ __forceinline__ float box_t(const Ray& r, const float* row) {
   const float o[3] = {r.ox, r.oy, r.oz};
   const float d[3] = {r.dx, r.dy, r.dz};
@@ -116,8 +138,8 @@ __device__ __forceinline__ float box_t(const Ray& r, const float* row) {
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     float inv = 1.0f / d[k];
-    float ta = (ld(row, k) - o[k]) * inv;
-    float tb = (ld(row, 3 + k) - o[k]) * inv;
+    float ta = (ld<G>(row, k) - o[k]) * inv;
+    float tb = (ld<G>(row, 3 + k) - o[k]) * inv;
     float lo = min_nan(ta, tb);
     float hi = max_nan(ta, tb);
     tmin = k == 0 ? lo : max_nan(tmin, lo);
@@ -126,18 +148,20 @@ __device__ __forceinline__ float box_t(const Ray& r, const float* row) {
   return (tmin <= tmax && tmin > kEpsilon) ? tmin : kFltMax;
 }
 
+template <bool G = true>
 __device__ __forceinline__ float prim_t(int typ, const Ray& r,
                                         const float* row, float time,
                                         bool motion_blur) {
   switch (typ) {
-    case kSphere: return sphere_t(r, row, time, motion_blur);
-    case kTriangle: return triangle_t(r, row);
-    case kPlane: return plane_t(r, row);
-    default: return box_t(r, row);
+    case kSphere: return sphere_t<G>(r, row, time, motion_blur);
+    case kTriangle: return triangle_t<G>(r, row);
+    case kPlane: return plane_t<G>(r, row);
+    default: return box_t<G>(r, row);
   }
 }
 
 // Geometric normal of object `row` at ray parameter t (unflipped).
+template <bool G = true>
 __device__ __forceinline__ void prim_normal(int typ, const Ray& r,
                                             const float* row, float t,
                                             float time, bool motion_blur,
@@ -145,33 +169,37 @@ __device__ __forceinline__ void prim_normal(int typ, const Ray& r,
   if (typ == kSphere) {
     // uncontracted, as the plain version: the normal steers the children,
     // and reflections off small spheres magnify its last-bit differences
-    float cy = ld(row, 1);
+    float cy = ld<G>(row, 1);
     if (motion_blur) cy = cy + time;
-    float px = __fsub_rn(__fadd_rn(r.ox, __fmul_rn(r.dx, t)), ld(row, 0));
+    float px = __fsub_rn(__fadd_rn(r.ox, __fmul_rn(r.dx, t)), ld<G>(row, 0));
     float py = __fsub_rn(__fadd_rn(r.oy, __fmul_rn(r.dy, t)), cy);
-    float pz = __fsub_rn(__fadd_rn(r.oz, __fmul_rn(r.dz, t)), ld(row, 2));
+    float pz = __fsub_rn(__fadd_rn(r.oz, __fmul_rn(r.dz, t)), ld<G>(row, 2));
     float len = __fsqrt_rn(dot3_rn(px, py, pz, px, py, pz));
     n[0] = __fdiv_rn(px, len);
     n[1] = __fdiv_rn(py, len);
     n[2] = __fdiv_rn(pz, len);
   } else if (typ == kTriangle) {
-    float e1x = ld(row, 3), e1y = ld(row, 4), e1z = ld(row, 5);
-    float e2x = ld(row, 6), e2y = ld(row, 7), e2z = ld(row, 8);
-    float nx = e1y * e2z - e1z * e2y;
-    float ny = e1z * e2x - e1x * e2z;
-    float nz = e1x * e2y - e1y * e2x;
-    float inv = rsqrtf(fmaxf(nx * nx + ny * ny + nz * nz, 1e-30f));
-    n[0] = nx * inv; n[1] = ny * inv; n[2] = nz * inv;
+    float e1x = ld<G>(row, 3), e1y = ld<G>(row, 4), e1z = ld<G>(row, 5);
+    float e2x = ld<G>(row, 6), e2y = ld<G>(row, 7), e2z = ld<G>(row, 8);
+    float nx = sub_mul_rn(e1y, e2z, e1z, e2y);
+    float ny = sub_mul_rn(e1z, e2x, e1x, e2z);
+    float nz = sub_mul_rn(e1x, e2y, e1y, e2x);
+    float len = __fsqrt_rn(dot3_rn(nx, ny, nz, nx, ny, nz));
+    n[0] = __fdiv_rn(nx, len);
+    n[1] = __fdiv_rn(ny, len);
+    n[2] = __fdiv_rn(nz, len);
   } else if (typ == kPlane) {
-    n[0] = ld(row, 0); n[1] = ld(row, 1); n[2] = ld(row, 2);
+    n[0] = ld<G>(row, 0); n[1] = ld<G>(row, 1); n[2] = ld<G>(row, 2);
   } else {
     // ordered if/else chain; first matching face wins (scene.cpp:262-274)
-    const float p[3] = {r.ox + r.dx * t, r.oy + r.dy * t, r.oz + r.dz * t};
+    const float p[3] = {__fadd_rn(r.ox, __fmul_rn(r.dx, t)),
+                        __fadd_rn(r.oy, __fmul_rn(r.dy, t)),
+                        __fadd_rn(r.oz, __fmul_rn(r.dz, t))};
     n[0] = n[1] = n[2] = 0.0f;
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
-      if (fabsf(p[k] - ld(row, k)) < kEpsilon) { n[k] = -1.0f; return; }
-      if (fabsf(p[k] - ld(row, 3 + k)) < kEpsilon) { n[k] = 1.0f; return; }
+      if (fabsf(p[k] - ld<G>(row, k)) < kEpsilon) { n[k] = -1.0f; return; }
+      if (fabsf(p[k] - ld<G>(row, 3 + k)) < kEpsilon) { n[k] = 1.0f; return; }
     }
   }
 }

@@ -1,8 +1,7 @@
 // K3: one whole Whitted ray-tree level in one pass.
 //
 // Replaces distributionraytracer_tpu/ops/pallas_whitted.py::fused_level
-// (_level_kernel), accel-NONE mode (the grid_mode slab gates are not
-// ported yet).  Per ray lane:
+// (_level_kernel), both modes.  Per ray lane:
 //   closest hit over the packed table (strict-< first wins), then the
 //   winner's 13 material fields from the (O,13) per-object rows;
 //   per light: Blinn-Phong (light colour ignored, main.cpp:446-449) and a
@@ -10,6 +9,12 @@
 //   shadow mode, t > 1e-4, self-exclusion; main.cpp:399-440);
 //   with spawn: refraction and reflection children (Schlick cos selection,
 //   Beer, TIR => F = 1, reflection gate; main.cpp:456-518).
+// Grid mode (gbox != nullptr, the uniform grid's observable semantics,
+// pallas_whitted.py:83-121, 179-196): the Init_Traverse slab over the grid
+// box gives (ok, t1); a closest hit counts iff ok && t < t1 (walking out of
+// the grid drops the record; the winner's material and normal are kept as
+// the fold found them); the occluder compare is a strict t < dist with no
+// self-exclusion, and a shadow ray whose slab init fails is shadowed.
 // Bound: FP32 ALU, rays x objects x (1 + lights) primitive tests per
 // level.  Memory traffic is 11 input and 4 or 29 output f32 streams per
 // lane; the tables are warp-uniform broadcast reads through __ldg.
@@ -23,6 +28,7 @@
 //   table (O,12) f32, types (O,) i32, mrow (O,13) f32
 //     [cd3, cs3, kd, ks, kr, shine, T, ior, pad];
 //   lights (L,9) f32 [pos3, e1_3, e2_3], light_quad (L,) i32;
+//   gbox (6,) f32 [grid bbox_min, bbox_max], or null (accel NONE);
 //   rays (11,R) f32 rows ox oy oz dx dy dz time ior lsx lsy valid;
 //   out (4,R) or (29,R) f32, in the order of fused_level's outputs.
 
@@ -39,12 +45,33 @@ __device__ __forceinline__ void norm3(float& x, float& y, float& z) {
   x *= inv; y *= inv; z *= inv;
 }
 
+// Init_Traverse's slab (grid.cpp:104-171, accel/grid.py::
+// _init_traverse_batched): whether the ray meets the grid box, and its exit.
+__device__ __forceinline__ bool grid_slab(const float* gbox,
+                                          const drt::Ray& r, float* t1) {
+  const float o[3] = {r.ox, r.oy, r.oz};
+  const float d[3] = {r.dx, r.dy, r.dz};
+  float t0 = 0.0f, te = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float a = 1.0f / d[k];
+    const float lo = __ldg(gbox + k), hi = __ldg(gbox + 3 + k);
+    const float tn = a >= 0.0f ? (lo - o[k]) * a : (hi - o[k]) * a;
+    const float tf = a >= 0.0f ? (hi - o[k]) * a : (lo - o[k]) * a;
+    t0 = k == 0 ? tn : drt::max_nan(t0, tn);
+    te = k == 0 ? tf : drt::min_nan(te, tf);
+  }
+  *t1 = te;
+  return !(t0 > te || te < 0.0f);
+}
+
 __global__ void whitted_level_kernel(
     const float* __restrict__ table, const int* __restrict__ types,
     const float* __restrict__ mrow, int n_obj,
     const float* __restrict__ lights, const int* __restrict__ light_quad,
-    int n_lights, const float* __restrict__ rays, int n, int motion_blur,
-    int spawn, int ref_shadow, float* __restrict__ out) {
+    int n_lights, const float* __restrict__ gbox,
+    const float* __restrict__ rays, int n, int motion_blur, int spawn,
+    int ref_shadow, float* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const size_t N = n;
@@ -65,11 +92,16 @@ __global__ void whitted_level_kernel(
   float nrm[3];
   const int gid = drt::closest_fold(table, types, n_obj, r, time,
                                     motion_blur != 0, &t_hit, nrm);
-  const bool hit = gid >= 0;
+  bool hit = gid >= 0;
+  if (gbox != nullptr) {
+    float t1;
+    const bool ok = grid_slab(gbox, r, &t1);
+    hit = hit && ok && t_hit < t1;
+  }
   float m[kMatWidth];
 #pragma unroll
   for (int k = 0; k < kMatWidth; ++k)
-    m[k] = hit ? __ldg(mrow + (size_t)gid * kMatWidth + k) : 0.0f;
+    m[k] = gid >= 0 ? __ldg(mrow + (size_t)gid * kMatWidth + k) : 0.0f;
   const float kd = m[6], ks = m[7], kr = m[8], shine = m[9], trans = m[10],
               mat_ior = m[11];
 
@@ -115,9 +147,17 @@ __global__ void whitted_level_kernel(
     drt::Ray s = shadow_base;
     s.dx = lx; s.dy = ly; s.dz = lz;
     const float sdist = ref_shadow ? 1.0f : dist_true;
-    if (drt::any_fold(table, types, n_obj, s, sdist, gid, drt::kModeNone,
-                      motion_blur != 0))
-      continue;
+    bool shadowed;
+    if (gbox == nullptr) {
+      shadowed = drt::any_fold(table, types, n_obj, s, sdist, gid,
+                               drt::kModeNone, motion_blur != 0);
+    } else {
+      float t_exit;
+      shadowed = !grid_slab(gbox, s, &t_exit) ||
+                 drt::any_fold(table, types, n_obj, s, sdist, gid,
+                               drt::kModeGrid, motion_blur != 0);
+    }
+    if (shadowed) continue;
 #pragma unroll
     for (int k = 0; k < 3; ++k)
       direct[k] += m[k] * (kd * ndl) + m[3 + k] * (ks * spec);
@@ -195,12 +235,14 @@ __global__ void whitted_level_kernel(
 
 }  // namespace
 
+// gbox: null for accel NONE, the grid's (6,) f32 box for grid mode.
 extern "C" int drt_whitted_level(const void* table, const void* types,
                                  const void* mrow, int n_obj,
                                  const void* lights, const void* light_quad,
-                                 int n_lights, const void* rays, int n,
-                                 int motion_blur, int spawn, int ref_shadow,
-                                 void* out, void* stream) {
+                                 int n_lights, const void* gbox,
+                                 const void* rays, int n, int motion_blur,
+                                 int spawn, int ref_shadow, void* out,
+                                 void* stream) {
   if (n > 0) {
     whitted_level_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
@@ -208,7 +250,8 @@ extern "C" int drt_whitted_level(const void* table, const void* types,
         static_cast<const float*>(mrow), n_obj,
         static_cast<const float*>(lights),
         static_cast<const int*>(light_quad), n_lights,
-        static_cast<const float*>(rays), n, motion_blur, spawn, ref_shadow,
+        static_cast<const float*>(gbox), static_cast<const float*>(rays), n,
+        motion_blur, spawn, ref_shadow,
         static_cast<float*>(out));
   }
   return static_cast<int>(cudaGetLastError());

@@ -11,7 +11,10 @@ Counterpart of ``distributionraytracer_tpu.integrator.render``.  Mirrors
   running-mean update ``lerp(old, new, 1/frame)`` (main.cpp:536-599).
 
 PyTorch runs eagerly: the frame is traced in tiles of ``cfg.tile_rays``
-primary samples by a Python loop, which bounds the live ray-tree state.
+primary samples by a Python loop, which bounds the live ray-tree state.  The
+renderer's grid and BVH routes pass their own tile (``accel_tile``), and
+their rays are first grouped into square pixel blocks (:func:`_block_perm`),
+which the packet kernels and the binned route rely on.
 """
 
 from __future__ import annotations
@@ -143,11 +146,37 @@ def _rays_from_samples(scene: SceneData, cfg: RenderConfig,
             ls3.reshape(n, 3))
 
 
+def _block_perm(H: int, W: int, S: int, tile: int = 1024) -> np.ndarray:
+    """Ray permutation grouping ~``tile`` rays into square pixel blocks.
+
+    The flat (H, W, S) row-major order puts a traversal packet on a strip
+    of pixels spanning the image; square blocks (32x32 pixels at S = 1)
+    shrink the node union a packet walks, and give each 128-ray chain of
+    the binned route a pixel rectangle.  The inverse gather restores image
+    order, so output values are unchanged.
+    """
+    per = max(tile // max(S, 1), 1)
+    bw = 1
+    while bw * bw < per:
+        bw *= 2
+    bh = max(per // bw, 1)
+    yy, xx = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    order = np.lexsort((xx.ravel() % bw, yy.ravel() % bh,
+                        (xx // bw).ravel(), (yy // bh).ravel()))
+    return (order[:, None] * S + np.arange(S)).ravel().astype(np.int32)
+
+
 def render_from_samples(scene: SceneData, cfg: RenderConfig,
                         samples: SampleSet, row_offset=0,
                         inter: Optional[Intersectors] = None,
-                        average: bool = True, return_rays: bool = False):
+                        average: bool = True, return_rays: bool = False,
+                        fused_grid=None, accel_tile: Optional[int] = None):
     """Trace a SampleSet in tiles of ``cfg.tile_rays`` primary samples.
+
+    ``accel_tile`` (the renderer's grid and BVH routes) groups the rays
+    into pixel blocks (:func:`_block_perm`) and traces them in tiles of
+    that many.  ``fused_grid`` (the grid's ``(bbox_min, bbox_max)``) runs
+    every level on K3 in grid mode.
 
     ``return_rays=True`` also returns the exact traced-ray count (tree
     nodes + shadow rays, the whitted.py counters) as an int64 tensor.  The
@@ -157,15 +186,27 @@ def render_from_samples(scene: SceneData, cfg: RenderConfig,
     H, W, S = samples.time.shape
     o, d, t, ls = _rays_from_samples(scene, cfg, samples, row_offset)
     n = o.shape[0]
+    perm = None
+    tile = cfg.tile_rays
+    if accel_tile is not None:
+        perm = torch.as_tensor(_block_perm(H, W, S), device=o.device).long()
+        o, d, t, ls = o[perm], d[perm], t[perm], ls[perm]
+        tile = accel_tile
     colors = []
     nrays = torch.zeros((), dtype=torch.int64, device=o.device)
-    for a in range(0, n, cfg.tile_rays):
-        b = min(a + cfg.tile_rays, n)
+    for a in range(0, n, tile):
+        b = min(a + tile, n)
         color, stats = trace_whitted(scene, cfg, o[a:b], d[a:b], t[a:b],
-                                     ls[a:b], inter=inter)
+                                     ls[a:b], inter=inter,
+                                     fused_grid=fused_grid)
         colors.append(color)
         nrays += stats["rays_traced"] + stats["shadow_rays"]
-    colors = torch.cat(colors).reshape(H, W, S, 3)
+    colors = torch.cat(colors)
+    if perm is not None:
+        inv = torch.empty_like(perm)
+        inv[perm] = torch.arange(n, device=perm.device)
+        colors = colors[inv]
+    colors = colors.reshape(H, W, S, 3)
     img = colors.mean(dim=2) if average else colors
     return (img, nrays) if return_rays else img
 

@@ -15,8 +15,10 @@ evaluated:
 Statically dead subtrees (no ``T == 1`` material, no ``Ks > 0`` material)
 are pruned.  Each level runs on one of three routes (:func:`level_route`):
 the fused level kernel K3, the staged brute kernels K1/K2 with
-:func:`_shade_node`, or the staged plain torch code.  On CPU tensors every
-kernel wrapper runs its plain version.
+:func:`_shade_node`, or the staged plain torch code.  Given intersectors
+(an accel's), every level is staged on them; given ``fused_grid``, every
+level runs on K3 in grid mode.  On CPU tensors every kernel wrapper runs
+its plain version.
 
 Reference quirks kept: normal flip when hit from inside; Blinn-Phong
 ignoring the light colour; the accel-NONE shadow distance 1.0 in
@@ -114,16 +116,24 @@ def _shadow_terms(scene, cfg, accel, hit_p, N, light_pos, inter):
 
 
 def trace_whitted(scene: SceneData, cfg: RenderConfig, o, d, time,
-                  light_sample, inter: Optional[Intersectors] = None):
+                  light_sample, inter: Optional[Intersectors] = None,
+                  fused_grid=None):
     """Trace a batch of primary rays; returns (color (R,3), stats dict).
 
     ``light_sample``: (R,3) per-ray sample for quad lights (only .x/.y
     used), the ``lightSample`` argument of ``rayTracing`` (main.cpp:294).
+    ``fused_grid`` (the grid's ``(bbox_min, bbox_max)``) runs each level on
+    K3 in grid mode (its plain version with ``kernels='off'``).
     The stats ``rays_traced`` and ``shadow_rays`` are int64 tensors.
     """
     level_tabs = None
+    fused = CW.fused_level
     if inter is None:
-        if level_route(scene, cfg) == "fused-level":
+        if fused_grid is not None:
+            level_tabs = CW.level_tables(scene)
+            if cfg.kernels == "off":
+                fused = CW.fused_level_plain
+        elif level_route(scene, cfg) == "fused-level":
             level_tabs = CW.level_tables(scene)
         else:
             inter = brute_intersectors(scene, cfg)
@@ -161,10 +171,10 @@ def trace_whitted(scene: SceneData, cfg: RenderConfig, o, d, time,
         spawn = depth <= cfg.max_depth and branching > 0
         fv = flat(node_valid)
         if level_tabs is not None:
-            res = CW.fused_level(
+            res = fused(
                 scene, cfg, flat(node_o), flat(node_d), flat(node_t),
                 flat(node_ior), flat(node_ls), fv, spawn=spawn,
-                tables=level_tabs)
+                tables=level_tabs, grid_bbox=fused_grid)
             hit_flags = res.pop("_hit")
             res["miss_color"] = _miss_color(scene, flat(node_d))
         else:

@@ -44,10 +44,18 @@ SIGNATURES = {
     "drt_closest_hit": [_P, _P, _P, _I, _P, _I, _I, _P, _P, _P],
     # table, types, n_obj, rays, excl, n, mode, motion_blur, occ, stream
     "drt_any_hit": [_P, _P, _I, _P, _P, _I, _I, _I, _P, _P],
-    # table, types, mrow, n_obj, lights, light_quad, n_lights, rays, n,
-    # motion_blur, spawn, ref_shadow, out, stream
-    "drt_whitted_level": [_P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I,
-                          _P, _P],
+    # table, types, mrow, n_obj, lights, light_quad, n_lights, gbox, rays,
+    # n, motion_blur, spawn, ref_shadow, out, stream
+    "drt_whitted_level": [_P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I,
+                          _I, _P, _P],
+    # nodes, n_nodes, objs, rays, n, motion_blur, walk, out_f, out_i, stream
+    "drt_packet_closest": [_P, _I, _P, _P, _I, _I, _I, _P, _P, _P],
+    # nodes, n_nodes, objs, rays, n, motion_blur, walk, grid_mode, occ,
+    # stream
+    "drt_packet_shadow": [_P, _I, _P, _P, _I, _I, _I, _I, _P, _P],
+    # objs, chain_start, n_chains, cand, cand_dist, rays, n, motion_blur,
+    # out_f, out_i, stream
+    "drt_binned_closest": [_P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P],
     # table, mats, n_tri, n_sph, n_msph, rays, n, out_f, out_i, stream
     "drt_pt_closest": [_P, _P, _I, _I, _I, _P, _I, _P, _P, _P],
     # table, n_tri, n_sph, n_msph, rays, n, occ, stream

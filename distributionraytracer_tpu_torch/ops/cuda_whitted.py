@@ -5,12 +5,16 @@ per tree level does the closest hit (with the winner's 13 material fields),
 one shadow fold per light with the accel-NONE conventions, Blinn-Phong
 direct light and the refraction/reflection spawn (``csrc/whitted_level.cu``).
 The result is the ``_shade_node`` dict minus ``miss_color``, which the
-caller adds.
+caller adds.  ``grid_bbox`` (the grid's ``(bbox_min, bbox_max)``) switches
+the kernel to the uniform grid's observable semantics: the Init_Traverse
+slab gates the closest hit (``ok and t < t1``), occluders compare with a
+strict ``t < dist`` and no self-exclusion, and a shadow ray that misses the
+grid box is shadowed.
 
 :func:`fused_level_plain` computes what the kernel computes, from the plain
 closest/any-hit; it keeps the kernel's own formulas where they differ from
 ``_shade_node`` (``rsqrt(max(x, 1e-24))`` normalisation, the clamped
-Schlick term).  The grid mode of the TPU kernel is not ported yet.
+Schlick term).
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from distributionraytracer_tpu_torch.accel.grid import grid_slab
 from distributionraytracer_tpu_torch.ops import build
 from distributionraytracer_tpu_torch.ops.common import OFFSET, dot
 from distributionraytracer_tpu_torch.ops.cuda_intersect import (
@@ -29,12 +34,13 @@ from distributionraytracer_tpu_torch.ops.intersect import (
 )
 from distributionraytracer_tpu_torch.scene.types import SceneData
 
-# Kernel launches since the last reset_launches().
-LAUNCHES = {"fused_level": 0}
+# Kernel launches since the last reset_launches(), by mode.
+LAUNCHES = {"fused_level": 0, "fused_level_grid": 0}
 
 
 def reset_launches():
-    LAUNCHES["fused_level"] = 0
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 def fused_supported(scene: SceneData, cfg) -> bool:
@@ -103,7 +109,7 @@ def _unpack(outs, valid, spawn: bool):
 
 def fused_level_plain(scene: SceneData, cfg, o, d, time, ior, light_sample,
                       valid, spawn: bool,
-                      tables: Optional[LevelTables] = None):
+                      tables: Optional[LevelTables] = None, grid_bbox=None):
     """Plain torch version of K3 (same outputs as the kernel)."""
     tb = tables if tables is not None else level_tables(scene)
     st = scene.static
@@ -111,8 +117,12 @@ def fused_level_plain(scene: SceneData, cfg, o, d, time, ior, light_sample,
     f32 = dict(dtype=torch.float32, device=o.device)
     h = closest_hit_brute(scene, o, d, time, cfg.motion_blur)
     hit, gid = h.hit, h.obj_id
+    # the fold winner's material, kept when the grid gate drops the hit
     m = torch.where(hit[:, None], tb.mrow[torch.clamp(gid, min=0).long()],
                     torch.zeros((), **f32))
+    if grid_bbox is not None:
+        ok, *_, t1 = grid_slab(*grid_bbox, o, d)
+        hit = hit & ok & (h.t < t1)
     cd, cs = m[:, 0:3], m[:, 3:6]
     kd, ks, kr, shine, trans, mat_ior = (m[:, k] for k in range(6, 12))
 
@@ -151,11 +161,17 @@ def fused_level_plain(scene: SceneData, cfg, o, d, time, ior, light_sample,
     if pending:
         nl = len(pending)
         sorg = p + N * OFFSET
-        occ = any_hit_brute(
-            scene, sorg.repeat(nl, 1), torch.cat([q[1] for q in pending]),
-            torch.zeros((nl * R,), **f32),
-            torch.cat([q[2] for q in pending]), gid.repeat(nl),
-            cfg.motion_blur).reshape(nl, R)
+        so, sd = sorg.repeat(nl, 1), torch.cat([q[1] for q in pending])
+        if grid_bbox is None:
+            occ = any_hit_brute(scene, so, sd, torch.zeros((nl * R,), **f32),
+                                torch.cat([q[2] for q in pending]),
+                                gid.repeat(nl), cfg.motion_blur)
+        else:
+            occ = any_hit_brute(scene, so, sd, torch.zeros((nl * R,), **f32),
+                                torch.cat([q[2] for q in pending]), None,
+                                cfg.motion_blur, mode="grid")
+            occ = occ | ~grid_slab(*grid_bbox, so, sd)[0]
+        occ = occ.reshape(nl, R)
         for (contrib, _, _), oc in zip(pending, occ):
             lit = hit_mask & ~oc
             direct = direct + torch.where(lit[:, None], contrib,
@@ -200,14 +216,24 @@ def fused_level_plain(scene: SceneData, cfg, o, d, time, ior, light_sample,
     return _unpack(torch.stack(outs), valid, spawn)
 
 
-def launch_level(tb: LevelTables, n_obj: int, rays, cfg, spawn: bool, out):
-    """K3 on packed (11, R) rays into (4 or 29, R) f32 outputs; counts
-    nothing (the wrapper below packs, launches and counts)."""
+def grid_box(grid_bbox, device) -> torch.Tensor:
+    """The grid's (bbox_min, bbox_max) as K3's (6,) f32 tensor."""
+    lo, hi = (torch.as_tensor(b, dtype=torch.float32).reshape(3).to(device)
+              for b in grid_bbox)
+    return torch.cat([lo, hi]).contiguous()
+
+
+def launch_level(tb: LevelTables, n_obj: int, rays, cfg, spawn: bool, out,
+                 gbox: Optional[torch.Tensor] = None):
+    """K3 on packed (11, R) rays into (4 or 29, R) f32 outputs, in grid
+    mode when ``gbox`` (:func:`grid_box`) is given; counts nothing (the
+    wrapper below packs, launches and counts)."""
     with torch.cuda.device(rays.device):
         err = build.load().lib.drt_whitted_level(
             tb.data.data_ptr(), tb.types.data_ptr(), tb.mrow.data_ptr(),
             n_obj, tb.lights.data_ptr(),
             tb.light_quad.data_ptr(), tb.lights.shape[0],
+            None if gbox is None else gbox.data_ptr(),
             rays.data_ptr(), rays.shape[1], int(cfg.motion_blur), int(spawn),
             int(cfg.shadow_mode == "reference"), out.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
@@ -216,27 +242,30 @@ def launch_level(tb: LevelTables, n_obj: int, rays, cfg, spawn: bool, out):
 
 def fused_level_kernel(scene: SceneData, cfg, o, d, time, ior, light_sample,
                        valid, spawn: bool,
-                       tables: Optional[LevelTables] = None):
+                       tables: Optional[LevelTables] = None, grid_bbox=None):
     """K3 on CUDA tensors.  Lanes with ``valid`` false get zero outputs."""
     tb = tables if tables is not None else level_tables(scene)
     R = o.shape[0]
     rays = ray_streams(R, o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1],
                        d[:, 2], time, ior, light_sample[:, 0],
                        light_sample[:, 1], valid.to(torch.float32))
+    gbox = None if grid_bbox is None else grid_box(grid_bbox, rays.device)
     require_cuda("fused_level", rays, tb.data, tb.types, tb.mrow, tb.lights,
-                 tb.light_quad)
+                 tb.light_quad, *(() if gbox is None else (gbox,)))
     n_out = 29 if spawn else 4
     out = torch.empty((n_out, R), dtype=torch.float32, device=rays.device)
-    launch_level(tb, scene.static.n_objects, rays, cfg, spawn, out)
-    LAUNCHES["fused_level"] += 1
+    launch_level(tb, scene.static.n_objects, rays, cfg, spawn, out, gbox)
+    LAUNCHES["fused_level" if gbox is None else "fused_level_grid"] += 1
     return _unpack(out, valid, spawn)
 
 
 def fused_level(scene: SceneData, cfg, o, d, time, ior, light_sample, valid,
-                spawn: bool, tables: Optional[LevelTables] = None):
-    """K3: plain version for CPU tensors, the kernel for CUDA tensors."""
+                spawn: bool, tables: Optional[LevelTables] = None,
+                grid_bbox=None):
+    """K3: plain version for CPU tensors, the kernel for CUDA tensors;
+    ``grid_bbox`` selects the grid mode."""
     if o.device.type == "cpu":
         return fused_level_plain(scene, cfg, o, d, time, ior, light_sample,
-                                 valid, spawn, tables)
+                                 valid, spawn, tables, grid_bbox)
     return fused_level_kernel(scene, cfg, o, d, time, ior, light_sample,
-                              valid, spawn, tables)
+                              valid, spawn, tables, grid_bbox)

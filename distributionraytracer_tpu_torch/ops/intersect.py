@@ -230,6 +230,88 @@ def closest_hit_brute(scene: SceneData, o, d, time,
                      mat_id=mat_id.to(torch.int32))
 
 
+def hit_packed(o, d, time, row, typ, motion_blur: bool,
+               types_present=(OBJ_SPHERE, OBJ_TRIANGLE, OBJ_PLANE, OBJ_BOX)):
+    """Each ray against its own packed object row (accel leaves).
+
+    ``row`` (R, >=12) packed parameters, ``typ`` (R,) type tags (-1: an
+    inert slot, a miss).  Returns ``(t, normal)``, t = FLT_MAX on a miss.
+    Only the types in ``types_present`` are evaluated.  Every sum and
+    product is its own rounded operation, left to right, in the order of
+    the packet kernels (``csrc/primitives.cuh``), so that kernel and plain
+    version pick the same winners.
+    """
+    x = lambda a, k: a[:, k]
+    dx, dy, dz = x(d, 0), x(d, 1), x(d, 2)
+    ox, oy, oz = x(o, 0), x(o, 1), x(o, 2)
+    R = o.shape[0]
+    t = torch.full((R,), FLT_MAX, dtype=torch.float32, device=o.device)
+    n = torch.zeros((R, 3), dtype=torch.float32, device=o.device)
+
+    def take(tag, tk, nk):
+        nonlocal t, n
+        m = typ == tag
+        t = torch.where(m, tk, t)
+        n = torch.where(m[:, None], nk, n)
+
+    if OBJ_SPHERE in types_present:
+        center = row[:, 0:3]
+        if motion_blur:
+            center = _moved(center, time)
+        oc = o - center
+        a = _dot3(d, d)
+        b = 2.0 * _dot3(oc, d)
+        cq = _dot3(oc, oc) - row[:, 3] * row[:, 3]
+        disc = b * b - 4.0 * a * cq
+        sq = torch.sqrt(torch.clamp(disc, min=0.0))
+        t1 = (-b - sq) / (2.0 * a)
+        t2 = (-b + sq) / (2.0 * a)
+        ts = torch.where(t1 > EPSILON, t1, t2)
+        p = o + d * ts[:, None] - center
+        take(OBJ_SPHERE, _miss((disc >= 0.0) & (ts > EPSILON), ts),
+             p / torch.sqrt(_dot3(p, p))[:, None])
+    if OBJ_TRIANGLE in types_present:
+        v0, e1, e2 = row[:, 0:3], row[:, 3:6], row[:, 6:9]
+        e = lambda v, k: v[:, k]
+        hx = dy * e(e2, 2) - dz * e(e2, 1)
+        hy = dz * e(e2, 0) - dx * e(e2, 2)
+        hz = dx * e(e2, 1) - dy * e(e2, 0)
+        a = e(e1, 0) * hx + e(e1, 1) * hy + e(e1, 2) * hz
+        nz = a != 0.0
+        f = 1.0 / torch.where(nz, a, torch.ones_like(a))
+        sx, sy, sz = ox - e(v0, 0), oy - e(v0, 1), oz - e(v0, 2)
+        u = f * (sx * hx + sy * hy + sz * hz)
+        qx = sy * e(e1, 2) - sz * e(e1, 1)
+        qy = sz * e(e1, 0) - sx * e(e1, 2)
+        qz = sx * e(e1, 1) - sy * e(e1, 0)
+        v = f * (qx * dx + qy * dy + qz * dz)
+        tt = f * (e(e2, 0) * qx + e(e2, 1) * qy + e(e2, 2) * qz)
+        ok = (nz & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0)
+              & (tt > EPSILON))
+        gx = e(e1, 1) * e(e2, 2) - e(e1, 2) * e(e2, 1)
+        gy = e(e1, 2) * e(e2, 0) - e(e1, 0) * e(e2, 2)
+        gz = e(e1, 0) * e(e2, 1) - e(e1, 1) * e(e2, 0)
+        g = torch.stack([gx, gy, gz], -1)
+        take(OBJ_TRIANGLE, _miss(ok, tt), g / torch.sqrt(_dot3(g, g))[:, None])
+    if OBJ_PLANE in types_present:
+        pn = row[:, 0:3]
+        denom = _dot3(d, pn)
+        par = torch.abs(denom) >= EPSILON
+        tp = -(_dot3(o, pn) + row[:, 3]) / torch.where(
+            par, denom, torch.ones_like(denom))
+        take(OBJ_PLANE, _miss(par & (tp > 0.0), tp), pn)
+    if OBJ_BOX in types_present:
+        bmin, bmax = row[:, 0:3], row[:, 3:6]
+        inv = 1.0 / d
+        ta = (bmin - o) * inv
+        tb = (bmax - o) * inv
+        tmin = torch.minimum(ta, tb).amax(dim=-1)
+        tmax = torch.maximum(ta, tb).amin(dim=-1)
+        take(OBJ_BOX, _miss((tmin <= tmax) & (tmin > EPSILON), tmin),
+             box_normal(o, d, tmin, bmin, bmax))
+    return t, n
+
+
 def any_hit_brute(scene: SceneData, o, d, time, max_dist, exclude_obj,
                   motion_blur: bool, mode: str = "none"):
     """Occlusion test; plain version of K2.

@@ -1,8 +1,29 @@
 """High-level renderer facade (counterpart of ``distributionraytracer_tpu.renderer``).
 
-Covers the accel-NONE branch: the scene's tensors move to ``device`` once
-(the card unless the caller asks for ``"cpu"``), and every render runs the
-Whitted/distribution tree there.
+The scene's tensors move to ``device`` once (the card unless the caller asks
+for ``"cpu"``).  A grid or BVH scene's acceleration structure is built on
+the host once (:func:`build_accel`) and its tables moved there too.  Each
+frame takes the route the JAX package takes on a TPU, chosen by the same
+predicates, and :meth:`Renderer.executed_backend` names it with the JAX
+package's label:
+
+- accel NONE: ``fused-level`` (K3 per tree level), ``brute-kernel`` (K1/K2,
+  scenes without lights) or ``plain`` (``kernels='off'``);
+- ``binned-primary+grouped-packet`` / ``binned-primary+grid-packet``: the
+  primary level by K9 over the frame's screen bins, every other level and
+  every shadow query by K7 (on the grid emulation's tree, with the grid's
+  gates, for grid scenes);
+- ``grouped-packet`` / ``grid-packet``: K7 on every level (frames the bins
+  do not tile, DOF, motion blur, planes);
+- ``legacy-packet``: K8 (``packet_kernel='legacy'``, or trees the grouped
+  packer refuses).  K8 takes every tree, also those the JAX package's K8
+  refuses for its f32 encoding: the JAX package walks those by XLA
+  (``bvh-xla``, ``grid-xla``), the port by K8 (``legacy-packet``,
+  ``grid-packet``);
+- ``cost-brute``: K1 and K2 with the accel's gates, for scenes of at most
+  ``accel_cost_threshold`` objects without planes or moving spheres.
+
+``kernels='off'`` runs the plain versions on the same route.
 
 Usage:
     r = Renderer(create_random_scene(0), device="cuda")
@@ -13,18 +34,46 @@ Usage:
 
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 
+from distributionraytracer_tpu_torch import native
+from distributionraytracer_tpu_torch.accel import cuda_binned as CB
+from distributionraytracer_tpu_torch.accel.bvh import (
+    build_bvh, collapse_leaves, protect_mask, thread_bvh,
+)
+from distributionraytracer_tpu_torch.accel.cuda_bvh import (
+    PACKET_LEAF, pack_threaded, packet_intersectors,
+)
+from distributionraytracer_tpu_torch.accel.cuda_grid import (
+    make_brute_grid_intersectors, make_cuda_grid_intersectors, pack_grid,
+)
+from distributionraytracer_tpu_torch.accel.cuda_packet import (
+    GROUPED_LEAF, pack_grouped,
+)
+from distributionraytracer_tpu_torch.accel.grid import build_grid
 from distributionraytracer_tpu_torch.config import RenderConfig
 from distributionraytracer_tpu_torch.integrator.render import (
-    SampleSet, default_config, make_samples, progressive_init,
+    SampleSet, _sample_count, default_config, make_samples, progressive_init,
     progressive_samples, progressive_update, render_from_samples,
 )
-from distributionraytracer_tpu_torch.integrator.whitted import level_route
-from distributionraytracer_tpu_torch.scene.types import ACCEL_NONE, SceneData
+from distributionraytracer_tpu_torch.integrator.whitted import (
+    Intersectors, level_route,
+)
+from distributionraytracer_tpu_torch.ops import cuda_intersect as CI
+from distributionraytracer_tpu_torch.ops.intersect import (
+    any_hit_brute, closest_hit_brute,
+)
+from distributionraytracer_tpu_torch.scene.types import (
+    ACCEL_BVH, ACCEL_GRID, ACCEL_NONE, OBJ_PLANE, OBJ_SPHERE, SceneData,
+)
+
+# the JAX brute kernel's table bound: cost-brute takes no larger scene
+BRUTE_MAX_OBJECTS = 1024
+BRUTE_MAX_UNROLL, BRUTE_LOOP_MIN = 128, 16
 
 
 def resolve_device(device) -> torch.device:
@@ -36,29 +85,218 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def _brute_supported(scene: SceneData) -> bool:
+    """The JAX brute kernel's applicability (pallas_intersect.py:282-292):
+    1 to 1024 objects, and at most 128 objects in same-type runs shorter
+    than 16.  Kept so that cost-brute routes the same scenes."""
+    types = scene.static.obj_types
+    if not 0 < len(types) <= BRUTE_MAX_OBJECTS:
+        return False
+    runs, prev = [], None
+    for t in types:
+        if runs and t == prev:
+            runs[-1] += 1
+        else:
+            runs.append(1)
+        prev = t
+    return sum(n for n in runs if n < BRUTE_LOOP_MIN) <= BRUTE_MAX_UNROLL
+
+
+def _use_cost_brute(scene: SceneData, cfg: RenderConfig) -> bool:
+    """Small accel scenes take the brute kernels with the accel's gates,
+    unless the accel's tested set is observable: infinite planes (their
+    default boxes gate which rays test them) or moving spheres under motion
+    blur (their hits escape the static boxes)."""
+    st = scene.static
+    if not cfg.accel_cost_threshold or st.n_objects > cfg.accel_cost_threshold:
+        return False
+    types = set(st.obj_types)
+    if OBJ_PLANE in types or (cfg.motion_blur and OBJ_SPHERE in types):
+        return False
+    return _brute_supported(scene)
+
+
+def _brute_bvh_intersectors(scene: SceneData, cfg: RenderConfig
+                            ) -> Intersectors:
+    """Cost-brute for BVH scenes: K1 closest (a BVH tests a superset-safe
+    set, so no gate), K2 with the BVH compare ``t <= dist + EPSILON`` and no
+    self-exclusion (bvh.cpp:376); the plain scans with ``kernels='off'``."""
+    mb = cfg.motion_blur
+    if cfg.kernels == "off":
+        return Intersectors(
+            lambda o, d, time, valid=None: closest_hit_brute(scene, o, d,
+                                                             time, mb),
+            lambda o, d, dist, ex, valid=None: any_hit_brute(
+                scene, o, d, torch.zeros_like(dist), dist, None, mb,
+                mode="bvh"))
+    tb = CI.object_tables(scene)
+    return Intersectors(
+        lambda o, d, time, valid=None: CI.closest_hit(
+            scene, o, d, time, mb, valid=valid, tables=tb),
+        lambda o, d, dist, ex, valid=None: CI.any_hit(
+            scene, o, d, dist, None, mb, "bvh", valid=valid, tables=tb))
+
+
+class AccelBuild:
+    """Host-built accel tables of one scene.  ``host`` is the full tree or
+    grid (ThreadedBVH / GridArrays, NumPy); ``tabs`` the packet tables
+    (PacketTables for BVH, CudaGrid for grid scenes); ``builder`` says
+    whether ``native/`` or NumPy built them."""
+
+    __slots__ = ("kind", "host", "tabs", "builder", "seconds")
+
+    def __init__(self, kind, host=None, tabs=None, builder="numpy",
+                 seconds=0.0):
+        self.kind = kind
+        self.host = host
+        self.tabs = tabs
+        self.builder = builder
+        self.seconds = seconds
+
+
+def build_accel(scene: SceneData, verbose: bool = False,
+                motion_blur: bool = False, packet_kernel: str = "grouped",
+                use_native: bool = True) -> AccelBuild:
+    """Build a grid or BVH scene's tables on the host (grid.cpp:30-97,
+    bvh.cpp:27-227).  ``motion_blur`` must match the render config: it
+    decides which objects the leaf collapse protects and whether the grid
+    emulation may keep sphere boxes tight.  ``packet_kernel`` selects the
+    kernel the tables are packed for (K8 takes a tree K7's packer
+    refuses)."""
+    st = scene.static
+    builder = native.builder() if use_native else "numpy"
+    out = AccelBuild(st.accel, builder=builder)
+    t0 = time.perf_counter()
+    if st.accel == ACCEL_GRID:
+        grid = build_grid(scene, use_native=use_native)
+        out.host = grid
+        out.tabs = pack_grid(scene, grid, motion_blur, packet_kernel,
+                             use_native=use_native)
+        if verbose:
+            n = grid.ncells
+            print(f"GRID: total cells = {int(n[0] * n[1] * n[2])}, "
+                  f"total objects = {st.n_objects}, ResX = {int(n[0])}, "
+                  f"ResY = {int(n[1])}, ResZ = {int(n[2])}")
+    elif st.accel == ACCEL_BVH:
+        tb = thread_bvh(build_bvh(scene, use_native=use_native))
+        prot = protect_mask(scene, motion_blur)
+        tabs = None
+        if packet_kernel == "grouped":
+            tabs = pack_grouped(scene, collapse_leaves(tb, GROUPED_LEAF,
+                                                       protect=prot))
+        if tabs is None:
+            tabs = pack_threaded(scene, collapse_leaves(tb, PACKET_LEAF,
+                                                        protect=prot))
+        out.host, out.tabs = tb, tabs
+        if verbose:
+            print(f"BVH: {tb.node_box.shape[0]} nodes over {st.n_objects} "
+                  f"objects (threaded, {tabs.kind} packet tables)")
+    out.seconds = time.perf_counter() - t0
+    if verbose and st.accel != ACCEL_NONE:
+        print(f"accel build: {out.seconds:.2f}s ({builder} builder)")
+    return out
+
+
 class Renderer:
     def __init__(self, scene: SceneData, cfg: Optional[RenderConfig] = None,
-                 device="cuda"):
-        if scene.static.accel != ACCEL_NONE:
-            raise NotImplementedError(
-                "grid and BVH scenes are not ported yet (ROADMAP: Slice D, "
-                "accel routing in the renderer)")
+                 device="cuda", verbose: bool = False):
         self.cfg = cfg if cfg is not None else default_config(scene)
         self.device = resolve_device(device)
         self.scene = scene.to(self.device)
+        self.accel = scene.static.accel
+        self.accel_build = None
+        self.tabs = None  # PacketTables (BVH) or CudaGrid (grid)
+        if self.accel != ACCEL_NONE:
+            ab = build_accel(scene, verbose=verbose,
+                             motion_blur=self.cfg.motion_blur,
+                             packet_kernel=self.cfg.packet_kernel)
+            self.accel_build = ab
+            self.tabs = ab.tabs.to(self.device)
+        self._init_binning()
+
+    # ---------------------------------------------------------- routing
+    def _init_binning(self):
+        """The camera-independent half of the binned route: the group
+        boxes.  Primary bins are built per camera and frame shape, lazily
+        (:meth:`_bins_for`)."""
+        self._gbox = None
+        self._primary_cache = {}
+        if self.accel == ACCEL_NONE:
+            return
+        tabs = self.tabs.tabs if self.accel == ACCEL_GRID else self.tabs
+        if tabs.kind != "grouped" or not CB.binned_supported(self.scene,
+                                                             self.cfg):
+            return
+        self._gbox = CB.group_boxes(self.scene, tabs)
+
+    def _bins_for(self, H: int, W: int, S: int) -> Optional[CB.BinSet]:
+        """The BinSet of this camera and frame shape, or None (the packet
+        route takes the frame).  One camera's bins are cached."""
+        if self._gbox is None:
+            return None
+        sc = self.scene
+        key = (H, W, S) + tuple(tuple(a.cpu().numpy().tolist())
+                                for a in (sc.cam_eye, sc.cam_at, sc.cam_up))
+        if key not in self._primary_cache:
+            pb = CB.build_primary_bins(sc, self._gbox, H, W, S)
+            self._primary_cache.clear()
+            self._primary_cache[key] = (None if pb is None
+                                        else pb.to(self.device))
+        pb = self._primary_cache[key]
+        return None if pb is None else CB.BinSet(primary=pb)
 
     def executed_backend(self) -> str:
-        """The route every tree level takes: ``fused-level`` (K3),
-        ``brute-kernel`` (K1/K2) or ``plain``.  The same predicate routes
-        ``trace_whitted``.  On CPU tensors each kernel wrapper runs its
-        plain version."""
-        return level_route(self.scene, self.cfg)
+        """The route a render of the scene's own frame takes, by the
+        routing predicates themselves (the binned prefix only where the
+        frame's bins build), labelled as the JAX package labels it; the
+        trees it walks by XLA (``bvh-xla``, ``grid-xla``) take K8 here."""
+        cfg, st = self.cfg, self.scene.static
+        if self.accel == ACCEL_NONE:
+            return level_route(self.scene, cfg)
+        if _use_cost_brute(self.scene, cfg):
+            return "cost-brute"
+        bins = self._bins_for(st.res_y, st.res_x,
+                              _sample_count(self.scene, cfg))
+        binned = "" if bins is None else "binned-primary+"
+        if self.accel == ACCEL_GRID:
+            return binned + "grid-packet"
+        return binned + ("grouped-packet" if self.tabs.kind == "grouped"
+                         else "legacy-packet")
+
+    def _intersectors(self, bins):
+        """The frame's intersectors and the tile size they take."""
+        sc, cfg = self.scene, self.cfg
+        mb, plain = cfg.motion_blur, cfg.kernels == "off"
+        if self.accel == ACCEL_GRID:
+            if bins is not None:
+                return (make_cuda_grid_intersectors(sc, self.tabs, mb, bins,
+                                                    plain), 1 << 30)
+            if _use_cost_brute(sc, cfg):
+                return (make_brute_grid_intersectors(sc, self.tabs, mb,
+                                                     plain), cfg.tile_rays)
+            return (make_cuda_grid_intersectors(sc, self.tabs, mb,
+                                                plain=plain), cfg.tile_rays)
+        if _use_cost_brute(sc, cfg):
+            return _brute_bvh_intersectors(sc, cfg), cfg.tile_rays
+        inter = packet_intersectors(sc, self.tabs, mb, plain=plain)
+        if bins is None:
+            return inter, cfg.tile_rays
+        # the chain CSR addresses the whole frame: one tile
+        return (CB.leveled_binned_intersectors(sc, self.tabs, bins, inter,
+                                               mb, plain), 1 << 30)
 
     # ------------------------------------------------------------- batch
     def render_with_samples(self, samples: SampleSet, return_rays=False):
-        return render_from_samples(self.scene, self.cfg,
-                                   samples.to(self.device),
-                                   return_rays=return_rays)
+        samples = samples.to(self.device)
+        if self.accel == ACCEL_NONE:
+            return render_from_samples(self.scene, self.cfg, samples,
+                                       return_rays=return_rays)
+        bins = None
+        if not _use_cost_brute(self.scene, self.cfg):
+            bins = self._bins_for(*samples.time.shape)
+        inter, tile = self._intersectors(bins)
+        return render_from_samples(self.scene, self.cfg, samples, inter=inter,
+                                   return_rays=return_rays, accel_tile=tile)
 
     def render(self, generator: Optional[torch.Generator] = None,
                return_rays=False):

@@ -18,8 +18,10 @@ Token-for-token equivalent of ``Scene::load_p3f`` (scene.cpp:474-740):
 - ``# ...``                               — comment to end of line
 
 Parsing is whitespace-token based like ``ifstream >>`` so layouts with
-numbers spread across lines parse identically.  Numbers are parsed with
-``float()``.
+numbers spread across lines parse identically.  Long runs of numbers (mesh
+blocks: a 100k-triangle mesh is ~450k numbers) go through the native
+tokenizer (``native.parse_floats_native``); short ones, and every number
+where no C++ compiler is found, through ``float()``.
 """
 
 from __future__ import annotations
@@ -29,36 +31,47 @@ from typing import List, Optional
 
 import numpy as np
 
+from distributionraytracer_tpu_torch import native
 from distributionraytracer_tpu_torch.scene.builder import SceneBuilder
 from distributionraytracer_tpu_torch.scene.skybox import load_skybox
 from distributionraytracer_tpu_torch.scene.types import (
     ACCEL_BVH, ACCEL_GRID, ACCEL_NONE, SceneData,
 )
 
+_WS = b" \t\r\n\f\v"
+_NATIVE_MIN = 32  # below this many numbers, float() beats a ctypes call
+
 
 class _Tokens:
-    """Whitespace token stream with `#` comment-to-eol handling.
+    """Byte-position stream of whitespace tokens with `#` comment-to-eol
+    handling.
 
     The reference handles comments only at command position
     (scene.cpp:724-727) and consumes to end of line; ``skip_line`` mirrors
-    `ignore('\\n')`.
+    `ignore('\\n')`.  A byte cursor (rather than pre-split lines) lets bulk
+    numeric reads drop into the native tokenizer.
     """
 
     def __init__(self, text: str):
-        self._lines = text.splitlines()
-        self._line = 0
-        self._toks: List[str] = []
+        self._b = text.encode("utf-8")
+        self._pos = 0
 
     def next(self) -> Optional[str]:
-        while not self._toks:
-            if self._line >= len(self._lines):
-                return None
-            self._toks = self._lines[self._line].split()[::-1]
-            self._line += 1
-        return self._toks.pop()
+        b, n, i = self._b, len(self._b), self._pos
+        while i < n and b[i] in _WS:
+            i += 1
+        if i >= n:
+            self._pos = i
+            return None
+        j = i
+        while j < n and b[j] not in _WS:
+            j += 1
+        self._pos = j
+        return b[i:j].decode("utf-8")
 
     def skip_line(self):
-        self._toks = []
+        k = self._b.find(b"\n", self._pos)
+        self._pos = len(self._b) if k < 0 else k + 1
 
     def _need(self) -> str:
         tok = self.next()
@@ -67,6 +80,11 @@ class _Tokens:
         return tok
 
     def float_array(self, n: int) -> np.ndarray:
+        if n >= _NATIVE_MIN:
+            res = native.parse_floats_native(self._b, self._pos, n)
+            if res is not None:
+                vals, self._pos = res
+                return vals
         return np.array([float(self._need()) for _ in range(n)], np.float64)
 
     def floats(self, n: int) -> List[float]:

@@ -320,3 +320,228 @@ def test_pt_routes_match_plain_on_card(dev, si):
         assert torch.isfinite(img).all()
         assert float(((img - plain).abs() > 1e-3).float().mean()) < 0.05
         assert abs(float(img.mean() - plain.mean())) < 5e-3
+
+
+# ------------------------------------------------- accel: K7, K8, K9, K3 grid
+from distributionraytracer_tpu_torch.accel import cuda_binned as CBN  # noqa: E402
+from distributionraytracer_tpu_torch.accel import cuda_bvh as CBV  # noqa: E402
+from distributionraytracer_tpu_torch.accel.bvh import (  # noqa: E402
+    build_bvh, collapse_leaves, protect_mask, thread_bvh, threaded_walk,
+)
+from distributionraytracer_tpu_torch.accel.cuda_packet import (  # noqa: E402
+    GROUPED_LEAF, pack_grouped,
+)
+from distributionraytracer_tpu_torch.integrator.render import (  # noqa: E402
+    _block_perm, _rays_from_samples,
+)
+from distributionraytracer_tpu_torch.scene.types import (  # noqa: E402
+    ACCEL_BVH, ACCEL_GRID,
+)
+
+from torch_scenes import accel_rays, mesh_scene, stacked_scene  # noqa: E402
+
+MESH_TRI = 20_000  # the card tests' mesh; the smoke run takes 100,000
+SMALL_TRI = 600  # <= 1024 objects without a plane: the cost-brute route
+
+
+def _mesh(accel, n_tri=MESH_TRI, res=(128, 128)):
+    return mesh_scene(SceneBuilder, n_tri=n_tri, accel=accel, res=res)
+
+
+def _accel_reset():
+    for m in (CI, CW, CBV, CBN):
+        m.reset_launches()
+
+
+def _accel_launches():
+    return {"K1": CI.LAUNCHES["closest_hit"], "K2": CI.LAUNCHES["any_hit"],
+            "K3": CW.LAUNCHES["fused_level"],
+            "K3grid": CW.LAUNCHES["fused_level_grid"],
+            "K7": CBV.LAUNCHES["grouped_closest"]
+            + CBV.LAUNCHES["grouped_shadow"],
+            "K8": CBV.LAUNCHES["legacy_closest"]
+            + CBV.LAUNCHES["legacy_shadow"],
+            "K9": CBN.LAUNCHES["binned_closest"]}
+
+
+def _packet_tables(scene, kind):
+    tb = thread_bvh(build_bvh(scene))
+    prot = protect_mask(scene)
+    if kind == "grouped":
+        return pack_grouped(scene, collapse_leaves(tb, GROUPED_LEAF,
+                                                   protect=prot))
+    return CBV.pack_threaded(scene, collapse_leaves(tb, CBV.PACKET_LEAF,
+                                                    protect=prot))
+
+
+@pytest.mark.parametrize("kind", ["grouped", "threaded"], ids=["K7", "K8"])
+def test_packet_kernels_match_plain_walk(dev, kind):
+    """K7 and K8 against the plain threaded walk on their own tables: hit
+    masks and object ids equal on every valid lane, t and normals within
+    1e-5 relative; the occlusion of both shadow modes equal."""
+    scene = _mesh(ACCEL_BVH)
+    tabs = _packet_tables(scene, kind)
+    assert tabs is not None and tabs.kind == kind
+    tabs, sc = tabs.to(dev), scene.to(dev)
+    o, d, dist, valid = _cuda(dev, *accel_rays(N, seed=40))
+    tm = torch.zeros(N, device=dev)
+    types = tuple(sorted(set(scene.static.obj_types)))
+    _accel_reset()
+    t, n, gid = CBV.packet_closest_kernel(tabs, o, d, tm, valid)
+    rt, rn, rid = threaded_walk(tabs, o, d, tm, valid, types_present=types)
+    torch.cuda.synchronize()
+    hit = rid >= 0
+    assert 0.3 < float(hit[valid].float().mean()) < 0.99
+    assert torch.equal(gid[valid], rid[valid])
+    assert not (gid[~valid] >= 0).any()
+    torch.testing.assert_close(t[hit], rt[hit], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(n[hit], rn[hit], rtol=1e-5, atol=1e-5)
+    for mode in ("bvh", "grid"):
+        occ = CBV.packet_shadow_kernel(tabs, o, d, dist, valid,
+                                       shadow_mode=mode)
+        ref = threaded_walk(tabs, o, d, None, valid, shadow_dist=dist,
+                            shadow_mode=mode, types_present=types)
+        torch.cuda.synchronize()
+        assert 0.05 < float(ref[valid].float().mean()) < 0.95
+        assert torch.equal(occ[valid], ref[valid])
+    name = "K7" if kind == "grouped" else "K8"
+    assert _accel_launches()[name] == 3
+
+
+def test_binned_kernel_matches_plain(dev):
+    """K9 against its plain stream of the same candidate lists (ids equal,
+    t within 1e-5 relative) and against the packet walk of the whole
+    tree: the binned winners differ only at exact ties (the reference's
+    budget, <= 0.2% of lanes)."""
+    scene = _mesh(ACCEL_BVH)
+    cfg = RenderConfig(spp=0)
+    r = Renderer(scene, cfg, device=dev)
+    H, W = scene.static.res_y, scene.static.res_x
+    bins = r._bins_for(H, W, 1)
+    assert bins is not None
+    samples = make_samples(r.scene, cfg,
+                           torch.Generator(device=dev).manual_seed(2))
+    o, d, t, _ = _rays_from_samples(r.scene, cfg, samples)
+    perm = torch.as_tensor(_block_perm(H, W, 1), device=dev).long()
+    o, d, t = o[perm], d[perm], t[perm]
+    valid = torch.rand(o.shape[0], device=dev) < 0.95
+    _accel_reset()
+    kt, kn, kid = CBN.binned_closest_kernel(r.tabs, bins.primary, o, d, t,
+                                            valid)
+    torch.cuda.synchronize()
+    assert _accel_launches()["K9"] == 1
+    stats = {}
+    pt, pn, pid = CBN.binned_closest_plain(r.tabs, bins.primary, o, d, t,
+                                           valid, stats=stats)
+    assert stats["groups"] > 0
+    hit = pid >= 0
+    assert 0.2 < float(hit[valid].float().mean())
+    assert torch.equal(kid[valid], pid[valid])
+    torch.testing.assert_close(kt[hit], pt[hit], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(kn[hit], pn[hit], rtol=1e-5, atol=1e-5)
+    _, _, wid = CBV.packet_closest_kernel(r.tabs, o, d, t, valid)
+    assert float((wid != kid)[valid].float().mean()) <= 0.002
+
+
+def test_fused_level_grid_mode_matches_plain(dev):
+    """K3 in grid mode against fused_level_plain(grid_bbox=) on a grid
+    scene, with the fused-level comparison's budgets."""
+    scene = _mesh(ACCEL_GRID, n_tri=SMALL_TRI)
+    r = Renderer(scene, RenderConfig(spp=0), device=dev)
+    gb = (r.tabs.bbox_min, r.tabs.bbox_max)
+    o, d, t, ior, ls, valid = _cuda(dev, *level_inputs(N, seed=41))
+    o = o * 0.6 + torch.tensor([0.0, 1.4, 0.0], device=dev)
+    for spawn in (True, False):
+        cfg = RenderConfig(shadow_mode="reference")
+        args = (o, d, t, ior, ls, valid)
+        ref = CW.fused_level_plain(r.scene, cfg, *args, spawn=spawn,
+                                   grid_bbox=gb)
+        _accel_reset()
+        res = CW.fused_level_kernel(r.scene, cfg, *args, spawn=spawn,
+                                    grid_bbox=gb)
+        torch.cuda.synchronize()
+        assert _accel_launches()["K3grid"] == 1
+        assert 0.1 < float(ref["_hit"][valid].float().mean()) < 0.9
+        ref = {k: v.cpu().numpy() for k, v in ref.items()}
+        compare_levels(ref, res, valid.cpu().numpy(), lane_budget=BUDGET)
+
+
+ROUTES = {
+    # label: (accel, n_tri, config overrides, kernels that must launch)
+    "binned-primary+grouped-packet": (ACCEL_BVH, MESH_TRI, {},
+                                      ("K7", "K9")),
+    "binned-primary+grid-packet": (ACCEL_GRID, MESH_TRI, {}, ("K7", "K9")),
+    "legacy-packet": (ACCEL_BVH, MESH_TRI, {"packet_kernel": "legacy"},
+                      ("K8",)),
+    "cost-brute-bvh": (ACCEL_BVH, SMALL_TRI, {}, ("K1", "K2")),
+    "cost-brute-grid": (ACCEL_GRID, SMALL_TRI, {}, ("K1", "K2")),
+}
+
+
+@pytest.mark.parametrize("label", sorted(ROUTES))
+def test_accel_routes_launch_their_kernels(dev, label):
+    """Each accelerated route launches exactly its kernels (K9 once, on the
+    primary level, where the frame is binned) and renders what its plain
+    versions render on the same route."""
+    accel, n_tri, over, expect = ROUTES[label]
+    scene = _mesh(accel, n_tri=n_tri)
+    cfg = RenderConfig(spp=0).replace(**over)
+    r = Renderer(scene, cfg, device=dev)
+    assert r.executed_backend() == label.replace("-bvh", "").replace(
+        "-grid", "")
+    samples = make_samples(r.scene, cfg,
+                           torch.Generator(device=dev).manual_seed(3))
+    _accel_reset()
+    img, nrays = r.render_with_samples(samples, return_rays=True)
+    torch.cuda.synchronize()
+    got = _accel_launches()
+    assert {k for k, v in got.items() if v} == set(expect), got
+    if "K9" in expect:
+        assert got["K9"] == 1
+    assert torch.isfinite(img).all() and float(img.std()) > 0.05
+    plain = Renderer(scene, cfg.replace(kernels="off"), device=dev)
+    _accel_reset()
+    ref, ref_rays = plain.render_with_samples(samples, return_rays=True)
+    assert not any(_accel_launches().values())
+    assert_images_close(img, ref)
+    assert abs(int(nrays) - int(ref_rays)) <= COUNT_BUDGET * int(nrays)
+
+
+def test_fused_grid_level_route(dev):
+    """render_from_samples(fused_grid=) runs every level on K3 in grid
+    mode, and matches the cost-brute grid route's image."""
+    scene = _mesh(ACCEL_GRID, n_tri=SMALL_TRI)
+    cfg = RenderConfig(spp=0)
+    r = Renderer(scene, cfg, device=dev)
+    samples = make_samples(r.scene, cfg,
+                           torch.Generator(device=dev).manual_seed(4))
+    gb = (r.tabs.bbox_min, r.tabs.bbox_max)
+    _accel_reset()
+    img = render_from_samples(r.scene, cfg, samples, fused_grid=gb)
+    torch.cuda.synchronize()
+    got = _accel_launches()
+    assert got["K3grid"] == cfg.max_depth + 1
+    assert sum(got.values()) == got["K3grid"]
+    assert_images_close(img, r.render_with_samples(samples))
+
+
+@pytest.mark.parametrize("accel", [ACCEL_BVH, ACCEL_GRID], ids=["bvh", "grid"])
+def test_fallback_leaf_tree_takes_k8(dev, accel):
+    """A tree with a fallback leaf of 150 objects, which the JAX package
+    walks by XLA, renders on K8 (and nothing else) on the card, as its
+    plain version renders it."""
+    scene = stacked_scene(SceneBuilder, accel)
+    cfg = RenderConfig(spp=0, accel_cost_threshold=0)
+    r = Renderer(scene, cfg, device=dev)
+    assert r.tabs is not None
+    assert r.executed_backend() == ("legacy-packet" if accel == ACCEL_BVH
+                                    else "grid-packet")
+    samples = make_samples(r.scene, cfg,
+                           torch.Generator(device=dev).manual_seed(5))
+    _accel_reset()
+    img = r.render_with_samples(samples)
+    torch.cuda.synchronize()
+    got = _accel_launches()
+    assert got["K8"] > 0 and sum(got.values()) == got["K8"], got
+    plain = Renderer(scene, cfg.replace(kernels="off"), device=dev)
+    assert_images_close(img, plain.render_with_samples(samples))

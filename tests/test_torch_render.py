@@ -18,6 +18,7 @@ from distributionraytracer_tpu.config import RenderConfig as JaxConfig
 from distributionraytracer_tpu.integrator.render import (
     SampleSet as JaxSampleSet,
 )
+from distributionraytracer_tpu.renderer import Renderer as JaxRenderer
 from distributionraytracer_tpu.renderer import _render_none
 from distributionraytracer_tpu.scene.builder import (
     SceneBuilder as JaxSceneBuilder,
@@ -43,7 +44,9 @@ from distributionraytracer_tpu_torch.utils.image import read_png
 
 from test_whitted import assert_images_close, small_scene
 from torch_port_util import prim_scene, to_port, torch_samples
-from torch_scenes import crowd_scene, synthetic_faces
+from torch_scenes import (
+    crowd_scene, mesh_scene, stacked_scene, synthetic_faces,
+)
 
 torch.set_num_threads(1)
 
@@ -185,7 +188,8 @@ def test_port_imports_without_jax():
         "             or k.startswith(('jax.', 'distributionraytracer_tpu.')))\n"
         "assert not bad, bad\n"
         "for m in ('ops.cuda_whitted', 'ops.cuda_pt', 'ops.cubemap',\n"
-        "          'integrator.pathtracer', 'scene.pt_scenes'):\n"
+        "          'integrator.pathtracer', 'scene.pt_scenes', 'native',\n"
+        "          'accel.cuda_packet', 'accel.cuda_binned'):\n"
         "    assert 'distributionraytracer_tpu_torch.' + m in sys.modules\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)
@@ -209,18 +213,23 @@ def test_kernels_refuse_cpu_tensors():
 def test_renderer_refusals():
     scene = create_random_scene(0, 8, 6)
     for accel in (ACCEL_GRID, ACCEL_BVH):
+        # grid and BVH scenes are ported: 102 spheres and no plane take the
+        # brute kernels with the accel's gates, as in the JAX package
         s = dataclasses.replace(scene, static=dataclasses.replace(
             scene.static, accel=accel))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Renderer(s)
+        assert Renderer(s, device="cpu").executed_backend() == "cost-brute"
     with pytest.raises(ValueError, match="kernels"):
         RenderConfig(kernels="on")
+    with pytest.raises(ValueError, match="packet_kernel"):
+        RenderConfig(packet_kernel="fast")
     if torch.cuda.is_available():
         return  # the refusals below are for machines without a card
     # the card is the default, and there is no quiet CPU fallback
     for kw in ({}, {"device": "cuda"}):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             Renderer(scene, **kw)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            Renderer(s, **kw)
     for cmd in (["render", "random"], ["pathtrace"]):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cli.main(cmd + ["--res", "8", "6", "--spp", "1"])
@@ -263,3 +272,122 @@ def test_whitted_skybox_matches_jax(kernels):
     bg = np.abs(ref - np.array([0.1, 0.2, 0.4], np.float32)).max(-1) < 1e-3
     assert bg.mean() < 0.05  # the sky, not the background colour
     assert_images_close(img, ref)
+
+
+# ------------------------------------------------------- grid and BVH scenes
+def _mesh(accel, n_tri=2000, res=(16, 16)):
+    return mesh_scene(JaxSceneBuilder, n_tri=n_tri, accel=accel, res=res)
+
+
+def _with_accel(scene, accel):
+    return dataclasses.replace(scene, static=dataclasses.replace(
+        scene.static, accel=accel))
+
+
+ROUTE_SCENES = {
+    # case: (JAX scene, config overrides, the label both give)
+    "bvh": (lambda: _mesh(ACCEL_BVH), {}, "binned-primary+grouped-packet"),
+    "grid": (lambda: _mesh(ACCEL_GRID), {}, "binned-primary+grid-packet"),
+    "legacy": (lambda: _mesh(ACCEL_BVH), {"packet_kernel": "legacy"},
+               "legacy-packet"),
+    # K8 on the grid emulation's tree: no bins without grouped tables
+    "legacy-grid": (lambda: _mesh(ACCEL_GRID), {"packet_kernel": "legacy"},
+                    "grid-packet"),
+    "cost-brute": (lambda: _mesh(ACCEL_BVH, n_tri=600), {}, "cost-brute"),
+    # an infinite plane: no binned route, no cost-brute
+    "plane-bvh": (lambda: _with_accel(crowd_scene(JaxSceneBuilder),
+                                      ACCEL_BVH), {}, "grouped-packet"),
+    "plane-grid": (lambda: _with_accel(crowd_scene(JaxSceneBuilder),
+                                       ACCEL_GRID), {}, "grid-packet"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ROUTE_SCENES))
+def test_executed_backend_matches_jax(case):
+    """Each grid/BVH scene takes the route the JAX package takes on a TPU
+    (its ``accel_backend='pallas'``), chosen by the same predicates, and
+    both name it alike."""
+    make, over, label = ROUTE_SCENES[case]
+    js = make()
+    jr = JaxRenderer(js, JaxConfig(spp=0, accel_backend="pallas", **over))
+    r = Renderer(to_port(js), RenderConfig(spp=0, **over), device="cpu")
+    assert r.executed_backend() == jr.executed_backend() == label
+
+
+def test_bvh_renderer_matches_jax():
+    """The port's Renderer on a BVH scene (the binned route: plain K9 on
+    the primary level, the plain K7 walk elsewhere) vs the JAX Renderer's
+    threaded walk (``accel_backend='xla'``: the same winners) on one
+    SampleSet; also the legacy (K8) route."""
+    js = _mesh(ACCEL_BVH)
+    samples = shared_samples(js, 1, seed=6)
+    ref, ref_rays = JaxRenderer(js, JaxConfig(spp=0, accel_backend="xla")
+                                ).render_with_samples(samples,
+                                                      return_rays=True)
+    ref = np.asarray(ref)
+    assert ref.std() > 0.05
+    for over in ({}, {"packet_kernel": "legacy"}):
+        r = Renderer(to_port(js), RenderConfig(spp=0, **over), device="cpu")
+        img, nrays = r.render_with_samples(torch_samples(samples),
+                                           return_rays=True)
+        assert_images_close(img.numpy(), ref)
+        assert int(nrays) == int(ref_rays)
+
+
+def test_accel_progressive_and_xla_trees():
+    """A tree with a fallback leaf of 150 objects, which the JAX package's
+    packers refuse (it walks it by XLA: ``bvh-xla``, ``grid-xla``), takes
+    K8 in the port; the image equals the JAX package's on one SampleSet,
+    and the progressive frame takes the same route."""
+    cfg = dict(spp=0, accel_cost_threshold=0)
+    for accel, jax_label, label in ((ACCEL_BVH, "bvh-xla", "legacy-packet"),
+                                    (ACCEL_GRID, "grid-xla", "grid-packet")):
+        js = stacked_scene(JaxSceneBuilder, accel)
+        jr = JaxRenderer(js, JaxConfig(accel_backend="pallas", **cfg))
+        r = Renderer(to_port(js), RenderConfig(**cfg), device="cpu")
+        assert jr.executed_backend() == jax_label
+        assert r.executed_backend() == label
+        samples = shared_samples(js, 1, seed=2)
+        ref, ref_rays = jr.render_with_samples(samples, return_rays=True)
+        img, nrays = r.render_with_samples(torch_samples(samples),
+                                           return_rays=True)
+        assert_images_close(img.numpy(), np.asarray(ref))
+        assert int(nrays) == int(ref_rays)
+    state = r.progressive_step(r.progressive_init(),
+                               torch.Generator().manual_seed(1))
+    assert float(state[1]) == 1.0 and torch.isfinite(state[0]).all()
+
+
+P3F_MESH = """accel bvh
+camera eye 0.5 3.2 7.5 at 0 1 0 up 0 1 0 angle 45 hither 0.01
+  resolution 16 16 aperture 0 focal 1
+light punctual 6 12 6 1 1 1
+mat 0.75 0.6 0.35 0.7 0.9 0.85 0.8 0.35 40 0 1
+"""
+
+
+def test_cli_renders_a_bvh_p3f(tmp_path, capsys):
+    """A BVH P3F with a mesh block (parsed by the native tokenizer) loads
+    as in the JAX package, and the CLI prints its accel build and backend
+    before writing the PNG."""
+    from distributionraytracer_tpu.scene import load_p3f as jax_load_p3f
+    from distributionraytracer_tpu_torch.scene import load_p3f
+    from torch_port_util import leaves_equal
+
+    rng = np.random.default_rng(0)
+    verts = rng.uniform(-1.5, 1.5, (60, 3)) + [0, 1, 0]
+    faces = rng.integers(1, 61, (40, 3))
+    text = (P3F_MESH + f"mesh {len(verts)} {len(faces)}\n"
+            + "\n".join(" ".join(f"{x:.6f}" for x in v) for v in verts)
+            + "\n" + "\n".join(" ".join(str(i) for i in f) for f in faces)
+            + "\ns 0 -1000 0 1000\n")
+    path = tmp_path / "mesh.p3f"
+    path.write_text(text)
+    leaves_equal(jax_load_p3f(str(path)), load_p3f(str(path)))
+    out = str(tmp_path / "mesh.png")
+    cli.main(["render", str(path), "--device", "cpu", "-o", out])
+    printed = capsys.readouterr().out
+    assert "BVH:" in printed and "accel build:" in printed
+    assert "native builder" in printed
+    assert "backend: cost-brute" in printed
+    assert read_png(out).shape == (16, 16, 3)

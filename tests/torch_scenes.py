@@ -51,6 +51,116 @@ def crowd_scene(builder_cls, n=1100, seed=5):
     return b.build()
 
 
+def _torus_grid(n_quads):
+    """(nu, nv) with nu * nv == n_quads, nv the divisor nearest to
+    sqrt(n_quads / 2) (the tube's rings, about half the ring count)."""
+    divs = [k for k in range(1, int(n_quads ** 0.5) + 1) if n_quads % k == 0]
+    nv = min(divs, key=lambda k: abs(k - (n_quads / 2) ** 0.5))
+    return n_quads // nv, nv
+
+
+def mesh_scene(builder_cls, n_tri=100_000, accel=2, seed=0, res=(512, 512)):
+    """A scanned-mesh stand-in: a closed, displaced torus of exactly
+    ``n_tri`` triangles (even) in a reflective material, a glass, a metal
+    and two diffuse spheres, a ground sphere of radius 1000, three point
+    lights above the scene box; ``spp`` 0, no plane, no motion blur, no
+    depth of field.  ``accel`` is the P3F code (1 grid, 2 bvh).  Built from
+    ``seed`` with either package's SceneBuilder, so both build the same
+    scene."""
+    if n_tri % 2:
+        raise ValueError("mesh_scene tessellates quads: n_tri must be even")
+    rng = np.random.default_rng(seed)
+    nu, nv = _torus_grid(n_tri // 2)
+    u = np.arange(nu) * (2 * np.pi / nu)
+    v = np.arange(nv) * (2 * np.pi / nv)
+    U, V = np.meshgrid(u, v, indexing="ij")
+    # displacement: a few random low-order waves, so the surface's
+    # orientation and triangle density vary as a scan's do
+    disp = np.zeros_like(U)
+    for a, fu, fv, ph in zip(rng.uniform(0.03, 0.08, 4),
+                             rng.integers(2, 7, 4), rng.integers(2, 9, 4),
+                             rng.uniform(0, 2 * np.pi, 4)):
+        disp += a * np.sin(fu * U + fv * V + ph)
+    r = 0.55 * (1.0 + disp)
+    R0 = 1.5
+    x = (R0 + r * np.cos(V)) * np.cos(U)
+    z = (R0 + r * np.cos(V)) * np.sin(U)
+    y = r * np.sin(V)
+    tilt = 0.45  # about the x axis
+    y, z = y * np.cos(tilt) - z * np.sin(tilt), y * np.sin(tilt) + z * np.cos(
+        tilt)
+    verts = np.stack([x, y + 1.4, z], -1).reshape(-1, 3).astype(np.float32)
+    iu, iv = np.meshgrid(np.arange(nu), np.arange(nv), indexing="ij")
+    a0 = iu * nv + iv
+    a1 = ((iu + 1) % nu) * nv + iv
+    a2 = ((iu + 1) % nu) * nv + (iv + 1) % nv
+    a3 = iu * nv + (iv + 1) % nv
+    faces = np.concatenate([np.stack([a0, a1, a2], -1).reshape(-1, 3),
+                            np.stack([a0, a2, a3], -1).reshape(-1, 3)])
+    b = builder_cls()
+    b.accel = accel
+    b.set_camera([0.5, 3.2, 7.5], [0, 1.0, 0], [0, 1, 0], 45, 0.01, res[0],
+                 res[1], 0, 1)
+    mesh = b.add_material([0.75, 0.6, 0.35], 0.7, [0.9, 0.85, 0.8], 0.35, 40,
+                          0, 1)
+    glass = b.add_material([0.9, 0.95, 0.9], 0.0, [1, 1, 1], 0.5, 60, 1, 1.5)
+    metal = b.add_material([0.1, 0.1, 0.1], 0.1, [0.9, 0.9, 0.95], 0.9, 200,
+                           0, 1)
+    matte = b.add_material([0.3, 0.4, 0.8], 0.9, [0.2, 0.2, 0.2], 0.0, 10, 0,
+                           1)
+    ground = b.add_material([0.5, 0.5, 0.45], 0.9, [0.3, 0.3, 0.3], 0.2, 20,
+                            0, 1)
+    b.add_triangles_bulk(verts, faces, mesh)
+    b.add_sphere([0.0, -1000.0, 0.0], 1000.0, ground)
+    b.add_sphere([-2.6, 0.8, 1.6], 0.8, glass)
+    b.add_sphere([2.6, 0.8, 1.2], 0.8, metal)
+    b.add_sphere([0.4, 0.45, 2.9], 0.45, matte)
+    b.add_sphere([-1.2, 0.35, -2.8], 0.35, matte)
+    for p in ([6, 12, 6], [-7, 10, 3], [1, 14, -8]):
+        b.add_point_light(p, [1, 1, 1])
+    return b.build()
+
+
+def stacked_scene(builder_cls, accel, n_stack=150):
+    """A few spheres and ``n_stack`` coincident small spheres: the SAH
+    build leaves the stack in one fallback leaf of ``n_stack`` objects,
+    which the JAX package's packers refuse.  ``accel`` is the P3F code (1
+    grid, 2 bvh); either package's SceneBuilder."""
+    b = builder_cls()
+    b.accel = accel
+    b.set_camera([0, 1, 6], [0, 0.5, 0], [0, 1, 0], 45, 0.01, 16, 12, 0, 1)
+    m0 = b.add_material([0.6, 0.6, 0.2], 0.8, [0.2, 0.2, 0.2], 0.3, 10, 0, 1)
+    m1 = b.add_material([0.1, 0.9, 0.2], 0.0, [1, 1, 1], 0.5, 30, 1, 1.5)
+    b.add_sphere([0, -1000, 0], 999.5, m0)
+    b.add_sphere([-1.2, 0.5, 0], 0.6, m1)
+    b.add_sphere([1.2, 0.5, 0.3], 0.5, m0)
+    for _ in range(n_stack):
+        b.add_sphere([0.1, 0.6, 0.8], 0.3, m0)
+    b.add_point_light([2, 4, 2], [1, 1, 1])
+    return b.build()
+
+
+MESH_BOX = ((-3.0, -0.5, -3.0), (3.0, 3.5, 3.0))  # about mesh_scene's torus
+
+
+def accel_rays(n, seed=0, box=MESH_BOX):
+    """Rays about the box [lo, hi] (the JAX packet tests' ``_rays_for``):
+    origins scattered around its centre, unit directions towards targets
+    inside it; returns origins, directions, the target distances (shadow
+    ``dist``) and a valid mask with every 7th lane dead."""
+    rng = np.random.default_rng(seed)
+    lo, hi = (np.asarray(b, np.float64) for b in box)
+    ctr = (lo + hi) / 2
+    o = ctr + rng.standard_normal((n, 3)) * (hi - lo).max() * 1.2
+    d = ctr + rng.uniform(-0.5, 0.5, (n, 3)) * (hi - lo) - o
+    dist = np.linalg.norm(d, axis=1)
+    d = d / dist[:, None]
+    valid = np.ones(n, bool)
+    valid[::7] = False
+    return (o.astype(np.float32), d.astype(np.float32),
+            dist.astype(np.float32), valid)
+
+
 def occlusion_inputs(n_objects, n, seed):
     """Shadow rays: origins, directions, max distances, excluded ids."""
     o, d, _ = random_rays(n, seed=seed)
