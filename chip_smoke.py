@@ -72,17 +72,36 @@
    and shadow in grid mode) also on the grid route's own inputs and
    emulation tree; K3 grid mode on a 65,536-lane tile of the small grid
    scene (the K3 budgets).
+6c. The same frame with a finite ground (``mesh_scene(..., ground="box")``,
+   whose point lights lie outside the scene box) and the light bins built
+   (``cuda_binned.SHADOW_BINNING`` set while the renderers are made; the
+   host seconds of ``build_light_bins`` printed), on three routes, each
+   between a reset and a read of the launch counters:
+   - ``binned+grouped-packet`` (BVH): K9 once, K10 once (the primary
+     level's shadow query, 3 lights x 262,144 lanes), K7 on the rest;
+   - ``binned+grid-packet`` (grid, K10 in grid shadow mode): the same;
+   - the BVH scene with the switch off (``binned-primary+grouped-packet``):
+     K9 and K7, no K10.
+   Rows 240:272 of each are held to plain torch as in 6b.  K10 is held to
+   its plain version on each binned+ route's own primary shadow inputs
+   (occlusion equal on every lane) and compared with K7's any-hit on the
+   same inputs (lanes differing printed, at most 0.2%).  Five warm frames
+   of the binned+ BVH route and five of the switched-off route alternate:
+   medians, rays/s and peak memory of each.
 7. Times each kernel and its plain version at its main path's shapes (K1
    to K3: one 65,536-sample tile of the Whitted frame; K4 to K6: one
    131,072-path tile at bounce 0 of the path-traced frame; K7 to K9 and
-   K3's grid mode: the inputs of 6b) with CUDA
+   K3's grid mode: the inputs of 6b; K10: the binned+ BVH route's primary
+   shadow batch of 6c, beside K7's bare launch on it) with CUDA
    events: the bare launch on packed streams (``ms``) and the wrapper with
    its stream packing (``wrapper_ms``).  Beside each, the least time the
    card could take for the same work (``bound_ms``): the larger of the
    bytes over 3.35 TB/s and the FP32 operations over 67 TFLOP/s, counted
    from these inputs (tests up to the first occluder where a fold stops
    there; dead lanes skipped; per-lane branches as the constants below
-   say; for K7 to K9, the node and object tests their plain walks made).
+   say; for K7 to K9, the node and object tests their plain walks made;
+   for K10, the smaller of its own stream's work and the plain packet
+   walk's on the same lanes, since both give this occlusion).
 8. Profiles one more warm frame of each main path under ``torch.profiler``
    and prints the device-busy time, the idle share and the top device
    kernels.
@@ -310,7 +329,13 @@ ACCEL_META = {
            "distributionraytracer_tpu/accel/pallas_binned.py:768"),
     "K3g": ("fused_level_grid", "whitted_level.cu",
             "distributionraytracer_tpu/ops/pallas_whitted.py:320"),
+    "K10": ("binned_shadow", "binned.cu",
+            "distributionraytracer_tpu/accel/pallas_binned.py:812"),
 }
+# K10 per live lane: the origin's offset from the light (3 sub), the three
+# frustum dot products (15), two divides, per axis the tile's divide, mul,
+# add, max, min and mul (12), and the squared light distance (5).
+LIGHT_TILE_OPS = 37
 
 
 def recording(inter, log):
@@ -585,6 +610,251 @@ def accel_phase(torch, np, dev, card, counted, mesh=MESH, slab=ACCEL_SLAB,
               f"frame) | {card}")
     return dict(bvh=bvh, grid=grid, leg=leg, cbg=cbg, samples=samples,
                 gb=gb, runs=runs, median=med, cfg=cfg)
+
+
+def light_phase(torch, np, dev, card, counted, mesh=MESH, slab=ACCEL_SLAB,
+                frames=FRAMES):
+    """The accelerated frame with a finite ground on the binned+ routes (K10
+    on the primary shadow query) and on the switched-off BVH route, between
+    resets and reads of the launch counters; 32-row slabs against plain
+    torch; alternating warm frames of the binned+ and switched-off BVH
+    routes.  Returns what K10's row and the profiles need."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_scenes import mesh_scene
+
+    from distributionraytracer_tpu_torch.accel import cuda_binned as CBN
+    from distributionraytracer_tpu_torch.accel import cuda_bvh as CBV
+    from distributionraytracer_tpu_torch.accel import cuda_grid as CG
+    from distributionraytracer_tpu_torch.config import RenderConfig
+    from distributionraytracer_tpu_torch.integrator.render import (
+        make_samples, render_from_samples,
+    )
+    from distributionraytracer_tpu_torch.renderer import Renderer
+    from distributionraytracer_tpu_torch.scene import SceneBuilder
+    from distributionraytracer_tpu_torch.scene.types import (
+        ACCEL_BVH, ACCEL_GRID,
+    )
+
+    cfg = RenderConfig(spp=0)
+    W, H = mesh["res"]
+
+    def renderer(label, accel, binning):
+        sc = mesh_scene(SceneBuilder, n_tri=mesh["n_tri"], accel=accel,
+                        seed=mesh["seed"], res=mesh["res"], ground="box")
+        CBN.SHADOW_BINNING = binning
+        try:
+            r = Renderer(sc, cfg, device=dev)
+        finally:
+            CBN.SHADOW_BINNING = False
+        print(f"box-ground frame, {label}: {sc.static.n_objects} objects, "
+              f"{r.accel_build.builder} builder, {r.accel_build.seconds:.2f}s;"
+              f" route {r.executed_backend()}")
+        return r
+
+    bvh = renderer("bvh, light bins", ACCEL_BVH, True)
+    grid = renderer("grid, light bins", ACCEL_GRID, True)
+    off = renderer("bvh, SHADOW_BINNING off", ACCEL_BVH, False)
+    for r, label in ((bvh, "binned+grouped-packet"),
+                     (grid, "binned+grid-packet"),
+                     (off, "binned-primary+grouped-packet")):
+        check(r.executed_backend() == label,
+              f"route {r.executed_backend()}, not {label}")
+    for r, name in ((bvh, "bvh"), (grid, "grid")):
+        t0 = time.perf_counter()
+        lb = CBN.build_light_bins(r.scene, r._gbox)
+        secs = time.perf_counter() - t0
+        check(torch.equal(lb.tile_start, r._light_bins.tile_start.cpu()),
+              f"{name}: light bins differ between two builds")
+        print(f"build_light_bins ({name}, host, {r._gbox.shape[0]} groups, "
+              f"K={lb.k}): {secs:.4f} s, {int(lb.tile_start[-1])} entries "
+              f"over {lb.n_lights} lights")
+    samples = make_samples(bvh.scene, cfg,
+                           torch.Generator(device=dev).manual_seed(0))
+    runs = {}
+
+    def route(key, label, r, expect):
+        (img, nr), got, secs = counted(
+            label, lambda: r.render_with_samples(samples, return_rays=True),
+            expect)
+        runs[key] = (got, secs, img, nr)
+        check(tuple(img.shape) == (H, W, 3), f"{key} image shape")
+        check(bool(torch.isfinite(img).all()), f"{key}: non-finite pixels")
+        check(float(img.std()) > 0.05, f"{key}: constant image")
+
+    lit = {"K7": True, "K9": True, "K10": True}
+    route("bvh+", "box-ground frame, Renderer.render_with_samples "
+          "(binned+grouped-packet)", bvh, lit)
+    route("grid+", "box-ground grid frame, Renderer.render_with_samples "
+          "(binned+grid-packet)", grid, lit)
+    route("off", "box-ground frame, SHADOW_BINNING off "
+          "(binned-primary+grouped-packet)", off, {"K7": True, "K9": True})
+    for key in ("bvh+", "grid+"):
+        got = runs[key][0]
+        check(got["K9"] == 1 and got["K10"] == 1,
+              f"{key}: K9 {got['K9']}, K10 {got['K10']} launches, not 1, 1")
+    check(int(runs["bvh+"][3]) == int(runs["off"][3]),
+          "ray counts of the binned+ and binned-primary+ frames differ")
+
+    a, b = slab
+    part = samples.rows(a, b)
+    noff = cfg.replace(kernels="off")
+    t0 = time.perf_counter()
+    plain_b = render_from_samples(
+        bvh.scene, noff, part, row_offset=a,
+        inter=CBV.packet_intersectors(bvh.scene, bvh.tabs, plain=True))
+    plain_g = render_from_samples(
+        grid.scene, noff, part, row_offset=a,
+        inter=CG.make_cuda_grid_intersectors(grid.scene, grid.tabs,
+                                             plain=True))
+    print(f"plain torch slabs (rows {a}:{b}, box ground, two scenes): "
+          f"{time.perf_counter() - t0:.2f}s")
+    for name, key, ref in (("binned+grouped-packet", "bvh+", plain_b),
+                           ("binned+grid-packet", "grid+", plain_g),
+                           ("binned-primary+grouped-packet", "off", plain_b)):
+        diff = (runs[key][2][a:b] - ref).abs()
+        out = float((diff > 3e-3).float().mean())
+        check(out <= 0.005 and float(diff.max()) <= 0.05,
+              f"{name} (box ground) slab vs plain: {out:.4%} beyond 3e-3, "
+              f"max {float(diff.max()):.4f}")
+        print(f"box-ground frame rows {a}:{b} {name} kernels vs plain torch: "
+              f"{out:.4%} of elements beyond 3e-3, max diff "
+              f"{float(diff.max()):.4f}  PASS")
+
+    times = {"bvh+": [], "off": []}
+    peak = {"bvh+": 0.0, "off": 0.0}
+    for _ in range(frames):
+        for key, r in (("bvh+", bvh), ("off", off)):
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            img2, rays2 = r.render_with_samples(samples, return_rays=True)
+            torch.cuda.synchronize()
+            times[key].append(time.perf_counter() - t0)
+            peak[key] = max(peak[key],
+                            torch.cuda.max_memory_allocated() / 2**30)
+            check(torch.equal(img2, runs[key][2])
+                  and int(rays2) == int(runs[key][3]),
+                  f"{key}: two renders of one SampleSet differ")
+    med = {}
+    for key, label in (("bvh+", "binned+grouped-packet"),
+                       ("off", "binned-primary+grouped-packet")):
+        ts = times[key]
+        med[key] = statistics.median(ts)
+        nr = int(runs[key][3])
+        print(f"box-ground frame 512x512 spp0 depth4 ({label}): {len(ts)} "
+              f"warm frames {' '.join(f'{x:.4f}' for x in ts)} s (median "
+              f"{med[key]:.4f}, min {min(ts):.4f}, max {max(ts):.4f}; first "
+              f"{runs[key][1]:.4f} s), {nr} rays, {nr / med[key]:.4e} rays/s "
+              f"at the median, peak {peak[key]:.2f} GiB | {card}")
+    print(f"box-ground grid frame (binned+grid-packet): {runs['grid+'][1]:.4f}"
+          f" s (one frame) | {card}")
+    return dict(bvh=bvh, grid=grid, off=off, samples=samples, runs=runs,
+                median=med)
+
+
+def light_rows(torch, dev, card, st, errs, add_row):
+    """K10 against its plain version and K7's any-hit on each binned+ route's
+    own primary shadow inputs, and K10's row (the BVH route's inputs)."""
+    from distributionraytracer_tpu_torch.accel import cuda_binned as CBN
+    from distributionraytracer_tpu_torch.accel import cuda_bvh as CBV
+    from distributionraytracer_tpu_torch.accel.bvh import threaded_walk
+    from distributionraytracer_tpu_torch.integrator.render import (
+        render_from_samples,
+    )
+
+    samples = st["samples"]
+    errs["K10"] = 0.0
+    row = None
+    for key, mode in (("bvh", "bvh"), ("grid", "grid")):
+        r = st[key]
+        sc = r.scene
+        bins = r._bins_for(sc.static.res_y, sc.static.res_x, 1)
+        inter, tile = r._intersectors(bins)
+        log = {}
+        render_from_samples(sc, r.cfg, samples, inter=recording(inter, log),
+                            accel_tile=tile)
+        o, d, dist, valid = log["shadow1"]
+        nl = o.shape[0]
+        lid = CBN.shadow_light_ids(nl, sc.static.n_lights, dev)
+        check(lid is not None, f"{key}: the primary shadow batch of {nl} "
+              "lanes does not hold one light a chain")
+        tabs = r.tabs.tabs if key == "grid" else r.tabs
+        lb = bins.lights
+        types = tuple(sorted(set(sc.static.obj_types)))
+        occ = CBN.binned_shadow_kernel(tabs, lb, lid, o, d, dist, valid, mode)
+        stats = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = CBN.binned_shadow_plain(tabs, lb, lid, o, d, dist, valid, mode,
+                                      types, stats)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        bad = int((occ != ref).sum())
+        check(bad == 0, f"K10 ({mode} mode, binned+ {key} route): {bad} "
+              "lanes differ from the plain version")
+        live = int(valid.sum())
+        ce = stats["chain_entries"].double()
+        print(f"K10 ({mode} mode) vs plain, binned+ {key} route, on {nl} "
+              f"lanes ({live} live, {nl // 128} chains): occlusion equal "
+              f"({float(ref[valid].float().mean()):.3f} occluded), "
+              f"{stats['entries']} entries streamed (a chain: mean "
+              f"{float(ce.mean()):.1f}, median {float(ce.median()):.0f}, "
+              f"99th percentile {float(ce.quantile(0.99)):.0f}, max "
+              f"{int(ce.max())}), {stats['obj_tests']} object tests; plain "
+              f"{plain_s:.2f} s  PASS")
+        walk = CBV.packet_shadow_kernel(tabs, o, d, dist, valid,
+                                        shadow_mode=mode)
+        diff = int((walk != occ)[valid].sum())
+        check(diff <= 0.002 * live, f"K10 vs K7 ({mode} mode): {diff} of "
+              f"{live} live lanes differ")
+        print(f"K10 vs K7 shadow ({mode} mode), binned+ {key} route: {diff} "
+              f"of {live} live lanes differ  PASS")
+        if key == "bvh":
+            row = (tabs, lb, lid, o, d, dist, valid, stats, plain_s)
+
+    tabs, lb, lid, o, d, dist, valid, stats, plain_s = row
+    nl = o.shape[0]
+    # K10's bound: the least work that gives this occlusion, the smaller of
+    # its own stream (each lane's tests up to its first occluder, each bin
+    # entry and group streamed read once) and the packet walk's on the same
+    # lanes (as K7's shadow row)
+    wst = {}
+    types = tuple(sorted(set(st["bvh"].scene.static.obj_types)))
+    threaded_walk(tabs, o, d, None, valid, shadow_dist=dist,
+                  types_present=types, stats=wst)
+    own = (nl * (4 * 8 + 4 + 1)
+           + (lb.tile_start.numel() + lb.frames.numel()) * 4
+           + stats["bin_entries"] * 8 + stats["groups"] * 8 * 64,
+           type_ops(torch, stats["type_tests"])
+           + int(valid.sum()) * LIGHT_TILE_OPS)
+    walk = (nl * (4 * 8 + 1) + (tabs.nodes.numel() + tabs.objs.numel()) * 4,
+            nl * LANE_OPS + wst["node_tests"] * NODE_OPS
+            + type_ops(torch, wst["type_tests"]))
+    for name, (nb, ops) in (("its own stream", own), ("the walk", walk)):
+        b_ms, b_by = bound(nb, ops)
+        print(f"K10 bound by {name}: {b_ms:.4f} ms by {b_by} "
+              f"({nb / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP)")
+    nbytes, ops = min(own, walk, key=lambda w: bound(*w)[0])
+    rays = CBV._rays(o, d, dist, valid)
+    lid32 = lid.to(torch.int32).contiguous()
+    occ_out = torch.empty((nl,), dtype=torch.bool, device=dev)
+    k10_bare = lambda: CBN.launch_binned_shadow(tabs, lb, lid32, rays, "bvh",
+                                                occ_out)
+    add_row("K10", st["runs"]["bvh+"][0]["K10"], "binned+ route frame", nl,
+            k10_bare,
+            lambda: CBN.binned_shadow_kernel(tabs, lb, lid, o, d, dist, valid),
+            plain_s * 1e3, nbytes, ops,
+            f"{nl} primary shadow lanes in {nl // 128} chains, "
+            f"{stats['entries']} entries streamed ({stats['bin_entries']} "
+            f"distinct, {stats['groups']} groups); the walk tests "
+            f"{wst['node_tests']} nodes and {wst['obj_tests']} objects")
+    k7_bare = lambda: CBV.launch_packet_shadow(tabs, rays, False, "bvh",
+                                               occ_out)
+    k10_ms = timed_ms(torch, k10_bare, 20)
+    k7_ms = timed_ms(torch, k7_bare, 20)
+    print(f"K10 against K7 shadow on the binned+ route's primary shadow "
+          f"batch ({nl} lanes), bare launches back to back: K10 "
+          f"{k10_ms:.4f} ms, K7 {k7_ms:.4f} ms (K10 / K7 "
+          f"{k10_ms / k7_ms:.3f}) | {card}")
 
 
 def accel_rows(torch, np, dev, card, st, errs, add_row):
@@ -1039,7 +1309,8 @@ def main():
                 "K6": CP.LAUNCHES["pt_bounce"],
                 "K7": bv["grouped_closest"] + bv["grouped_shadow"],
                 "K8": bv["legacy_closest"] + bv["legacy_shadow"],
-                "K9": CBN.LAUNCHES["binned_closest"]}
+                "K9": CBN.LAUNCHES["binned_closest"],
+                "K10": CBN.LAUNCHES["binned_shadow"]}
 
     def counted(label, render, expect):
         """Run ``render`` between a reset and a read of the launch
@@ -1215,6 +1486,8 @@ def main():
 
     # ---- 5b. the accelerated frame: 100,000 triangles, five routes ----
     acc = accel_phase(torch, np, dev, card, counted)
+    # ---- 5c. the box-ground frame: K10 on the binned+ routes ----
+    lit = light_phase(torch, np, dev, card, counted)
 
     # ---- 6. kernel times and bounds at the main paths' shapes ----
     def w_fold_ops(sc, mb):
@@ -1493,9 +1766,13 @@ def main():
 
     def add_row(k, count, run, lanes, bare, wrapper, plain, nbytes, ops,
                 shape):
+        """``plain``: the plain version, timed here; or its milliseconds,
+        measured once where it was held against the kernel (K10's plain
+        version takes ~10 s a call)."""
         ms = timed_ms(torch, bare, 20)
         wrapper_ms = timed_ms(torch, wrapper, 20)
-        plain_ms = timed_ms(torch, plain, 1)
+        plain_ms = plain if isinstance(plain, float) else timed_ms(
+            torch, plain, 1)
         b_ms, b_by = bound(nbytes, ops)
         name, src, rep = ACCEL_META[k]
         print(f"{k} {name}: kernel {ms:.4f} ms (with the wrapper's packing "
@@ -1511,6 +1788,7 @@ def main():
                      "library_ms": None})
 
     accel_rows(torch, np, dev, card, acc, errs, add_row)
+    light_rows(torch, dev, card, lit, errs, add_row)
 
     # ---- 7. profiles of one warm frame of each main path ----
     profile_frame(torch, lambda: r.render_with_samples(samples), med,
@@ -1518,6 +1796,11 @@ def main():
     profile_frame(torch, pt_frame, pmed, "PT frame")
     profile_frame(torch, lambda: acc["bvh"].render_with_samples(
         acc["samples"]), acc["median"], "accelerated frame")
+    for key, label in (("bvh", "binned+ frame"),
+                       ("off", "binned-primary+ box-ground frame")):
+        profile_frame(torch, lambda r=lit[key]: r.render_with_samples(
+            lit["samples"]), lit["median"]["bvh+" if key == "bvh" else "off"],
+            label)
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

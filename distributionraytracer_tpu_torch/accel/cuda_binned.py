@@ -1,32 +1,47 @@
-"""Binned primary rays: K9 streams each chain's candidate object groups.
+"""Binned rays: K9 streams each primary chain's candidate object groups, K10
+each primary shadow chain's occluder groups.
 
-Counterpart of the primary half of ``distributionraytracer_tpu.accel.
-pallas_binned``.  Every ray of a 128-lane chain goes through a known pixel
-rectangle (``integrator/render.py::_block_perm``), so a host-side
-conservative screen projection of the grouped tables' 8-object groups
-gives each chain its complete candidate list, sorted front to back by a
-lower bound of any member's hit distance from the eye.  K9
-(``csrc/binned.cu``) streams the list and stops once every live lane's
-best hit is nearer than the next group; its plain version,
-:func:`binned_closest_plain`, streams the same lists in torch.  The result
-is the strict-< closest hit over a superset of the objects a primary ray
-can hit, ties going to the earlier candidate.
+Counterpart of ``distributionraytracer_tpu.accel.pallas_binned``.  Every
+ray of a 128-lane chain goes through a known pixel rectangle
+(``integrator/render.py::_block_perm``), so a host-side conservative
+screen projection of the grouped tables' 8-object groups gives each chain
+its complete candidate list, sorted front to back by a lower bound of any
+member's hit distance from the eye.  K9 (``csrc/binned.cu``) streams the
+list and stops once every live lane's best hit is nearer than the next
+group; its plain version, :func:`binned_closest_plain`, streams the same
+lists in torch.  The result is the strict-< closest hit over a superset of
+the objects a primary ray can hit, ties going to the earlier candidate.
+
+Shadow rays all point at a light.  :func:`build_light_bins` tiles each
+point light's view of the scene box K x K (a shadow-map parametrization)
+and bins every group into the tiles its box covers, each tile's groups
+sorted by their least distance from the light.  A shadow chain (one light,
+128 origins near each other) tests the groups of the tile rectangle its
+live origins cover that are no farther from the light than its farthest
+origin: an occluder on the segment from an origin to the light lies in
+the origin's tile and nearer the light.  K10 (``csrc/binned.cu``) and its
+plain version :func:`binned_shadow_plain` compute that any-hit, with the
+BVH compare ``t <= dist + EPSILON`` or the grid's ``t < dist``.
 
 Eligibility (:func:`binned_supported`) is the JAX package's: no infinite
 planes (their default boxes gate which rays test them), no motion blur
 (moving spheres escape their static boxes), no depth of field (its
-primaries do not share the pinhole projection).  The light-frustum shadow
-binning (``build_light_bins``, ``binned_shadow``, K10) is not ported yet;
-the JAX package does not route to it either (``SHADOW_BINNING``), so the
-shadow queries go to the packet walk.
+primaries do not share the pinhole projection).  The light bins also need
+every light punctual (:func:`shadow_binning_ok`) and outside the scene box
+(1.05 units for grid scenes, whose shadow window is the unit direction).
+The route takes K10 only while ``SHADOW_BINNING`` is set; it is off, as in
+the JAX package, whose TPU measurements found the packet walk faster.
 
-Two defects of the reference are not copied: the candidate total is capped
-(``MAX_CANDIDATES``; past it the frame takes the packet route), and the
-candidate arrays are padded to a bucket, not to their exact length.
+Three defects of the reference are not copied: the candidate total is
+capped (``MAX_CANDIDATES``; past it the frame takes the packet route), the
+candidate arrays are padded to a bucket, not to their exact length, and a
+shadow batch whose per-light runs do not fill whole chains goes to the
+packet walk instead of taking light 0 for every lane.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -38,11 +53,11 @@ from distributionraytracer_tpu_torch.accel.grid import object_bboxes
 from distributionraytracer_tpu_torch.integrator.render import _block_perm
 from distributionraytracer_tpu_torch.integrator.whitted import Intersectors
 from distributionraytracer_tpu_torch.ops import build
-from distributionraytracer_tpu_torch.ops.common import FLT_MAX
+from distributionraytracer_tpu_torch.ops.common import EPSILON, FLT_MAX
 from distributionraytracer_tpu_torch.ops.cuda_intersect import require_cuda
 from distributionraytracer_tpu_torch.ops.intersect import hit_packed
 from distributionraytracer_tpu_torch.scene.types import (
-    OBJ_BOX, OBJ_PLANE, OBJ_SPHERE, OBJ_TRIANGLE, SceneData,
+    ACCEL_GRID, OBJ_BOX, OBJ_PLANE, OBJ_SPHERE, OBJ_TRIANGLE, SceneData,
 )
 
 LANES = 128  # rays per chain
@@ -51,14 +66,19 @@ PAD_PX = 2.0  # conservative screen-projection padding (pixel jitter + 1)
 MAX_CHAINS = 16384  # past this many chains the packet walk takes the frame
 MAX_CANDIDATES = 1 << 24  # (chain, group) pairs kept at most
 P_BUCKET = 16384  # candidate arrays are padded to a multiple of this
-SHADOW_BINNING = False  # the light-frustum shadow kernel (K10): not ported
+LIGHT_K = 128  # light-frustum tiles per axis
+SHADOW_PAIRS = 1 << 17  # (lane, entry) pairs a step of binned_shadow_plain
+# The renderer builds light bins (and routes the primary shadow query to
+# K10) only while this is set.  Off, as in the JAX package.
+SHADOW_BINNING = False
 
 # Kernel launches since the last reset_launches().
-LAUNCHES = {"binned_closest": 0}
+LAUNCHES = {"binned_closest": 0, "binned_shadow": 0}
 
 
 def reset_launches():
-    LAUNCHES["binned_closest"] = 0
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 def group_boxes(scene: SceneData, tabs: PacketTables) -> np.ndarray:
@@ -142,6 +162,14 @@ class PrimaryBins(NamedTuple):
         return PrimaryBins(*(t.to(device) for t in self))
 
 
+def _corners(bmin, bmax):
+    """(8, G, 3) corners of the boxes [bmin, bmax] (G, 3); (8, 1, 3) for
+    one box (3,)."""
+    return np.stack([np.where((np.arange(8)[:, None] >> k) & 1,
+                              bmax[..., k][None, ...], bmin[..., k][None, ...])
+                     for k in range(3)], axis=-1)
+
+
 def build_primary_bins(scene: SceneData, gbox: np.ndarray, H: int, W: int,
                        S: int) -> Optional[PrimaryBins]:
     """Conservative screen binning of the object groups to the chains.
@@ -170,10 +198,7 @@ def build_primary_bins(scene: SceneData, gbox: np.ndarray, H: int, W: int,
     bmax = gbox[gids, 3:6].astype(np.float64)
     # 8 corners -> viewport coordinates (a ray through viewport (px, py)
     # has direction ~ u*w*(px/W - .5) + v*h*(py/H - .5) - n*pd)
-    corners = np.stack([np.where((np.arange(8)[:, None] >> k) & 1,
-                                 bmax[:, k][None, :], bmin[:, k][None, :])
-                        for k in range(3)], axis=-1)  # (8, G, 3)
-    vec = corners - eye
+    vec = _corners(bmin, bmax) - eye
     a, b, c = vec @ u, vec @ v, vec @ n
     front = c < -1e-9  # the camera looks along -n
     s = np.where(front, -c / pd, 1.0)
@@ -241,12 +266,174 @@ def binned_supported(scene: SceneData, cfg) -> bool:
     return st.n_objects > 0
 
 
+# ------------------------------------------------------------ light bins
+class LightBins(NamedTuple):
+    """Per-scene occluder bins of the point lights (host-built once).
+
+    Light l's K x K frustum tile (tx, ty) holds the object groups
+    ``group[tile_start[i]:tile_start[i + 1]]``, i = (l * K + ty) * K + tx
+    (x fastest, so the tiles tx0..tx1 of one row are one contiguous span),
+    ascending in ``dist``, the least distance of the group's box from the
+    light.  ``frames`` rows are ``[light xyz, u xyz, v xyz, w xyz, sx, sy,
+    0, 0]``: the frustum axis w (light to scene-box centre), the tile axes
+    u and v, and the half-extents of the frustum's tangent plane.
+    ``group`` and ``dist`` are padded to a multiple of ``P_BUCKET`` (group
+    0, distance FLT_MAX)."""
+
+    tile_start: torch.Tensor  # (L*K*K+1,) i32
+    frames: torch.Tensor  # (L, 16) f32
+    group: torch.Tensor  # (Q,) i32 group ids
+    dist: torch.Tensor  # (Q,) f32
+
+    @property
+    def n_lights(self) -> int:
+        return self.frames.shape[0]
+
+    @property
+    def k(self) -> int:
+        """Tiles per axis."""
+        return math.isqrt((self.tile_start.shape[0] - 1) // self.n_lights)
+
+    def to(self, device) -> "LightBins":
+        return LightBins(*(t.to(device) for t in self))
+
+
+def build_light_bins(scene: SceneData, gbox: np.ndarray, K: int = LIGHT_K
+                     ) -> Optional[LightBins]:
+    """Conservative per-light frustum binning of the object groups, in
+    float64 NumPy with the JAX package's operations (so its tiles, frames
+    and entry order come out equal).
+
+    None when the scene has no lights or no groups, or when a light is
+    inside the scene box or nearer it than ``min_dist``: the frustum axis
+    needs the light outside, and a grid scene's shadow window (``t < 1``
+    along the unit direction, main.cpp:411-420) must not reach past the
+    light, where the direction binning no longer covers (1.05 for grid
+    scenes, 1e-3 otherwise); also when the box reaches behind the light's
+    lateral plane."""
+    st = scene.static
+    min_dist = 1.05 if st.accel == ACCEL_GRID else 1e-3
+    L = st.n_lights
+    live = gbox[:, 6] > 0
+    if not live.any() or L == 0:
+        return None
+    smin = gbox[live, 0:3].min(axis=0).astype(np.float64)
+    smax = gbox[live, 3:6].max(axis=0).astype(np.float64)
+    center = (smin + smax) / 2.0
+    half = (smax - smin) / 2.0
+    lpos = scene.light_pos.detach().cpu().numpy().astype(np.float64)
+    frames = np.zeros((L, 16), np.float32)
+    gids = np.nonzero(live)[0]
+    bmin = gbox[gids, 0:3].astype(np.float64)
+    bmax = gbox[gids, 3:6].astype(np.float64)
+    corners = _corners(bmin, bmax)  # (8, G, 3)
+    scorn = _corners(smin, smax)  # (8, 1, 3)
+    starts, entries = [], []
+    for li in range(L):
+        Lp = lpos[li]
+        gap = np.maximum(np.abs(Lp - center) - half, 0.0)
+        if np.linalg.norm(gap) < min_dist:
+            return None
+        wax = center - Lp
+        wax = wax / np.linalg.norm(wax)
+        tmp = (np.array([0.0, 1.0, 0.0]) if abs(wax[1]) < 0.9
+               else np.array([1.0, 0.0, 0.0]))
+        ua = np.cross(tmp, wax)
+        ua /= np.linalg.norm(ua)
+        va = np.cross(wax, ua)
+        # the frustum's half-extents: the largest tangent of a box corner
+        svec = scorn - Lp
+        sw = svec @ wax
+        if np.any(sw <= 1e-9):
+            return None  # the box reaches behind the light's lateral plane
+        sx = float(np.max(np.abs(svec @ ua) / sw)) * 1.001 + 1e-6
+        sy = float(np.max(np.abs(svec @ va) / sw)) * 1.001 + 1e-6
+        frames[li, 0:3], frames[li, 3:6] = Lp, ua
+        frames[li, 6:9], frames[li, 9:12] = va, wax
+        frames[li, 12], frames[li, 13] = sx, sy
+
+        vec = corners - Lp
+        aw = vec @ wax
+        # a group box that reaches the light's lateral plane goes into
+        # every tile: it covers occluders just past the light that the BVH
+        # compare t <= dist + EPSILON still accepts
+        behind = np.any(aw <= 1e-9, axis=0)
+        den = np.where(aw > 1e-9, aw, 1.0)
+        sa, ta = (vec @ ua) / den, (vec @ va) / den
+
+        def tile(a, s, fn, edge):
+            return np.where(behind, edge, np.clip(
+                ((fn(a, axis=0) / s) * 0.5 + 0.5) * K, 0, K - 1).astype(
+                    np.int64))
+
+        tx0, tx1 = tile(sa, sx, np.min, 0), tile(sa, sx, np.max, K - 1)
+        ty0, ty1 = tile(ta, sy, np.min, 0), tile(ta, sy, np.max, K - 1)
+        ntx = tx1 - tx0 + 1
+        cnt = ntx * (ty1 - ty0 + 1)
+        total = int(cnt.sum())
+        rep = np.repeat(np.arange(gids.size), cnt)
+        k2 = np.arange(total) - np.repeat(np.cumsum(cnt) - cnt, cnt)
+        tiles = (ty0[rep] + k2 // ntx[rep]) * K + tx0[rep] + k2 % ntx[rep]
+        # the least distance from the light to the group's box: the cut
+        # key, ascending within each tile
+        dv = np.maximum(np.maximum(bmin - Lp, Lp - bmax), 0.0)
+        gd = np.sqrt((dv * dv).sum(axis=1)).astype(np.float32)
+        order = np.lexsort((gd[rep], tiles))
+        starts.append(np.searchsorted(tiles[order], np.arange(K * K)))
+        entries.append((gids[rep[order]].astype(np.int32), gd[rep[order]]))
+    offs = np.cumsum([0] + [e[0].size for e in entries])
+    start = np.concatenate([starts[i] + offs[i] for i in range(L)]
+                           + [offs[-1:]])
+    return _finish_light_bins(start, frames,
+                              np.concatenate([e[0] for e in entries]),
+                              np.concatenate([e[1] for e in entries]))
+
+
+def _finish_light_bins(start, frames, group, dist) -> LightBins:
+    """Tensors of the bins, the entries padded to a ``P_BUCKET`` multiple."""
+    Q = max(-(-len(group) // P_BUCKET) * P_BUCKET, P_BUCKET)
+    group_p = np.zeros((Q,), np.int32)
+    group_p[:len(group)] = group
+    dist_p = np.full((Q,), FLT_MAX, np.float32)
+    dist_p[:len(dist)] = dist
+    return LightBins(torch.from_numpy(np.array(start, np.int32)),
+                     torch.from_numpy(np.array(frames, np.float32)),
+                     torch.from_numpy(group_p), torch.from_numpy(dist_p))
+
+
+def from_jax_light_bins(tabs: PacketTables, tile_start, frames, slab
+                        ) -> LightBins:
+    """The port's bins from the JAX package's LightBins (NumPy): each entry's
+    group is the one of ``tabs`` that holds the object in slot 0 of the
+    entry's slab column (every object lies in one group); its distance is
+    the slab's distance row."""
+    start = np.asarray(tile_start, np.int64)
+    n = int(start[-1])
+    slab = np.asarray(slab, np.float32)
+    if not (slab[12 * GROUP, :n] >= 0).all():
+        raise ValueError("a light-bin entry's first slot is inert")
+    ints = tabs.objs.view(torch.int32).cpu().numpy()
+    live = ints[:, 12] >= 0
+    group_of = np.full(int(ints[live, 13].max()) + 1, -1, np.int64)
+    group_of[ints[live, 13]] = np.nonzero(live)[0] // GROUP
+    group = group_of[slab[13 * GROUP, :n].astype(np.int64)]
+    return _finish_light_bins(start, frames, group.astype(np.int32),
+                              slab[14 * GROUP, :n])
+
+
+def shadow_binning_ok(scene: SceneData, lbins: Optional[LightBins]) -> bool:
+    """Light bins route shadows only where they built (every light outside
+    the scene box) and every light is punctual: a quad light's shadow rays
+    end at jittered points the frustum of its corner does not cover."""
+    return lbins is not None and not any(scene.static.light_quad)
+
+
 class BinSet(NamedTuple):
-    """Camera-dependent primary bins; ``lights`` (the light-frustum shadow
-    bins of K10) stays None until that kernel is ported."""
+    """Camera-dependent primary bins and scene-static light bins (None where
+    they did not build or the route is off)."""
 
     primary: Optional[PrimaryBins]
-    lights: Optional[object] = None
+    lights: Optional[LightBins] = None
 
 
 # ------------------------------------------------------------------ K9
@@ -371,18 +558,206 @@ def binned_closest_kernel(tabs: PacketTables, bins: PrimaryBins, o, d, time,
     return out_f[0], out_f[1:4].T, out_i
 
 
+# ------------------------------------------------------------------ K10
+def _chain_spans(lbins: LightBins, light_id, O, V):
+    """Each chain's light (its first lane's), the tile rectangle of its live
+    lanes' origins and its distance cut, then its bin entries in streaming
+    order (row by row, tile by tile, each tile's entries ascending in
+    distance) no farther from the light than the cut.  Returns the entries'
+    chains and positions in ``lbins.group``, sorted by chain.  Every f32
+    operation is rounded on its own, in the kernel's order."""
+    C, dev = O.shape[0], O.device
+    K = lbins.k
+    lid = light_id[:, 0].long()
+    fr = lbins.frames[lid]  # (C, 16)
+    f = lambda k: fr[:, k:k + 1]
+    vx, vy, vz = O[..., 0] - f(0), O[..., 1] - f(1), O[..., 2] - f(2)
+    aw = vx * f(9) + vy * f(10) + vz * f(11)
+    aws = torch.where(aw > 1e-9, aw, torch.ones_like(aw))
+    su = (vx * f(3) + vy * f(4) + vz * f(5)) / aws
+    tv = (vx * f(6) + vy * f(7) + vz * f(8)) / aws
+
+    def tile(s, sk):
+        x = torch.clamp((s / sk) * 0.5 + 0.5, 0.0, 1.0) * float(K)
+        return torch.clamp(x.to(torch.int32), 0, K - 1)
+
+    tx, ty = tile(su, f(12)), tile(tv, f(13))
+    big, none = torch.full_like(tx, K), torch.full_like(tx, -1)
+    tx0 = torch.where(V, tx, big).amin(1).long()
+    tx1 = torch.where(V, tx, none).amax(1).long()
+    ty0 = torch.where(V, ty, big).amin(1).long()
+    ty1 = torch.where(V, ty, none).amax(1).long()  # -1: no live lane
+    od2 = vx * vx + vy * vy + vz * vz
+    maxd = torch.sqrt(torch.clamp(torch.where(V, od2, torch.zeros_like(od2))
+                                  .amax(1), min=0.0)) + 1e-3
+    # (chain, tile) pairs, row by row, x fastest
+    nrow = torch.where(ty1 >= 0, ty1 - ty0 + 1, torch.zeros_like(ty1))
+    ncol = torch.where(ty1 >= 0, tx1 - tx0 + 1, torch.zeros_like(tx1))
+    cnt = nrow * ncol
+    ch = torch.repeat_interleave(torch.arange(C, device=dev), cnt)
+    k = torch.arange(ch.numel(), device=dev) - torch.repeat_interleave(
+        torch.cumsum(cnt, 0) - cnt, cnt)
+    t = (lid[ch] * K + ty0[ch] + k // ncol[ch]) * K + tx0[ch] + k % ncol[ch]
+    ts = lbins.tile_start.long()
+    s, e = ts[t], ts[t + 1]
+    # every entry of those tiles, then the distance cut
+    n = e - s
+    ech = torch.repeat_interleave(ch, n)
+    pos = torch.repeat_interleave(s - (torch.cumsum(n, 0) - n), n) + \
+        torch.arange(ech.numel(), device=dev)
+    keep = lbins.dist[pos] <= maxd[ech]
+    return ech[keep], pos[keep]
+
+
+def binned_shadow_plain(tabs: PacketTables, lbins: LightBins, light_id, o, d,
+                        dist, valid=None, shadow_mode: str = "bvh",
+                        types_present=None, stats: Optional[dict] = None):
+    """Plain version of K10: occluded (R,) bool.
+
+    Chain c (lanes 128c..128c+127) takes the light of its first lane and the
+    bin entries of :func:`_chain_spans`.  A live lane is occluded when any
+    slot of its chain's entries hits it at time 0, with ``t <= dist +
+    EPSILON`` (``shadow_mode`` ``bvh``) or ``t < dist`` (``grid``).  That is
+    an OR over the entries, so their order does not change it: the (live
+    lane, chain entry) pairs are tested ``SHADOW_PAIRS`` at a time, keeping
+    each lane's first occluding slot in streaming order.
+
+    ``stats`` receives the kernel's work on these inputs, which streams each
+    chain's entries in order, tests a lane's slots up to its first occluder
+    and stops a chain once every live lane is occluded: ``entries`` (the
+    entries streamed) and ``chain_entries`` (per chain), ``obj_tests``,
+    ``type_tests`` (by type + 1, as :func:`accel.bvh.threaded_walk`), and
+    the distinct ``bin_entries`` and ``groups`` among the entries streamed."""
+    if types_present is None:
+        types_present = (OBJ_SPHERE, OBJ_TRIANGLE, OBJ_PLANE, OBJ_BOX)
+    R, dev = o.shape[0], o.device
+    C = -(-R // LANES)
+    n = C * LANES
+    v = (torch.ones((R,), dtype=torch.bool, device=dev) if valid is None
+         else valid.to(torch.bool))
+    O = _pad_lanes(o, n).reshape(C, LANES, 3)
+    D = _pad_lanes(d, n).reshape(C, LANES, 3)
+    SD = _pad_lanes(dist, n).reshape(C, LANES)
+    V = _pad_lanes(v, n).reshape(C, LANES)
+    lid = _pad_lanes(light_id.to(dev), n).reshape(C, LANES)
+    lb = lbins.to(dev)
+    ech, pos = _chain_spans(lb, lid, O, V)
+    cnt = torch.bincount(ech, minlength=C)
+    cs = torch.cumsum(cnt, 0) - cnt
+    slot8 = torch.arange(GROUP, device=dev)
+    slots = lb.group[pos].long()[:, None] * GROUP + slot8  # (N, 8)
+    typ = tabs.objs.view(torch.int32)[slots, 12]
+    lc, ll = torch.nonzero(V, as_tuple=True)  # the live lanes
+    npair = cnt[lc]
+    ends = torch.cumsum(npair, 0)
+    start = ends - npair
+    none = GROUP * max(ech.numel(), 1)  # past every slot of a chain
+    first = torch.full_like(lc, none)  # each lane's first occluding slot
+    ends_h, start_h = ends.cpu(), start.cpu()
+    a, m = 0, lc.numel()
+    while a < m:  # the lanes a..b-1: about SHADOW_PAIRS pairs
+        b = max(int(torch.searchsorted(ends_h, start_h[a] + SHADOW_PAIRS,
+                                       right=True)), a + 1)
+        li = torch.repeat_interleave(torch.arange(a, b, device=dev),
+                                     npair[a:b])
+        k = torch.arange(li.numel(), device=dev) + start[a] - start[li]
+        ent = cs[lc[li]] + k
+        lane = lambda x: x[lc[li], ll[li]][:, None].expand(
+            -1, GROUP, 3).reshape(-1, 3)
+        t, _ = hit_packed(lane(O), lane(D),
+                          torch.zeros((li.numel() * GROUP,), device=dev),
+                          tabs.objs[slots[ent]].reshape(-1, 16),
+                          typ[ent].reshape(-1), False, types_present)
+        sd = SD[lc[li], ll[li]][:, None]
+        t = t.reshape(-1, GROUP)
+        hit = (t < sd) if shadow_mode == "grid" else (t <= sd + EPSILON)
+        flat = torch.where(hit, k[:, None] * GROUP + slot8, none).amin(1)
+        first.scatter_reduce_(0, li, flat, "amin")
+        a = b
+    occl = first < none
+    occ = torch.zeros((C, LANES), dtype=torch.bool, device=dev)
+    occ[lc, ll] = occl
+    if stats is not None:
+        # a lane tests every slot up to its first occluder, or all of them
+        fk = torch.where(occl, first // GROUP, npair)
+        per = torch.nn.functional.one_hot(typ.long() + 1, 5)  # (N, 8, 5)
+        cum = torch.cat([per.new_zeros((1, 5)), torch.cumsum(per.sum(1), 0)])
+        base = cs[lc]
+        tt = cum[base + fk] - cum[base]
+        fs = (slot8 <= (first % GROUP)[:, None]) & occl[:, None]
+        tt += (per[torch.where(occl, base + fk, 0)] * fs[..., None]).sum(1)
+        type_tests = tt.sum(0)
+        # a chain streams up to the entry that occludes its last live lane
+        streamed = torch.zeros_like(cnt).scatter_reduce_(
+            0, lc, torch.where(occl, fk + 1, npair), "amax")
+        sent = (torch.arange(ech.numel(), device=dev) - cs[ech]
+                < streamed[ech])
+        stats["entries"] = stats.get("entries", 0) + int(streamed.sum())
+        stats["chain_entries"] = streamed.cpu()
+        stats["obj_tests"] = (stats.get("obj_tests", 0)
+                              + int(type_tests[1:].sum()))
+        stats["type_tests"] = stats.get("type_tests", 0) + type_tests.cpu()
+        stats["bin_entries"] = int(torch.unique(pos[sent]).numel())
+        stats["groups"] = int(torch.unique(slots[sent, 0]).numel())
+    return occ.reshape(n)[:R]
+
+
+def launch_binned_shadow(tabs: PacketTables, lbins: LightBins, light_id,
+                         rays, shadow_mode: str, occ):
+    """K10 on packed (8, R) rays (row 6: the shadow distance) and (R,) i32
+    light ids into (R,) bool; counts nothing."""
+    with torch.cuda.device(rays.device):
+        err = build.load().lib.drt_binned_shadow(
+            tabs.objs.data_ptr(), lbins.tile_start.data_ptr(),
+            lbins.frames.data_ptr(), lbins.k, lbins.group.data_ptr(),
+            lbins.dist.data_ptr(), light_id.data_ptr(), rays.data_ptr(),
+            rays.shape[1], int(shadow_mode == "grid"), occ.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    build.check(err, "drt_binned_shadow")
+
+
+def binned_shadow_kernel(tabs: PacketTables, lbins: LightBins, light_id, o,
+                         d, dist, valid=None, shadow_mode: str = "bvh"):
+    """K10 on CUDA tensors: occluded (R,) bool."""
+    rays = _rays(o, d, dist, valid)
+    lid = light_id.to(torch.int32).contiguous()
+    require_cuda("binned_shadow", rays, lid, tabs.objs, *lbins)
+    occ = torch.empty((o.shape[0],), dtype=torch.bool, device=rays.device)
+    launch_binned_shadow(tabs, lbins, lid, rays, shadow_mode, occ)
+    LAUNCHES["binned_shadow"] += 1
+    return occ
+
+
+def shadow_light_ids(R: int, n_lights: int, device):
+    """Per-lane light ids of a shadow batch that concatenates one run of
+    R / n_lights lanes per light (``_shade_node``), or None where the runs
+    do not fill whole chains: a chain must hold one light's lanes."""
+    if n_lights == 1:
+        return torch.zeros((R,), dtype=torch.int32, device=device)
+    rn = R // max(n_lights, 1)
+    if n_lights < 1 or rn * n_lights != R or rn % LANES:
+        return None
+    return torch.arange(R, dtype=torch.int32, device=device) // rn
+
+
 def leveled_binned_intersectors(scene: SceneData, tabs: PacketTables,
                                 bins: BinSet, inner, motion_blur: bool = False,
-                                plain: bool = False):
-    """The primary level's closest hit by K9, everything else by ``inner``
-    (the packet walk).  ``trace_whitted`` calls closest once per tree level
-    in order, so the first call is the primary level; it goes to K9 only
-    when the batch fills the bins' chains exactly (a chunked or padded batch
-    would misalign them)."""
+                                plain: bool = False,
+                                shadow_mode: str = "bvh"):
+    """The primary level's closest hit by K9 and its shadow query by K10,
+    everything else by ``inner`` (the packet walk).  ``trace_whitted``
+    calls closest and shadow once per tree level in order, so the first
+    calls are the primary level's.  The closest call goes to K9 only when
+    the batch fills the bins' chains exactly (a chunked or padded batch
+    would misalign them); the shadow call to K10 only where light bins
+    exist and every chain holds one light's lanes (:func:`shadow_light_ids`).
+    Deeper levels scatter sparse live lanes over every chain, whose tile
+    rectangles then grow towards the whole frustum: the packet walk takes
+    them."""
     mats = scene.packed_objects()[2]
     types_present = tuple(sorted(set(scene.static.obj_types)))
-    state = {"calls": 0}
-    pb = bins.primary
+    state = {"calls": 0, "shadow_calls": 0}
+    pb, lb = bins.primary, bins.lights
 
     def closest(o, d, time, valid=None):
         state["calls"] += 1
@@ -397,4 +772,17 @@ def leveled_binned_intersectors(scene: SceneData, tabs: PacketTables,
             return hit_result(t, n, gid, mats)
         return inner.closest(o, d, time, valid=valid)
 
-    return Intersectors(closest, inner.shadow)
+    def shadow(o, d, dist, exclude_obj, valid=None):
+        state["shadow_calls"] += 1
+        lid = None
+        if lb is not None and state["shadow_calls"] == 1:
+            lid = shadow_light_ids(o.shape[0], lb.n_lights, o.device)
+        if lid is None:
+            return inner.shadow(o, d, dist, exclude_obj, valid=valid)
+        if plain or o.device.type == "cpu":
+            return binned_shadow_plain(tabs, lb, lid, o, d, dist, valid,
+                                       shadow_mode, types_present)
+        return binned_shadow_kernel(tabs, lb, lid, o, d, dist, valid,
+                                    shadow_mode)
+
+    return Intersectors(closest, shadow)

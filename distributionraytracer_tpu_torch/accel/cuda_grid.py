@@ -3,7 +3,7 @@
 Counterpart of ``distributionraytracer_tpu.accel.pallas_grid``.  The grid's
 observable semantics (grid.cpp:100-358) are a set of tested objects and
 three gates, so grid scenes ride the BVH packet kernels (K7, or K8) and the
-binned route (K9) instead of a per-lane DDA:
+binned route (K9, and K10 for the primary shadows) instead of a per-lane DDA:
 
 1. Tested set: the DDA tests an object iff the ray crosses a cell of the
    object's span, its AABB quantized outward to cell boundaries.  Every hit
@@ -173,13 +173,14 @@ def make_cuda_grid_intersectors(scene: SceneData, pg: CudaGrid,
                                 motion_blur: bool = False, bins=None,
                                 plain: bool = False):
     """The packet kernel over the emulation tree (grid shadow mode), or the
-    binned route (``bins``, accel/cuda_binned.py) for the primary level,
-    with the grid's gates on top of either."""
+    binned route (``bins``, accel/cuda_binned.py, grid shadow mode) for the
+    primary level, with the grid's gates on top of either."""
     inner = packet_intersectors(scene, pg.tabs, motion_blur,
                                 shadow_mode="grid", plain=plain)
     if bins is not None:
         inner = leveled_binned_intersectors(scene, pg.tabs, bins, inner,
-                                            motion_blur, plain=plain)
+                                            motion_blur, plain=plain,
+                                            shadow_mode="grid")
 
     def closest(o, d, time, valid=None):
         return gate_closest(pg, inner.closest(o, d, time, valid=valid), o, d)

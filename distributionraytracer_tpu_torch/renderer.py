@@ -13,6 +13,10 @@ package's label:
   primary level by K9 over the frame's screen bins, every other level and
   every shadow query by K7 (on the grid emulation's tree, with the grid's
   gates, for grid scenes);
+- ``binned+grouped-packet`` / ``binned+grid-packet``: as above, and the
+  primary level's shadow query by K10 over the light bins; only while
+  ``accel.cuda_binned.SHADOW_BINNING`` is set (off, as in the JAX
+  package) and the bins build;
 - ``grouped-packet`` / ``grid-packet``: K7 on every level (frames the bins
   do not tile, DOF, motion blur, planes);
 - ``legacy-packet``: K8 (``packet_kernel='legacy'``, or trees the grouped
@@ -217,9 +221,12 @@ class Renderer:
     # ---------------------------------------------------------- routing
     def _init_binning(self):
         """The camera-independent half of the binned route: the group
-        boxes.  Primary bins are built per camera and frame shape, lazily
+        boxes, and the light bins while ``cuda_binned.SHADOW_BINNING`` is
+        set and they build (:func:`cuda_binned.shadow_binning_ok`).  Primary
+        bins are built per camera and frame shape, lazily
         (:meth:`_bins_for`)."""
         self._gbox = None
+        self._light_bins = None
         self._primary_cache = {}
         if self.accel == ACCEL_NONE:
             return
@@ -228,6 +235,10 @@ class Renderer:
                                                              self.cfg):
             return
         self._gbox = CB.group_boxes(self.scene, tabs)
+        if CB.SHADOW_BINNING:
+            lb = CB.build_light_bins(self.scene, self._gbox)
+            if CB.shadow_binning_ok(self.scene, lb):
+                self._light_bins = lb.to(self.device)
 
     def _bins_for(self, H: int, W: int, S: int) -> Optional[CB.BinSet]:
         """The BinSet of this camera and frame shape, or None (the packet
@@ -243,7 +254,7 @@ class Renderer:
             self._primary_cache[key] = (None if pb is None
                                         else pb.to(self.device))
         pb = self._primary_cache[key]
-        return None if pb is None else CB.BinSet(primary=pb)
+        return None if pb is None else CB.BinSet(pb, self._light_bins)
 
     def executed_backend(self) -> str:
         """The route a render of the scene's own frame takes, by the
@@ -257,7 +268,8 @@ class Renderer:
             return "cost-brute"
         bins = self._bins_for(st.res_y, st.res_x,
                               _sample_count(self.scene, cfg))
-        binned = "" if bins is None else "binned-primary+"
+        binned = ("" if bins is None else "binned-primary+"
+                  if bins.lights is None else "binned+")
         if self.accel == ACCEL_GRID:
             return binned + "grid-packet"
         return binned + ("grouped-packet" if self.tabs.kind == "grouped"

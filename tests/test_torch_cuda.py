@@ -19,7 +19,7 @@ from distributionraytracer_tpu_torch.integrator.render import (
     default_config, make_samples, render_from_samples,
 )
 from distributionraytracer_tpu_torch.integrator.whitted import (
-    brute_intersectors,
+    Intersectors, brute_intersectors,
 )
 from distributionraytracer_tpu_torch.ops import build
 from distributionraytracer_tpu_torch.ops import cuda_intersect as CI
@@ -322,7 +322,7 @@ def test_pt_routes_match_plain_on_card(dev, si):
         assert abs(float(img.mean() - plain.mean())) < 5e-3
 
 
-# ------------------------------------------------- accel: K7, K8, K9, K3 grid
+# -------------------------------------------- accel: K7, K8, K9, K10, K3 grid
 from distributionraytracer_tpu_torch.accel import cuda_binned as CBN  # noqa: E402
 from distributionraytracer_tpu_torch.accel import cuda_bvh as CBV  # noqa: E402
 from distributionraytracer_tpu_torch.accel.bvh import (  # noqa: E402
@@ -361,7 +361,8 @@ def _accel_launches():
             + CBV.LAUNCHES["grouped_shadow"],
             "K8": CBV.LAUNCHES["legacy_closest"]
             + CBV.LAUNCHES["legacy_shadow"],
-            "K9": CBN.LAUNCHES["binned_closest"]}
+            "K9": CBN.LAUNCHES["binned_closest"],
+            "K10": CBN.LAUNCHES["binned_shadow"]}
 
 
 def _packet_tables(scene, kind):
@@ -545,3 +546,104 @@ def test_fallback_leaf_tree_takes_k8(dev, accel):
     assert got["K8"] > 0 and sum(got.values()) == got["K8"], got
     plain = Renderer(scene, cfg.replace(kernels="off"), device=dev)
     assert_images_close(img, plain.render_with_samples(samples))
+
+
+# ------------------------------------------------------ K10: binned shadows
+BINNED_PLUS = {ACCEL_BVH: "grouped-packet", ACCEL_GRID: "grid-packet"}
+
+
+def _box_mesh(accel, n_tri=MESH_TRI, res=(128, 128)):
+    """The mesh scene with its finite ground: the light bins build."""
+    return mesh_scene(SceneBuilder, n_tri=n_tri, accel=accel, res=res,
+                      ground="box")
+
+
+def _first_shadow(r, samples):
+    """The inputs of the first shadow query of ``r``'s frame (the primary
+    level's: 3 lights x H*W lanes)."""
+    st = r.scene.static
+    bins = r._bins_for(st.res_y, st.res_x, 1)
+    inter, tile = r._intersectors(bins)
+    log = []
+
+    def shadow(o, d, dist, exclude_obj, valid=None):
+        if not log:
+            log.append((o, d, dist, valid))
+        return inter.shadow(o, d, dist, exclude_obj, valid=valid)
+
+    render_from_samples(r.scene, r.cfg, samples,
+                        inter=Intersectors(inter.closest, shadow),
+                        accel_tile=tile)
+    return bins, log[0]
+
+
+@pytest.mark.parametrize("accel", [ACCEL_BVH, ACCEL_GRID], ids=["bvh", "grid"])
+def test_binned_shadow_kernel_matches_plain(dev, accel, monkeypatch):
+    """K10 against its plain version on the primary shadow batch of its own
+    route (bvh or grid shadow mode, the renderer's LIGHT_K bins): occlusion
+    equal on every lane; against the packet walk of the whole tree the
+    occlusion is the same function (at most 0.2% of lanes may differ: an
+    origin's bins cover the segment to the light, which the offset ray
+    misses by up to OFFSET)."""
+    monkeypatch.setattr(CBN, "SHADOW_BINNING", True)
+    scene = _box_mesh(accel)
+    r = Renderer(scene, RenderConfig(spp=0), device=dev)
+    samples = make_samples(r.scene, r.cfg,
+                           torch.Generator(device=dev).manual_seed(6))
+    bins, (o, d, dist, valid) = _first_shadow(r, samples)
+    assert bins.lights is not None and bins.lights.k == CBN.LIGHT_K
+    lid = CBN.shadow_light_ids(o.shape[0], 3, dev)
+    tabs = r.tabs.tabs if accel == ACCEL_GRID else r.tabs
+    mode = "grid" if accel == ACCEL_GRID else "bvh"
+    _accel_reset()
+    occ = CBN.binned_shadow_kernel(tabs, bins.lights, lid, o, d, dist, valid,
+                                   mode)
+    torch.cuda.synchronize()
+    assert _accel_launches()["K10"] == 1
+    stats = {}
+    types = tuple(sorted(set(scene.static.obj_types)))
+    ref = CBN.binned_shadow_plain(tabs, bins.lights, lid, o, d, dist, valid,
+                                  mode, types, stats)
+    assert 0.05 < float(ref[valid].float().mean()) < 0.95
+    assert stats["entries"] > 0
+    assert torch.equal(occ, ref)
+    walk = threaded_walk(tabs, o, d, None, valid, shadow_dist=dist,
+                         shadow_mode=mode, types_present=types)
+    assert float((walk != occ)[valid].float().mean()) <= 0.002
+
+
+@pytest.mark.parametrize("accel", [ACCEL_BVH, ACCEL_GRID], ids=["bvh", "grid"])
+def test_binned_plus_routes_launch_k10_once(dev, accel, monkeypatch):
+    """With SHADOW_BINNING set, the binned+ route launches K9 once, K10 once
+    (the primary shadow query) and K7 on the rest, and renders what its
+    plain versions render; with the switch off, the same scene takes the
+    binned-primary+ route and K10 is never launched."""
+    monkeypatch.setattr(CBN, "SHADOW_BINNING", True)
+    scene = _box_mesh(accel)
+    cfg = RenderConfig(spp=0)
+    r = Renderer(scene, cfg, device=dev)
+    assert r.executed_backend() == "binned+" + BINNED_PLUS[accel]
+    samples = make_samples(r.scene, cfg,
+                           torch.Generator(device=dev).manual_seed(7))
+    _accel_reset()
+    img, nrays = r.render_with_samples(samples, return_rays=True)
+    torch.cuda.synchronize()
+    got = _accel_launches()
+    assert {k for k, v in got.items() if v} == {"K7", "K9", "K10"}, got
+    assert got["K9"] == 1 and got["K10"] == 1
+    assert torch.isfinite(img).all() and float(img.std()) > 0.05
+    plain = Renderer(scene, cfg.replace(kernels="off"), device=dev)
+    _accel_reset()
+    ref, ref_rays = plain.render_with_samples(samples, return_rays=True)
+    assert not any(_accel_launches().values())
+    assert_images_close(img, ref)
+    assert abs(int(nrays) - int(ref_rays)) <= COUNT_BUDGET * int(nrays)
+    monkeypatch.setattr(CBN, "SHADOW_BINNING", False)
+    off = Renderer(scene, cfg, device=dev)
+    assert off.executed_backend() == "binned-primary+" + BINNED_PLUS[accel]
+    _accel_reset()
+    img_off = off.render_with_samples(samples)
+    torch.cuda.synchronize()
+    got = _accel_launches()
+    assert got["K10"] == 0 and got["K9"] == 1 and got["K7"] > 0
+    assert_images_close(img_off, img)

@@ -59,16 +59,24 @@ def _torus_grid(n_quads):
     return n_quads // nv, nv
 
 
-def mesh_scene(builder_cls, n_tri=100_000, accel=2, seed=0, res=(512, 512)):
+MESH_GROUND_BOX = ((-8.0, -0.25, -8.0), (8.0, 0.0, 8.0))
+
+
+def mesh_scene(builder_cls, n_tri=100_000, accel=2, seed=0, res=(512, 512),
+               ground="sphere"):
     """A scanned-mesh stand-in: a closed, displaced torus of exactly
     ``n_tri`` triangles (even) in a reflective material, a glass, a metal
-    and two diffuse spheres, a ground sphere of radius 1000, three point
-    lights above the scene box; ``spp`` 0, no plane, no motion blur, no
-    depth of field.  ``accel`` is the P3F code (1 grid, 2 bvh).  Built from
-    ``seed`` with either package's SceneBuilder, so both build the same
-    scene."""
+    and two diffuse spheres, a ground, three point lights above the scene
+    box; ``spp`` 0, no plane, no motion blur, no depth of field.  ``accel``
+    is the P3F code (1 grid, 2 bvh).  ``ground`` is ``"sphere"`` (radius
+    1000) or ``"box"`` (``MESH_GROUND_BOX``, same material): the finite
+    ground keeps the lights outside the scene box, so the light-frustum
+    shadow bins build.  Built from ``seed`` with either package's
+    SceneBuilder, so both build the same scene."""
     if n_tri % 2:
         raise ValueError("mesh_scene tessellates quads: n_tri must be even")
+    if ground not in ("sphere", "box"):
+        raise ValueError(f"bad ground: {ground!r}")
     rng = np.random.default_rng(seed)
     nu, nv = _torus_grid(n_tri // 2)
     u = np.arange(nu) * (2 * np.pi / nu)
@@ -108,10 +116,13 @@ def mesh_scene(builder_cls, n_tri=100_000, accel=2, seed=0, res=(512, 512)):
                            0, 1)
     matte = b.add_material([0.3, 0.4, 0.8], 0.9, [0.2, 0.2, 0.2], 0.0, 10, 0,
                            1)
-    ground = b.add_material([0.5, 0.5, 0.45], 0.9, [0.3, 0.3, 0.3], 0.2, 20,
-                            0, 1)
+    gmat = b.add_material([0.5, 0.5, 0.45], 0.9, [0.3, 0.3, 0.3], 0.2, 20,
+                          0, 1)
     b.add_triangles_bulk(verts, faces, mesh)
-    b.add_sphere([0.0, -1000.0, 0.0], 1000.0, ground)
+    if ground == "box":
+        b.add_box(*(list(c) for c in MESH_GROUND_BOX), gmat)
+    else:
+        b.add_sphere([0.0, -1000.0, 0.0], 1000.0, gmat)
     b.add_sphere([-2.6, 0.8, 1.6], 0.8, glass)
     b.add_sphere([2.6, 0.8, 1.2], 0.8, metal)
     b.add_sphere([0.4, 0.45, 2.9], 0.45, matte)
