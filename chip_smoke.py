@@ -6,7 +6,8 @@
 1. Prints the card's name and power limit; exits non-zero without CUDA.
 2. Builds the kernels from ``distributionraytracer_tpu_torch/csrc`` with
    nvcc (``ops/build.py``) and prints the build time and ptxas's register
-   and spill report.
+   and spill report (K3's and K6's registers, shared memory and spills on
+   a line of their own).
 3. Holds each Whitted kernel against its plain torch version on the card,
    on 65,536 random rays against a scene with all four primitive types, a
    quad light and a point light:
@@ -101,10 +102,16 @@
    there; dead lanes skipped; per-lane branches as the constants below
    say; for K7 to K9, the node and object tests their plain walks made;
    for K10, the smaller of its own stream's work and the plain packet
-   walk's on the same lanes, since both give this occlusion).
+   walk's on the same lanes, since both give this occlusion).  A sphere
+   test whose discriminant is negative counts its operations up to it.
+7b. Times K3 at each level (0-4) of the Whitted frame's middle tile and K6
+   at each bounce (0-9) of the PT frame's middle tile, on the inputs the
+   frames give them, each beside its valid or live share, and holds each
+   launch to its plain version.
 8. Profiles one more warm frame of each main path under ``torch.profiler``
    and prints the device-busy time, the idle share and the top device
-   kernels.
+   kernels, and K3's and K6's summed time in their frames beside their
+   single-launch and per-tile times.
 
 Prints the kernels' JSON line, then the result line last.  Any failure
 raises, so the exit code is non-zero and no result line is printed.
@@ -137,9 +144,17 @@ FP32_OPS = 67e12
 # cheaper branch, so the bound stays a floor.
 # Whitted (csrc/primitives.cuh, csrc/whitted_level.cu), by object type
 # (sphere, triangle, plane, box): the tests (a sphere's under motion blur
-# adds one), and the winner's normal once per hit (the fold recomputes it
-# at each closer hit; the repeats are not counted).
-W_TEST_OPS = (33, 46, 13, 25)
+# adds one), and the winner's normal once per hit, after the fold.  A
+# sphere whose discriminant is negative (or NaN) returns before its root:
+# it counts its operations up to the discriminant, W_SPHERE_MISS_OPS.  The
+# sphere quadratic's a = d.d is the ray's, W_FOLD_OPS once per lane and
+# fold that reaches a sphere.  Where a count comes from a walk's per-type
+# test totals (K7-K10), which do not say which branch a sphere took nor
+# which lanes tested one, spheres count the miss and no d.d.
+W_TEST_OPS = (28, 46, 13, 25)
+W_SPHERE_MISS_OPS = 20
+W_FOLD_OPS = 5
+W_WALK_OPS = (W_SPHERE_MISS_OPS,) + W_TEST_OPS[1:]
 W_NORMAL_OPS = (18, 18, 0, 7)
 W_LANE_OPS = 40  # K3 per lane: unit normal, point, facing, view, shadow origin
 W_LIGHT_OPS = 40  # K3 per lane and light: direction, distance, half vector
@@ -151,8 +166,11 @@ W_REFR_OPS = 6  # K3 per refraction child: its weight
 W_REFL_OPS = 3  # K3 per reflection child: its weight
 # Path tracer (csrc/pt.cu): tests (triangle, sphere, moving sphere); each
 # fold also takes d.d; the winner's normal and point once per hit (18 for a
-# triangle or sphere; a moving sphere's 24 or 30 are counted as 18).
+# triangle or sphere; a moving sphere's 24 or 30 are counted as 18).  A
+# sphere or moving sphere whose discriminant is negative (or NaN) counts
+# its operations up to it (PT_MISS_TEST_OPS).
 PT_TEST_OPS = (46, 28, 53)
+PT_MISS_TEST_OPS = (46, 20, 45)
 PT_FOLD_OPS = 5
 PT_WINNER_OPS = 18
 # K6 per lane: a miss under the gradient sky (a cubemap miss only stores);
@@ -271,10 +289,124 @@ def without_lights(scene):
             "light_is_quad", "light_grid_res")})
 
 
+def ptxas_report(log, kernels):
+    """{kernel: ptxas's lines for it} from the build log (``-Xptxas -v``):
+    registers, static shared memory, stack and spills of each entry whose
+    mangled name contains one of ``kernels``."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            cur = next((k for k in kernels if k in line), None)
+        elif cur and ("Used" in line or "spill" in line):
+            out.setdefault(cur, []).append(line.split(":", 1)[-1].strip()
+                                           if "Used" in line
+                                           else line.strip())
+    return out
+
+
+def level_breakdown(torch, dev, card, scene, cfg, samples, cmp_level=None):
+    """K3 at each level of the Whitted frame's middle tile (the first
+    tiles are the floor's, where almost no child ray spawns): the inputs
+    that ``trace_whitted`` gives ``fused_level`` for that tile's
+    ``tile_rays`` samples (level L holds tile x 2^L lanes), each level's
+    valid share and its bare launch time; ``cmp_level`` (if given) holds
+    each level to its plain version.  Returns [(lanes, valid share, ms)]."""
+    from distributionraytracer_tpu_torch.integrator.render import (
+        _rays_from_samples,
+    )
+    from distributionraytracer_tpu_torch.integrator.whitted import (
+        trace_whitted,
+    )
+    from distributionraytracer_tpu_torch.ops import cuda_intersect as CI
+    from distributionraytracer_tpu_torch.ops import cuda_whitted as CW
+    rays = _rays_from_samples(scene, cfg, samples)
+    a = (-(-rays[0].shape[0] // cfg.tile_rays) // 2) * cfg.tile_rays
+    o, d, t, ls = (x[a:a + cfg.tile_rays].contiguous() for x in rays)
+    log, orig = [], CW.fused_level
+
+    def recorder(sc, c, *args, **kw):
+        log.append((args, kw["spawn"]))
+        return orig(sc, c, *args, **kw)
+
+    CW.fused_level = recorder
+    try:
+        trace_whitted(scene, cfg, o, d, t, ls)
+    finally:
+        CW.fused_level = orig
+    tb, n_obj, res = CW.level_tables(scene), scene.static.n_objects, []
+    for lv, ((lo, ld, lt, lior, lls, lval), spawn) in enumerate(log):
+        n = lo.shape[0]
+        rays = CI.ray_streams(n, lo[:, 0], lo[:, 1], lo[:, 2], ld[:, 0],
+                              ld[:, 1], ld[:, 2], lt, lior, lls[:, 0],
+                              lls[:, 1], lval.float())
+        out = torch.empty((29 if spawn else 4, n), device=dev)
+        ms = timed_ms(torch, lambda: CW.launch_level(tb, n_obj, rays, cfg,
+                                                     spawn, out), 20)
+        share = float(lval.float().mean())
+        note = ""
+        if cmp_level is not None:
+            e, m = cmp_level(scene, cfg, [lo, ld, lt, lior, lls, lval],
+                             spawn)
+            note = f"; vs plain: lanes differing {m:.2e}, max abs err {e:.3e}"
+        print(f"K3 level {lv} (samples {a}:{a + cfg.tile_rays}): {n} lanes, "
+              f"valid {share:.4f}, spawn {spawn}: "
+              f"{ms:.4f} ms{note} | {card}")
+        res.append((n, share, ms))
+    return res
+
+
+def bounce_breakdown(torch, card, pts, pcfg, paths, pt_frame,
+                     cmp_pt_bounce=None):
+    """K6 at each bounce of the path-traced frame's middle tile (the
+    first tiles look at the floor, whose paths leave for the sky within two
+    bounces): the state and uniforms that one ``pt_frame()`` gives
+    ``pt_bounce`` for that tile (``render_pt`` runs its ``paths`` in
+    tiles of ``pcfg.pt_tile_rays``, each through its bounces), each
+    bounce's live share and its bare launch time (the state restored,
+    untimed, before each launch); ``cmp_pt_bounce`` (if given) holds each
+    bounce to its plain version.  Returns [(live share, ms)]."""
+    from distributionraytracer_tpu_torch.ops import cuda_pt as CP
+    from distributionraytracer_tpu_torch.scene.pt_scenes import SKY_GRADIENT
+    B = pcfg.max_bounces
+    k = -(-paths // pcfg.pt_tile_rays) // 2
+    log, calls, orig = [], [0], CP.pt_bounce
+
+    def recorder(sc, state, uni, rr, **kw):
+        if calls[0] // B == k:
+            log.append((state.clone(), uni, rr))
+        calls[0] += 1
+        return orig(sc, state, uni, rr, **kw)
+
+    CP.pt_bounce = recorder
+    try:
+        pt_frame()
+    finally:
+        CP.pt_bounce = orig
+    check(len(log) == B, f"K6 breakdown: recorded {len(log)} bounces of "
+          f"tile {k}, not {B}")
+    ptb, grad, res = CP.pt_tables(pts), pts.sky_mode == SKY_GRADIENT, []
+    for b, (state, uni, rr) in enumerate(log):
+        n = state.shape[1]
+        live = float((state[CP.ST_ALIVE] > 0).float().mean())
+        st = state.clone()
+        ms = timed_ms(torch, lambda: CP.launch_bounce(ptb, st, uni, rr, grad),
+                      20, setup=lambda: st.copy_(state))
+        note = ""
+        if cmp_pt_bounce is not None:
+            check(rr, "K6 breakdown: the frame runs Russian roulette")
+            e, m, _ = cmp_pt_bounce(pts, state, uni)
+            note = f"; vs plain: lanes differing {m:.2e}, max abs err {e:.3e}"
+        print(f"K6 bounce {b} (tile {k}): {n} paths, live {live:.4f}: "
+              f"{ms:.4f} ms{note} | {card}")
+        res.append((live, ms))
+    return res
+
+
 def profile_frame(torch, render, wall_s, label):
     """One frame under torch.profiler: device-busy ms (the union of the
     device activity intervals), its idle share of the unprofiled frame time
-    ``wall_s``, the host ops and the top device activities by name."""
+    ``wall_s``, the host ops and the top device activities by name.
+    Returns {device activity name: (count, ms)}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -288,7 +420,7 @@ def profile_frame(torch, render, wall_s, label):
     if not device:
         print(f"profile {label}: the profiler traced no device activity; "
               "device-busy time and idle share not measured")
-        return
+        return {}
     busy_us, end = 0.0, float("-inf")
     for e in sorted(device, key=lambda e: e.time_range.start):
         s, t = max(e.time_range.start, end), e.time_range.end
@@ -306,6 +438,13 @@ def profile_frame(torch, render, wall_s, label):
     top = sorted(by_name.items(), key=lambda kv: kv[1][1], reverse=True)
     for name, (n, us) in top[:10]:
         print(f"  {name[:64]:64s} {n:6d} x {us / 1e3:9.3f} ms")
+    return {name: (n, us / 1e3) for name, (n, us) in by_name.items()}
+
+
+def kernel_sum(prof, kernel):
+    """(launches, summed device ms) of the activities named ``kernel``."""
+    hits = [v for k, v in prof.items() if kernel in k]
+    return sum(n for n, _ in hits), sum(ms for _, ms in hits)
 
 
 # ---------------------------------------------------------------------------
@@ -361,7 +500,72 @@ def recording(inter, log):
     return Intersectors(closest, shadow)
 
 
-def type_ops(torch, type_tests, table=W_TEST_OPS):
+def w_test_ops(torch, sc, o, d, time, mb):
+    """(R, O) f64: the FP32 operations of each object test of each ray
+    (``csrc/primitives.cuh``): W_TEST_OPS by type, one more for a sphere
+    under motion blur, and W_SPHERE_MISS_OPS (+ motion blur) for a sphere
+    whose discriminant is negative, computed as sphere_t does.  The first
+    sphere in table order also carries the ray's d.d (W_FOLD_OPS), so that
+    a sum along a fold counts it once if the fold reaches a sphere."""
+    from distributionraytracer_tpu_torch.scene.types import OBJ_SPHERE
+    data, types, _ = sc.packed_objects()
+    data, types = data.to(o.device), types.to(o.device)
+    mb1 = int(bool(mb))
+    per = torch.tensor([W_TEST_OPS[t] + mb1 * (t == OBJ_SPHERE)
+                        for t in sc.static.obj_types], dtype=torch.float64,
+                       device=o.device)
+    ops = per.expand(o.shape[0], per.shape[0]).clone()
+    sph = types == OBJ_SPHERE
+    if bool(sph.any()):
+        c = data[sph, 0:3][None].expand(o.shape[0], -1, 3).clone()
+        if mb:
+            c[..., 1] = c[..., 1] + time[:, None]
+        oc = o[:, None, :] - c
+        a = (d * d).sum(-1)[:, None]
+        b = 2.0 * (oc * d[:, None, :]).sum(-1)
+        cq = (oc * oc).sum(-1) - data[sph, 3][None] ** 2
+        disc = b * b - 4.0 * a * cq
+        ops[:, sph] = torch.where(disc >= 0, float(W_TEST_OPS[0]),
+                                  float(W_SPHERE_MISS_OPS)).double() + mb1
+        ops[:, int(sph.float().argmax())] += W_FOLD_OPS
+    return ops
+
+
+def pt_test_ops(torch, PT, sc, o, d, time):
+    """(K, R) f64: the FP32 operations of each primitive test of each ray
+    in ``csrc/pt.cu``'s table order (triangles, spheres, moving spheres),
+    a (moving) sphere's by the sign of its discriminant, computed as
+    sph_t and msph_t do."""
+    R, dev = o.shape[0], o.device
+    rows = [torch.full((sc.tri_v0.shape[0], R), float(PT_TEST_OPS[0]),
+                       dtype=torch.float64, device=dev)]
+    a_dd = (d * d).sum(-1)
+    for k, (c0, vel, rad) in enumerate((
+            (sc.sph_center, None, sc.sph_radius),
+            (sc.msph_c0, sc.msph_c1 - sc.msph_c0, sc.msph_radius))):
+        if c0.shape[0] == 0:
+            continue
+        c = c0[:, None, :].expand(-1, R, 3)
+        a = a_dd[None]
+        oc = o[None] - c
+        if vel is None:
+            b = 2.0 * (oc * d[None]).sum(-1)
+            cq = (oc * oc).sum(-1) - rad[:, None] ** 2
+        else:  # the shader's quadratic in d1 = (c1 - c0) * EPS
+            oc = oc - vel[:, None, :] * time[None, :, None]
+            d1 = vel[:, None, :] * 1e-3
+            dd1 = (d[None] * d1).sum(-1)
+            a = a - dd1 * dd1
+            oc_d, oc_d1 = (oc * d[None]).sum(-1), (oc * d1).sum(-1)
+            b = 2.0 * (oc_d - oc_d1 * dd1)
+            cq = (oc * oc).sum(-1) - oc_d1 * oc_d1 - rad[:, None] ** 2
+        disc = b * b - 4.0 * a * cq
+        rows.append(torch.where(disc >= 0, float(PT_TEST_OPS[1 + k]),
+                                float(PT_MISS_TEST_OPS[1 + k])).double())
+    return torch.cat(rows)
+
+
+def type_ops(torch, type_tests, table=W_WALK_OPS):
     """FP32 operations of object tests counted by slot type + 1 (index 0:
     inert slots, which cost a compare)."""
     per = torch.tensor((0,) + tuple(table), dtype=torch.float64)
@@ -387,12 +591,11 @@ def grid_fold_ops(torch, sc, o, d, dist, lanes, gb):
     zt = torch.zeros_like(dist)
     for _typ, gids, tmat in _type_tmats(sc, o, d, zt, False):
         okm[:, gids.long()] = tmat < dist[:, None]
-    cum = torch.cumsum(torch.tensor([W_TEST_OPS[t]
-                                     for t in sc.static.obj_types],
-                                    dtype=torch.float64, device=o.device), 0)
+    cum = torch.cumsum(w_test_ops(torch, sc, o, d, zt, False), 1)
     first = torch.where(okm.any(1), okm.float().argmax(1), n_obj - 1)
     slab_ok = grid_slab(*gb, o, d)[0]
-    fold = torch.where(slab_ok, cum[first], torch.zeros_like(cum[first]))
+    fold = cum.gather(1, first[:, None])[:, 0]
+    fold = torch.where(slab_ok, fold, torch.zeros_like(fold))
     return float((fold + GRID_SLAB_OPS)[lanes].sum()), okm.any(1) | ~slab_ok
 
 
@@ -410,8 +613,8 @@ def k3_grid_ops(torch, CW, sc, cfg, o, d, t, ls, gb):
     h = closest_hit_brute(sc, o, d, t, False)
     ok, *_, t1 = grid_slab(*gb, o, d)
     hit = h.hit & ok & (h.t < t1)
-    ops = n * (sum(W_TEST_OPS[k] for k in sc.static.obj_types)
-               + GRID_SLAB_OPS + W_LANE_OPS)
+    ops = (float(w_test_ops(torch, sc, o, d, t, False).sum())
+           + n * (GRID_SLAB_OPS + W_LANE_OPS))
     ops += winner_normal_ops(torch, sc, h.obj_id)
     p = o + d * torch.where(h.hit, h.t, torch.ones_like(h.t))[:, None]
     nn_ = CW._norm3(h.normal)
@@ -1059,6 +1262,26 @@ def accel_rows(torch, np, dev, card, st, errs, add_row):
             f"{nl} lanes of level 0, {n_obj} objects, spawn")
 
 
+def frame_sums(wprof, pprof, rows, levels, bounces, card):
+    """K3's and K6's summed device time in the profiled frames, beside
+    their single-launch time (level 0, bounce 0) and the per-level and
+    per-bounce times of one tile."""
+    single = {r["name"]: r["ms"] for r in rows}
+    out = {}
+    for key, prof, kern, name, per in (
+            ("K3", wprof, "whitted_level_kernel", "fused_level", levels),
+            ("K6", pprof, "pt_bounce_kernel", "pt_bounce", bounces)):
+        n, ms = kernel_sum(prof, kern)
+        tile = sum(x[-1] for x in per)
+        print(f"{key} {name} in the profiled frame: {n} launches, "
+              f"{ms:.3f} ms summed; one launch at level/bounce 0 "
+              f"{single.get(name, per[0][-1]):.4f} ms; one tile's "
+              f"levels/bounces {tile:.4f} ms | {card}")
+        out[key] = {"frame_launches": n, "frame_ms": ms, "tile_ms": tile,
+                    "per_launch": per}
+    return out
+
+
 def main():
     import numpy as np
     import torch
@@ -1115,6 +1338,9 @@ def main():
     for line in built.log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"  ptxas: {line.strip()}")
+    for k, lines in ptxas_report(built.log, ("whitted_level_kernel",
+                                             "pt_bounce_kernel")).items():
+        print(f"ptxas {k}: {'; '.join(lines)}")
 
     # ---- 2. Whitted kernels vs plain on the four-primitive scene ----
     rng = np.random.default_rng(0)
@@ -1490,11 +1716,6 @@ def main():
     lit = light_phase(torch, np, dev, card, counted)
 
     # ---- 6. kernel times and bounds at the main paths' shapes ----
-    def w_fold_ops(sc, mb):
-        per = [W_TEST_OPS[t] + int(mb and t == OBJ_SPHERE)
-               for t in sc.static.obj_types]
-        return per
-
     def w_normal_ops(sc, h, mb):
         """The winners' normals, once per hit lane."""
         per = torch.tensor([W_NORMAL_OPS[t] + int(mb and t == OBJ_SPHERE)
@@ -1512,35 +1733,32 @@ def main():
         for _typ, gids, tmat in _type_tmats(sc, o, d, zt, mb):
             okm[:, gids.long()] = ((tmat < dist[:, None]) & (tmat > 1e-4)
                                    & (gids[None, :] != excl[:, None]))
-        cum = torch.cumsum(torch.tensor(w_fold_ops(sc, mb),
-                                        dtype=torch.float64, device=dev), 0)
+        cum = torch.cumsum(w_test_ops(torch, sc, o, d, zt, mb), 1)
         first = torch.where(okm.any(1), okm.float().argmax(1), n_obj - 1)
-        return float(cum[first][lanes].sum()), okm.any(1)
+        return (float(cum.gather(1, first[:, None])[:, 0][lanes].sum()),
+                okm.any(1))
 
     def pt_shadow_ops(sc, o, d, tm, tmax, lanes):
         """K5's fold on these rays: d.d, then every test up to the first
         occluder in table order, or all of them; lanes only.  Also returns
         which rays are occluded."""
         a_dd = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
-        oks, per = [], []
+        oks = []
         if sc.tri_v0.shape[0]:
             t_, ok = PT._tri_t(sc, o, d, 1e-3)
             oks.append(ok & (t_ < tmax))
-            per += [PT_TEST_OPS[0]] * sc.tri_v0.shape[0]
         if sc.sph_center.shape[0]:
             t_, ok = PT._sph_t(sc, o, d, a_dd, 1e-3)
             oks.append(ok & (t_ < tmax))
-            per += [PT_TEST_OPS[1]] * sc.sph_center.shape[0]
         if sc.msph_c0.shape[0]:
             t_, ok = PT._msph_quadratic(sc, o, d, tm, a_dd, 1e-3)[:2]
             oks.append(ok & (t_ < tmax))
-            per += [PT_TEST_OPS[2]] * sc.msph_c0.shape[0]
         okm = torch.cat(oks)
-        cum = torch.cumsum(torch.tensor(per, dtype=torch.float64,
-                                        device=dev), 0)
+        cum = torch.cumsum(pt_test_ops(torch, PT, sc, o, d, tm), 0)
         first = torch.where(okm.any(0), okm.float().argmax(0),
                             okm.shape[0] - 1)
-        return float((PT_FOLD_OPS + cum[first])[lanes].sum()), okm.any(0)
+        fold = cum.gather(0, first[None])[0]
+        return float((PT_FOLD_OPS + fold)[lanes].sum()), okm.any(0)
 
     rows = []
     meta = {
@@ -1608,7 +1826,7 @@ def main():
         errs[k] = max(errs[k], e)
     ltab = CW.level_tables(sc)
     f4 = lambda k: k * 4
-    closest_ops = sum(w_fold_ops(sc, mb))
+    closest_ops = float(w_test_ops(torch, sc, o, d, t, mb).sum())
 
     rays1 = CI.ray_streams(n, o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1],
                            d[:, 2], t, ones)
@@ -1619,7 +1837,7 @@ def main():
         lambda: CI.closest_hit_kernel(sc, o, d, t, mb, tables=tab),
         lambda: closest_hit_brute(sc, o, d, t, mb),
         n * f4(8 + 4 + 2) + n_obj * f4(14),
-        n * closest_ops + w_normal_ops(sc, h, mb))
+        closest_ops + w_normal_ops(sc, h, mb))
 
     rays2 = CI.ray_streams(nl * n, so_[:, 0], so_[:, 1], so_[:, 2],
                            sd_[:, 0], sd_[:, 1], sd_[:, 2], sdist,
@@ -1668,7 +1886,7 @@ def main():
         lambda: CW.fused_level_plain(sc, cfg, o, d, t, ones, ls, allv, True,
                                      tables=ltab),
         n * f4(11 + 29) + n_obj * f4(12 + 1 + 13) + n_l * f4(10),
-        n * (closest_ops + W_LANE_OPS) + w_normal_ops(sc, h, mb) + k3_light
+        closest_ops + n * W_LANE_OPS + w_normal_ops(sc, h, mb) + k3_light
         + k3_spawn)
 
     # K4 to K6: the first 131,072-path tile of the PT frame at bounce 0
@@ -1683,8 +1901,8 @@ def main():
     ptb = CP.pt_tables(pts)
     T, S, M = ptb.counts
     K = T + S + M
-    pt_closest_ops = (PT_FOLD_OPS + T * PT_TEST_OPS[0] + S * PT_TEST_OPS[1]
-                      + M * PT_TEST_OPS[2])
+    pt_closest_ops = (n * PT_FOLD_OPS
+                      + float(pt_test_ops(torch, PT, pts, o, d, t).sum()))
     h = PT.hit_world(pts, o, d, t)
     hits = float(h.hit.sum())
     e4, _, _ = cmp_pt_closest(pts, o, d, t)
@@ -1697,7 +1915,7 @@ def main():
         lambda: CP.pt_closest_kernel(pts, o, d, t, tables=ptb),
         lambda: PT.hit_world(pts, o, d, t),
         n * f4(7 + 4 + 1) + K * f4(12 + 1),
-        n * pt_closest_ops + hits * PT_WINNER_OPS)
+        pt_closest_ops + hits * PT_WINNER_OPS)
 
     # K5: the staged body's shadow rays towards point light 0
     nrm = torch.nn.functional.normalize(h.normal, dim=-1)
@@ -1730,7 +1948,7 @@ def main():
     survive = CP.pt_bounce_plain(pts, st0.clone(), uni, True)[
         CP.ST_ALIVE] > 0
     gradient = pts.sky_mode == SKY_GRADIENT
-    k6_ops = (n * pt_closest_ops + (n - hits) * PT_MISS_OPS * gradient
+    k6_ops = (pt_closest_ops + (n - hits) * PT_MISS_OPS * gradient
               + hits * (PT_WINNER_OPS + PT_HIT_OPS)
               + float((h.hit & pts.mat_stripe[mid]).sum()) * PT_STRIPE_OPS
               + float((h.hit & (pts.mat_emissive[mid] != 0).any(-1)).sum())
@@ -1790,10 +2008,18 @@ def main():
     accel_rows(torch, np, dev, card, acc, errs, add_row)
     light_rows(torch, dev, card, lit, errs, add_row)
 
+    # ---- 7b. K3 per level and K6 per bounce on one tile of each frame ----
+    levels = level_breakdown(torch, dev, card, r.scene, cfg, samples,
+                             cmp_level)
+    bounces = bounce_breakdown(torch, card, pts, pcfg,
+                               pf["res"][0] * pf["res"][1] * pf["spp"],
+                               pt_frame, cmp_pt_bounce)
+
     # ---- 7. profiles of one warm frame of each main path ----
-    profile_frame(torch, lambda: r.render_with_samples(samples), med,
-                  "Whitted frame")
-    profile_frame(torch, pt_frame, pmed, "PT frame")
+    wprof = profile_frame(torch, lambda: r.render_with_samples(samples), med,
+                          "Whitted frame")
+    pprof = profile_frame(torch, pt_frame, pmed, "PT frame")
+    frame_sums(wprof, pprof, rows, levels, bounces, card)
     profile_frame(torch, lambda: acc["bvh"].render_with_samples(
         acc["samples"]), acc["median"], "accelerated frame")
     for key, label in (("bvh", "binned+ frame"),

@@ -15,10 +15,11 @@
 //
 // Objects live in a packed (O,12) f32 table in insertion order with an
 // (O,) i32 type array (scene/types.py::packed_objects), or in the packet
-// kernels' (S,16) slot records.  Every thread of a block reads the same row
-// at the same time, so rows are read straight from global memory through
-// __ldg: one broadcast, cached load per field (or from shared memory, for
-// rows a block stages itself: the <false> instances).
+// kernels' (S,16) slot records, read straight from global memory through
+// __ldg: where every thread of a warp reads the same row, one broadcast,
+// cached load per field; K3's split folds read a few rows at once, which
+// stay in L1 all the same (or from shared memory, for rows a block stages
+// itself: the <false> instances).
 #pragma once
 
 #include <cfloat>
@@ -68,23 +69,44 @@ __device__ __forceinline__ float dot3_rn(float ax, float ay, float az,
 // so a single contracted multiply-add moves t and the normal visibly.  It
 // is evaluated uncontracted, left to right, with the rounding of the
 // reference (pallas_intersect.py::_sphere_step) and of the plain version.
+// The sphere quadratic's b and discriminant; a = d.d is the caller's.
 template <bool G = true>
-__device__ __forceinline__ float sphere_t(const Ray& r, const float* row,
-                                          float time, bool motion_blur) {
+__device__ __forceinline__ float sphere_disc(const Ray& r, const float* row,
+                                             float time, bool motion_blur,
+                                             float a, float* b_out) {
   float cx = ld<G>(row, 0), cy = ld<G>(row, 1), cz = ld<G>(row, 2);
   float rad = ld<G>(row, 3);
   if (motion_blur) cy = cy + time;
   float ocx = r.ox - cx, ocy = r.oy - cy, ocz = r.oz - cz;
-  float a = dot3_rn(r.dx, r.dy, r.dz, r.dx, r.dy, r.dz);
   float b = __fmul_rn(2.0f, dot3_rn(ocx, ocy, ocz, r.dx, r.dy, r.dz));
   float cq = __fsub_rn(dot3_rn(ocx, ocy, ocz, ocx, ocy, ocz),
                        __fmul_rn(rad, rad));
-  float disc = __fsub_rn(__fmul_rn(b, b), __fmul_rn(__fmul_rn(4.0f, a), cq));
+  *b_out = b;
+  return __fsub_rn(__fmul_rn(b, b), __fmul_rn(__fmul_rn(4.0f, a), cq));
+}
+
+// The nearest root with t > EPSILON, or a miss.
+__device__ __forceinline__ float sphere_root(float a, float b, float disc) {
   float sq = sqrtf(fmaxf(disc, 0.0f));
   float t1 = (-b - sq) / (2.0f * a);
   float t2 = (-b + sq) / (2.0f * a);
   float t = t1 > kEpsilon ? t1 : t2;
   return (disc >= 0.0f && t > kEpsilon) ? t : kFltMax;
+}
+
+// A miss (NaN included) needs no root: the IEEE sqrt and the two
+// divisions are most of a test's instructions, and most tests miss.
+__device__ __forceinline__ bool sphere_missed(float disc) {
+  return !(disc >= 0.0f);
+}
+
+template <bool G = true>
+__device__ __forceinline__ float sphere_t(const Ray& r, const float* row,
+                                          float time, bool motion_blur) {
+  const float a = dot3_rn(r.dx, r.dy, r.dz, r.dx, r.dy, r.dz);
+  float b;
+  const float disc = sphere_disc<G>(r, row, time, motion_blur, a, &b);
+  return sphere_missed(disc) ? kFltMax : sphere_root(a, b, disc);
 }
 
 __device__ __forceinline__ float sub_mul_rn(float a, float b, float c,
@@ -160,6 +182,52 @@ __device__ __forceinline__ float prim_t(int typ, const Ray& r,
   }
 }
 
+// U tests of one ray against rows row[u] of types typ[u], written so that
+// their arithmetic can interleave (a lane's fold is a dependent chain, and
+// a warp has few others to hide its latency behind): when all U are
+// spheres, every discriminant first, then the roots of those that are not
+// misses; when all are of another type, U tests of that type.
+template <bool G, int U>
+__device__ __forceinline__ void prim_t_n(const int* typ,
+                                         const float* const* row,
+                                         const Ray& r, float time,
+                                         bool motion_blur, float* t) {
+  bool same = true;
+#pragma unroll
+  for (int u = 1; u < U; ++u) same = same && typ[u] == typ[0];
+  if (!same) {
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      t[u] = prim_t<G>(typ[u], r, row[u], time, motion_blur);
+    return;
+  }
+  switch (typ[0]) {
+    case kSphere: {
+      const float a = dot3_rn(r.dx, r.dy, r.dz, r.dx, r.dy, r.dz);
+      float b[U], disc[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        disc[u] = sphere_disc<G>(r, row[u], time, motion_blur, a, &b[u]);
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        t[u] = sphere_missed(disc[u]) ? kFltMax
+                                      : sphere_root(a, b[u], disc[u]);
+      return;
+    }
+    case kTriangle:
+#pragma unroll
+      for (int u = 0; u < U; ++u) t[u] = triangle_t<G>(r, row[u]);
+      return;
+    case kPlane:
+#pragma unroll
+      for (int u = 0; u < U; ++u) t[u] = plane_t<G>(r, row[u]);
+      return;
+    default:
+#pragma unroll
+      for (int u = 0; u < U; ++u) t[u] = box_t<G>(r, row[u]);
+  }
+}
+
 // Geometric normal of object `row` at ray parameter t (unflipped).
 template <bool G = true>
 __device__ __forceinline__ void prim_normal(int typ, const Ray& r,
@@ -205,7 +273,9 @@ __device__ __forceinline__ void prim_normal(int typ, const Ray& r,
 }
 
 // Closest hit over all objects in insertion order, strict-< first wins
-// (main.cpp:315-326).  Returns the winner's object id, or -1.
+// (main.cpp:315-326).  Returns the winner's object id, or -1.  The
+// winner's normal is computed once, after the fold (the same value as
+// recomputing it at every closer hit).
 __device__ __forceinline__ int closest_fold(const float* table,
                                             const int* types, int n_obj,
                                             const Ray& r, float time,
@@ -215,15 +285,16 @@ __device__ __forceinline__ int closest_fold(const float* table,
   float bt = kFltMax;
   n[0] = n[1] = n[2] = 0.0f;
   for (int g = 0; g < n_obj; ++g) {
-    const int typ = __ldg(types + g);
-    const float* row = table + (size_t)g * kRowWidth;
-    const float t = prim_t(typ, r, row, time, motion_blur);
+    const float t = prim_t(__ldg(types + g), r,
+                           table + (size_t)g * kRowWidth, time, motion_blur);
     if (t < bt) {
       bt = t;
       best = g;
-      prim_normal(typ, r, row, t, time, motion_blur, n);
     }
   }
+  if (best >= 0)
+    prim_normal(__ldg(types + best), r, table + (size_t)best * kRowWidth, bt,
+                time, motion_blur, n);
   *best_t = bt;
   return best;
 }
@@ -231,24 +302,24 @@ __device__ __forceinline__ int closest_fold(const float* table,
 // Occluder compare modes of any_hit (pallas_intersect.py::_anyhit_kernel).
 enum AnyHitMode { kModeNone = 0, kModeGrid = 1, kModeBvh = 2 };
 
+// Whether object g at ray parameter t occludes a shadow ray of length
+// dist in this mode.
+__device__ __forceinline__ bool occludes(float t, float dist, int g, int excl,
+                                         int mode) {
+  if (mode == kModeGrid) return t < dist;
+  if (mode == kModeBvh) return t <= dist + kEpsilon;
+  return t < dist && t > 1e-4f && g != excl;
+}
+
 // True at the first occluder; shadow rays carry time = 0.
 __device__ __forceinline__ bool any_fold(const float* table, const int* types,
                                          int n_obj, const Ray& r, float dist,
                                          int excl, int mode,
                                          bool motion_blur) {
   for (int g = 0; g < n_obj; ++g) {
-    const int typ = __ldg(types + g);
-    float t = prim_t(typ, r, table + (size_t)g * kRowWidth, 0.0f,
-                     motion_blur);
-    bool hit;
-    if (mode == kModeGrid) {
-      hit = t < dist;
-    } else if (mode == kModeBvh) {
-      hit = t <= dist + kEpsilon;
-    } else {
-      hit = t < dist && t > 1e-4f && g != excl;
-    }
-    if (hit) return true;
+    const float t = prim_t(__ldg(types + g), r,
+                           table + (size_t)g * kRowWidth, 0.0f, motion_blur);
+    if (occludes(t, dist, g, excl, mode)) return true;
   }
   return false;
 }

@@ -9,18 +9,43 @@
 //      and the GGX view-sign quirk; emission; scatter for the four
 //      materials; Russian roulette; the gradient sky, or the cubemap miss
 //      latched for one texel gather after the last bounce.
-// Bound: FP32 ALU.  Each lane tests every primitive once per closest query
-// and up to once more per point light (rays x primitives x (1 + lights)
-// tests); memory traffic is the lane's streams in and out, and the tables
-// are warp-uniform broadcast reads through __ldg that stay in L1.
-// Design: one thread per lane, primitives walked in hit_world's order
+// Bound on this card: FP32 issue.  Each lane tests every primitive once
+// per closest query and up to once more per point light (rays x primitives
+// x (1 + lights) tests; the tests are uncontracted, so each mul/add issues
+// alone); memory traffic is the lane's streams in and out.
+// K4 and K5: one thread per lane, primitives walked in hit_world's order
 // (triangles, spheres, moving spheres) with strict < so the first of equal
-// t wins; the three groups are separate loops, so there is no per-primitive
-// type branch.  The winner's normal and material are fetched once after the
-// fold (the same values as carrying them through it).  Skips that are exact:
+// t wins; the three groups are separate loops, so there is no
+// per-primitive type branch; tables are warp-uniform __ldg reads.
+// K6, redesigned for the H100.  What bounds it: the latency of each
+// lane's fold, a dependent chain of ~105 uncontracted tests x (1 + point
+// lights) with IEEE sqrt and divisions in it, and too few warps to hide
+// it (~121 registers a thread: 16 warps an SM).  A launch is latency
+// bound, not issue bound: the first version took as long at bounce 3
+// with 8% of its paths alive (a warp with one live lane ran the whole
+// fold) as at bounce 0 with all of them.  The design (lanes.cuh):
+//   - a block of kBounceThreads lanes clears every lane's time in one
+//     coalesced pass and compacts its live lanes; warps with none leave;
+//   - a block whose live lanes fill its threads (G = 1) runs the serial
+//     folds below, whose loops the compiler unrolls itself; a block with
+//     fewer splits each live lane's folds over a group of G = 2..32
+//     threads, each testing every G-th primitive, kU at a time written so
+//     that their arithmetic interleaves (one test at a time was much
+//     slower: the chain is the bound); the closest hit is a shuffle
+//     reduction (least t, then least index: the serial fold's winner,
+//     with the moving sphere's near-root flag), the shadow folds vote
+//     after each round and stop at the first occluder's round.  The
+//     table's rows come through the read-only cache (a group's threads
+//     read different rows; a version that staged the table in shared
+//     memory lost to this one once the launch bound of two blocks an SM
+//     below ended its spills);
+//   - the IEEE root of every missed sphere is skipped: quad_t returns on a
+//     negative (or NaN) discriminant before its sqrt and divisions (K4, K5
+//     too).  PERF.md records what each point bought on the card.
+// The winner's normal and material are fetched once, after the fold.
+// Skips that are exact:
 //   - K6 dead lanes (alive == 0) pass every state stream through unchanged
-//     in the Pallas kernel, so they only clear their time and return; most
-//     lanes die within a few bounces;
+//     in the Pallas kernel, so they only clear their time;
 //   - shadow folds stop at the first occluder (the fold is an OR) and run
 //     only for hit lanes facing the light (the contribution is gated by
 //     both);
@@ -49,9 +74,13 @@
 #include <cfloat>
 #include <cuda_runtime.h>
 
+#include "lanes.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;               // K4, K5: threads a block
+constexpr int kBounceThreads = drt::kLaneBlock;  // K6: threads, and lanes
+constexpr int kU = drt::kUnroll;  // K6: primitives a thread tests side by side
 constexpr int kRow = 12;
 constexpr int kMat = 16;
 constexpr float kEps = 1e-3f;  // common.glsl:7
@@ -105,9 +134,15 @@ __device__ __forceinline__ float tri_t(const Ray& r, const float* row) {
 }
 
 // The two roots of a*t^2 + b*t + c with disc = b^2 - 4ac; t1 > EPS picks
-// the near root, else the far one.
+// the near root, else the far one.  A miss (NaN included) needs no root:
+// the IEEE sqrt and the two divisions are most of a test's instructions,
+// and most tests miss (near_root only matters for a winner).
 __device__ __forceinline__ float quad_t(float a, float b, float disc,
                                         bool* near_root) {
+  if (!(disc >= 0.0f)) {
+    *near_root = false;
+    return kMissT;
+  }
   const float sq = disc > 0.0f ? __fsqrt_rn(disc) : 0.0f;
   const float t1 = __fdiv_rn(sub(-b, sq), mul(2.0f, a));
   const float t2 = __fdiv_rn(add(-b, sq), mul(2.0f, a));
@@ -116,25 +151,32 @@ __device__ __forceinline__ float quad_t(float a, float b, float disc,
   return (disc >= 0.0f && t > kEps) ? t : kMissT;
 }
 
-// hit_sphere (common.glsl:513-549); a_dd = d.d.
-__device__ __forceinline__ float sph_t(const Ray& r, const float* row,
-                                       float a_dd) {
+// hit_sphere (common.glsl:513-549): b and the discriminant; a = d.d.
+__device__ __forceinline__ float sph_disc(const Ray& r, const float* row,
+                                          float a_dd, float* b_out) {
   const float rad = ld(row, 3);
   const float ocx = sub(r.ox, ld(row, 0)), ocy = sub(r.oy, ld(row, 1)),
               ocz = sub(r.oz, ld(row, 2));
   const float b = mul(2.0f, dot3(ocx, ocy, ocz, r.dx, r.dy, r.dz));
   const float c = sub(dot3(ocx, ocy, ocz, ocx, ocy, ocz), mul(rad, rad));
-  const float disc = sub(mul(b, b), mul(mul(4.0f, a_dd), c));
+  *b_out = b;
+  return sub(mul(b, b), mul(mul(4.0f, a_dd), c));
+}
+
+__device__ __forceinline__ float sph_t(const Ray& r, const float* row,
+                                       float a_dd) {
+  float b;
+  const float disc = sph_disc(r, row, a_dd, &b);
   bool near_root;
   return quad_t(a_dd, b, disc, &near_root);
 }
 
 // hit_movingSphere (common.glsl:551-605): the shader's quadratic in
-// d1 = center(time+EPS) - center(time) = (c1-c0)*EPS.  `outside` is the
-// near-root flag that selects the normal's centre.
-__device__ __forceinline__ float msph_t(const Ray& r, const float* row,
-                                        float time, float a_dd,
-                                        bool* outside) {
+// d1 = center(time+EPS) - center(time) = (c1-c0)*EPS; returns its
+// discriminant, with a and b.
+__device__ __forceinline__ float msph_disc(const Ray& r, const float* row,
+                                           float time, float a_dd,
+                                           float* a_out, float* b_out) {
   const float bx = ld(row, 3), by = ld(row, 4), bz = ld(row, 5);
   const float rad = ld(row, 6);
   const float c0x = add(ld(row, 0), mul(bx, time));
@@ -150,8 +192,55 @@ __device__ __forceinline__ float msph_t(const Ray& r, const float* row,
   const float b = mul(2.0f, sub(oc_d, mul(oc_d1, dd1)));
   const float c = sub(sub(dot3(ocx, ocy, ocz, ocx, ocy, ocz),
                           mul(oc_d1, oc_d1)), mul(rad, rad));
-  const float disc = sub(mul(b, b), mul(mul(4.0f, a), c));
+  *a_out = a;
+  *b_out = b;
+  return sub(mul(b, b), mul(mul(4.0f, a), c));
+}
+
+// `outside` is the near-root flag that selects the normal's centre.
+__device__ __forceinline__ float msph_t(const Ray& r, const float* row,
+                                        float time, float a_dd,
+                                        bool* outside) {
+  float a, b;
+  const float disc = msph_disc(r, row, time, a_dd, &a, &b);
   return quad_t(a, b, disc, outside);
+}
+
+// U tests of one ray against rows row[u] of one type, written so that
+// their arithmetic can interleave (a lane's fold is a dependent chain, and
+// a warp has few others to hide its latency behind): for (moving)
+// spheres every discriminant first, then the roots of those that are not
+// misses.  out[u]: a moving sphere's near-root flag.
+template <int U>
+__device__ __forceinline__ void tri_t_n(const Ray& r, const float* const* row,
+                                        float* t) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) t[u] = tri_t(r, row[u]);
+}
+
+template <int U>
+__device__ __forceinline__ void sph_t_n(const Ray& r, const float* const* row,
+                                        float a_dd, float* t) {
+  float b[U], disc[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) disc[u] = sph_disc(r, row[u], a_dd, &b[u]);
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    bool near_root;
+    t[u] = quad_t(a_dd, b[u], disc[u], &near_root);
+  }
+}
+
+template <int U>
+__device__ __forceinline__ void msph_t_n(const Ray& r,
+                                         const float* const* row, float time,
+                                         float a_dd, float* t, bool* out) {
+  float a[U], b[U], disc[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    disc[u] = msph_disc(r, row[u], time, a_dd, &a[u], &b[u]);
+#pragma unroll
+  for (int u = 0; u < U; ++u) t[u] = quad_t(a[u], b[u], disc[u], &out[u]);
 }
 
 // (x, y, z) / |(x, y, z)|, a zero vector staying zero (safe_normalize).
@@ -161,6 +250,43 @@ __device__ __forceinline__ void unit_rn(float x, float y, float z, float* n) {
   n[0] = l2 > 1e-20f ? __fdiv_rn(x, len) : 0.0f;
   n[1] = l2 > 1e-20f ? __fdiv_rn(y, len) : 0.0f;
   n[2] = l2 > 1e-20f ? __fdiv_rn(z, len) : 0.0f;
+}
+
+// The winner's unit normal at t (zero when best < 0), as hit_world
+// computes it; out is a moving sphere's near-root flag.
+__device__ void winner_normal(const float* __restrict__ table, int T, int S,
+                              const Ray& r, float time, float bt, int best,
+                              bool best_out, float* n) {
+  n[0] = n[1] = n[2] = 0.0f;
+  if (best < 0) return;
+  const float* row = table + (size_t)best * kRow;
+  if (best < T) {
+    const float e1x = ld(row, 3), e1y = ld(row, 4), e1z = ld(row, 5);
+    const float e2x = ld(row, 6), e2y = ld(row, 7), e2z = ld(row, 8);
+    unit_rn(sub(mul(e1y, e2z), mul(e1z, e2y)),
+            sub(mul(e1z, e2x), mul(e1x, e2z)),
+            sub(mul(e1x, e2y), mul(e1y, e2x)), n);
+    return;
+  }
+  const float px = add(r.ox, mul(r.dx, bt));
+  const float py = add(r.oy, mul(r.dy, bt));
+  const float pz = add(r.oz, mul(r.dz, bt));
+  if (best < T + S) {
+    unit_rn(sub(px, ld(row, 0)), sub(py, ld(row, 1)), sub(pz, ld(row, 2)),
+            n);
+    if (ld(row, 3) < 0.0f) {  // negative radius flips (common.glsl:545)
+      n[0] = -n[0]; n[1] = -n[1]; n[2] = -n[2];
+    }
+    return;
+  }
+  // the moving sphere's centre at `time`, moved by d1 for the far root
+  float c[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    c[k] = add(ld(row, k), mul(ld(row, 3 + k), time));
+    if (!best_out) c[k] = add(c[k], mul(ld(row, 3 + k), kEps));
+  }
+  unit_rn(sub(px, c[0]), sub(py, c[1]), sub(pz, c[2]), n);
 }
 
 // Closest hit over all primitives (strict <, table order).  Returns the
@@ -187,36 +313,7 @@ __device__ int closest_fold(const float* __restrict__ table, int T, int S,
     if (t < bt) { bt = t; best = g; best_out = out; }
   }
   *t_out = bt;
-  n[0] = n[1] = n[2] = 0.0f;
-  if (best < 0) return best;
-  const float* row = table + (size_t)best * kRow;
-  if (best < T) {
-    const float e1x = ld(row, 3), e1y = ld(row, 4), e1z = ld(row, 5);
-    const float e2x = ld(row, 6), e2y = ld(row, 7), e2z = ld(row, 8);
-    unit_rn(sub(mul(e1y, e2z), mul(e1z, e2y)),
-            sub(mul(e1z, e2x), mul(e1x, e2z)),
-            sub(mul(e1x, e2y), mul(e1y, e2x)), n);
-    return best;
-  }
-  const float px = add(r.ox, mul(r.dx, bt));
-  const float py = add(r.oy, mul(r.dy, bt));
-  const float pz = add(r.oz, mul(r.dz, bt));
-  if (best < T + S) {
-    unit_rn(sub(px, ld(row, 0)), sub(py, ld(row, 1)), sub(pz, ld(row, 2)),
-            n);
-    if (ld(row, 3) < 0.0f) {  // negative radius flips (common.glsl:545)
-      n[0] = -n[0]; n[1] = -n[1]; n[2] = -n[2];
-    }
-    return best;
-  }
-  // the moving sphere's centre at `time`, moved by d1 for the far root
-  float c[3];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    c[k] = add(ld(row, k), mul(ld(row, 3 + k), time));
-    if (!best_out) c[k] = add(c[k], mul(ld(row, 3 + k), kEps));
-  }
-  unit_rn(sub(px, c[0]), sub(py, c[1]), sub(pz, c[2]), n);
+  winner_normal(table, T, S, r, time, bt, best, best_out, n);
   return best;
 }
 
@@ -347,27 +444,158 @@ __device__ __forceinline__ float mod1(float x) {
   return (r != 0.0f && r < 0.0f) ? r + 1.0f : r;
 }
 
-__global__ void pt_bounce_kernel(
+// The rows of one round of a thread: g[u] = g + u * G (u < kU) of the
+// type range ending at hi; indices past hi test row hi - 1 again (their
+// results are dropped), so that the kU tests are always there to
+// interleave.
+__device__ __forceinline__ void round_rows(const float* table, int hi, int g,
+                                           int G, const float** row) {
+#pragma unroll
+  for (int u = 0; u < kU; ++u)
+    row[u] = table + (size_t)min(g + u * G, hi - 1) * kRow;
+}
+
+// closest_fold split over the group: each thread folds rows sub, sub + G,
+// ... of each type range in order, kU at a time (strict <), then the
+// group reduces to the serial fold's winner (least t, then least index).
+// Returns its index or -1, its t and its near-root flag.
+__device__ __forceinline__ int closest_group(const float* __restrict__ table,
+                                             int T, int S, int K,
+                                             const drt::Group& grp,
+                                             const Ray& r, float time,
+                                             float* t_out, bool* out_flag) {
+  const float a_dd = dot3(r.dx, r.dy, r.dz, r.dx, r.dy, r.dz);
+  const int G = grp.size, TS = T + S;
+  float bt = kBig;
+  int best = -1, bout = 0;
+  const float* row[kU];
+  float t[kU];
+  for (int g = grp.sub; g < T; g += G * kU) {
+    round_rows(table, T, g, G, row);
+    tri_t_n<kU>(r, row, t);
+#pragma unroll
+    for (int u = 0; u < kU; ++u)
+      if (g + u * G < T && t[u] < bt) { bt = t[u]; best = g + u * G; }
+  }
+  for (int g = T + grp.sub; g < TS; g += G * kU) {
+    round_rows(table, TS, g, G, row);
+    sph_t_n<kU>(r, row, a_dd, t);
+#pragma unroll
+    for (int u = 0; u < kU; ++u)
+      if (g + u * G < TS && t[u] < bt) { bt = t[u]; best = g + u * G; }
+  }
+  for (int g = TS + grp.sub; g < K; g += G * kU) {
+    bool out[kU];
+    round_rows(table, K, g, G, row);
+    msph_t_n<kU>(r, row, time, a_dd, t, out);
+#pragma unroll
+    for (int u = 0; u < kU; ++u)
+      if (g + u * G < K && t[u] < bt) {
+        bt = t[u];
+        best = g + u * G;
+        bout = out[u];
+      }
+  }
+  drt::group_min(grp, bt, best, bout);
+  *t_out = bt;
+  *out_flag = bout != 0;
+  return best;
+}
+
+// Whether any of a round's kU tests (rows g + u * G below hi) is closer
+// than tmax.
+__device__ __forceinline__ bool round_hit(const float* t, int g, int G,
+                                          int hi, float tmax) {
+  bool h = false;
+#pragma unroll
+  for (int u = 0; u < kU; ++u) h = h || (g + u * G < hi && t[u] < tmax);
+  return h;
+}
+
+// any_fold split over the group: after each round of G x kU primitives
+// the group votes, so it stops at the round of the first occluder.
+__device__ __forceinline__ bool any_group(const float* __restrict__ table,
+                                          int T, int S, int K,
+                                          const drt::Group& grp,
+                                          const Ray& r, float tmax) {
+  const float a_dd = dot3(r.dx, r.dy, r.dz, r.dx, r.dy, r.dz);
+  const int G = grp.size, TS = T + S;
+  const float* row[kU];
+  float t[kU];
+  for (int b = 0; b < T; b += G * kU) {
+    round_rows(table, T, b + grp.sub, G, row);
+    tri_t_n<kU>(r, row, t);
+    if (__any_sync(grp.mask, round_hit(t, b + grp.sub, G, T, tmax)))
+      return true;
+  }
+  for (int b = T; b < TS; b += G * kU) {
+    round_rows(table, TS, b + grp.sub, G, row);
+    sph_t_n<kU>(r, row, a_dd, t);
+    if (__any_sync(grp.mask, round_hit(t, b + grp.sub, G, TS, tmax)))
+      return true;
+  }
+  for (int b = TS; b < K; b += G * kU) {
+    bool out[kU];
+    round_rows(table, K, b + grp.sub, G, row);
+    msph_t_n<kU>(r, row, 0.0f, a_dd, t, out);
+    if (__any_sync(grp.mask, round_hit(t, b + grp.sub, G, K, tmax)))
+      return true;
+  }
+  return false;
+}
+
+// Two blocks an SM: ptxas then has up to 128 registers a thread and
+// spills nothing (with no floor it may hold a kernel to 80 and spill in
+// the folds, as K3 measured).
+__global__ void __launch_bounds__(kBounceThreads, 2) pt_bounce_kernel(
     const float* __restrict__ table, const float* __restrict__ mrow, int T,
     int S, int M, const float* __restrict__ plights, int n_pl,
     const float* __restrict__ qlights, int n_ql, float* __restrict__ state,
     const float* __restrict__ uni, int n, int rr, int grad_sky) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  __shared__ int s_lane[kBounceThreads];
+  __shared__ float s_time[kBounceThreads];
+  __shared__ int s_warp[kBounceThreads / 32];
   const size_t N = n;
-  float* st = state + i;  // row k of the lane's state at st[k * N]
-  const float time = st[6 * N];
-  st[6 * N] = 0.0f;  // scattered rays carry time 0 (common.glsl:43-46)
-  if (!(st[13 * N] > 0.0f)) return;  // dead lane: state passes through
+  const int i = blockIdx.x * kBounceThreads + threadIdx.x;
+  bool live = false;
+  float time = 0.0f;
+  if (i < n) {  // one coalesced pass over every lane's time and flag
+    time = state[6 * N + i];
+    state[6 * N + i] = 0.0f;  // scattered rays carry time 0 (common.glsl:43-46)
+    live = state[13 * N + i] > 0.0f;  // a dead lane's state passes through
+  }
+  const int n_live = drt::compact_lanes<kBounceThreads>(live, i, time,
+                                                        s_lane, s_time,
+                                                        s_warp);
+  if (n_live == 0) return;
+  const drt::Group grp = drt::make_group(n_live, kBounceThreads);
+  if (!grp.active) return;  // whole groups: no vote or shuffle misses them
+  // A block whose live lanes fill its threads (G = 1) runs the serial
+  // folds, whose loops the compiler unrolls itself; the others split
+  // theirs over their groups.
+  const bool serial = grp.size == 1;
+  const int K = T + S + M;
+  const bool writer = grp.sub == 0;
+  const int i_lane = s_lane[grp.slot];
+  time = s_time[grp.slot];
+  float* st = state + i_lane;  // row k of the lane's state at st[k * N]
 
   const Ray r{st[0], st[N], st[2 * N], st[3 * N], st[4 * N], st[5 * N]};
   float col[3] = {st[7 * N], st[8 * N], st[9 * N]};
   float thr[3] = {st[10 * N], st[11 * N], st[12 * N]};
 
-  // ---- closest hit ----
+  // ---- closest hit, the winner's normal ----
   float t_hit, nrm[3];
-  const int g = closest_fold(table, T, S, M, r, time, &t_hit, nrm);
+  bool best_out;
+  int g;
+  if (serial) {
+    g = closest_fold(table, T, S, M, r, time, &t_hit, nrm);
+  } else {
+    g = closest_group(table, T, S, K, grp, r, time, &t_hit, &best_out);
+    winner_normal(table, T, S, r, time, t_hit, g, best_out, nrm);
+  }
   if (g < 0) {
+    if (!writer) return;
     // miss (P3D_RT.glsl:659-672): the path ends here
     if (grad_sky) {
       const float tsky = fminf(fmaxf(0.8f * (r.dy + 1.0f), 0.0f), 1.0f);
@@ -425,10 +653,13 @@ __global__ void pt_bounce_kernel(
     const float dist =
         sqrtf(fmaxf(l[0] * l[0] + l[1] * l[1] + l[2] * l[2], 1e-24f));
     l[0] = l[0] / dist; l[1] = l[1] / dist; l[2] = l[2] / dist;
-    if (!(nv[0] * l[0] + nv[1] * l[1] + nv[2] * l[2] > 0.0f)) continue;
+    const bool facing = nv[0] * l[0] + nv[1] * l[1] + nv[2] * l[2] > 0.0f;
     const Ray s{p[0] + nv[0] * kEps, p[1] + nv[1] * kEps,
                 p[2] + nv[2] * kEps, l[0], l[1], l[2]};
-    if (any_fold(table, T, S, M, s, 0.0f, dist - 1e-3f)) continue;
+    if (!facing || (serial ? any_fold(table, T, S, M, s, 0.0f, dist - 1e-3f)
+                           : any_group(table, T, S, K, grp, s,
+                                       dist - 1e-3f)))
+      continue;
     const float lcol[3] = {ld(L, 3), ld(L, 4), ld(L, 5)};
     light_add(col, thr, m, nv, l, v, v, lcol);
   }
@@ -439,8 +670,8 @@ __global__ void pt_bounce_kernel(
   const float gview[3] = {-v[0], -v[1], -v[2]};
   for (int j = 0; j < n_ql; ++j) {
     const float* Q = qlights + (size_t)j * 12;
-    const float u1 = uni[(8 + 2 * j) * N + i];
-    const float u2 = uni[(9 + 2 * j) * N + i];
+    const float u1 = uni[(8 + 2 * j) * N + i_lane];
+    const float u2 = uni[(9 + 2 * j) * N + i_lane];
     float l[3];
 #pragma unroll
     for (int k = 0; k < 3; ++k)
@@ -452,14 +683,16 @@ __global__ void pt_bounce_kernel(
   }
 
   // ---- scatter (common.glsl:300-407) ----
-  const float uch = uni[i];
+  const float uch = uni[i_lane];
   const bool outside = (r.dx * nv[0] + r.dy * nv[1] + r.dz * nv[2]) < 0.0f;
   const float sgn = outside ? 1.0f : -1.0f;
   const float Nn[3] = {nv[0] * sgn, nv[1] * sgn, nv[2] * sgn};
   float ua[3], sb[3];
-  unit_sphere(uni[N + i], uni[2 * N + i], uni[3 * N + i], ua);
+  unit_sphere(uni[N + i_lane], uni[2 * N + i_lane], uni[3 * N + i_lane],
+              ua);
   norm3(ua[0], ua[1], ua[2]);
-  unit_sphere(uni[4 * N + i], uni[5 * N + i], uni[6 * N + i], sb);
+  unit_sphere(uni[4 * N + i_lane], uni[5 * N + i_lane], uni[6 * N + i_lane],
+              sb);
 
   const bool is_dif = m.typ == kDiffuse, is_met = m.typ == kMetal;
   const bool is_die = m.typ == kDielectric;
@@ -549,6 +782,7 @@ __global__ void pt_bounce_kernel(
     }
   }
 
+  if (!writer) return;
   bool alive2 = ok;
   if (!ok) {
     // no-scatter absorbed: col += thr * emissive (P3D_RT.glsl:641-645)
@@ -559,7 +793,7 @@ __global__ void pt_bounce_kernel(
     for (int k = 0; k < 3; ++k) thr[k] = thr[k] * atten[k];
     if (rr) {  // Russian roulette (P3D_RT.glsl:651-656)
       const float pmax = fmaxf(thr[0], fmaxf(thr[1], thr[2]));
-      if (uni[7 * N + i] > pmax) {
+      if (uni[7 * N + i_lane] > pmax) {
         alive2 = false;
       } else {
         const float boost = 1.0f / fmaxf(pmax, 1e-12f);
@@ -621,7 +855,8 @@ extern "C" int drt_pt_bounce(const void* table, const void* mrow, int T,
                              const void* uni, int n, int rr, int grad_sky,
                              void* stream) {
   if (n > 0) {
-    pt_bounce_kernel<<<blocks_for(n), kThreads, 0,
+    pt_bounce_kernel<<<(n + kBounceThreads - 1) / kBounceThreads,
+                       kBounceThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(table), static_cast<const float*>(mrow), T,
         S, M, static_cast<const float*>(plights), n_pl,

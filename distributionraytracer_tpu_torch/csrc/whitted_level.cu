@@ -15,14 +15,31 @@
 // the grid drops the record; the winner's material and normal are kept as
 // the fold found them); the occluder compare is a strict t < dist with no
 // self-exclusion, and a shadow ray whose slab init fails is shadowed.
-// Bound: FP32 ALU, rays x objects x (1 + lights) primitive tests per
-// level.  Memory traffic is 11 input and 4 or 29 output f32 streams per
-// lane; the tables are warp-uniform broadcast reads through __ldg.
-// Design: one thread per lane.  The material fetch happens once after the
-// fold (same values as carrying them through it).  Lanes with valid == 0
-// write zeros to every output; shadow folds run only for hit lanes and
-// stop at the first occluder.  These skips are exact: the Pallas kernel
-// masks the same lanes' results.
+// Bound on this card: the latency of each lane's folds, a dependent chain
+// of ~100 uncontracted tests x (1 + lights) with IEEE sqrt and divisions
+// in it, with too few warps to hide it; rays x objects x (1 + lights)
+// tests per level at the FP32 peak take a fraction of the time.  Memory
+// traffic is 11 input and 4 or 29 output f32 streams per lane.  What held
+// the first version (one thread per lane, 128 a block) back, and what
+// this design does about it (lanes.cuh):
+//   - divergence on invalid lanes: level L holds tile x 2^L lanes, of which
+//     4-23% are valid past level 0, and a warp with one valid lane paid
+//     that lane's whole fold.  A block of kThreads lanes compacts its
+//     valid lanes; invalid lanes write their zero rows in one coalesced
+//     pass first, and warps with no valid lane leave;
+//   - a block whose valid lanes fill its threads (G = 1) runs the serial
+//     folds (primitives.cuh); a block with fewer splits each valid lane's
+//     folds over a group of G = 2..32 threads, each testing every G-th
+//     object, kU at a time written so that their arithmetic interleaves;
+//     the closest hit is a shuffle reduction (least t, then least index:
+//     the serial fold's winner), the shadow folds vote after each round
+//     and stop at the first occluder's round;
+//   - the IEEE root of every missed sphere: sphere_t returns on a negative
+//     (or NaN) discriminant before its sqrt and divisions;
+//   - the winner's normal (a sqrt and three divisions) is computed once,
+//     after the fold.
+// Each of these is exact: the results equal the first version's.
+// PERF.md records what each point bought on the card.
 //
 // Layouts (all contiguous):
 //   table (O,12) f32, types (O,) i32, mrow (O,13) f32
@@ -32,11 +49,13 @@
 //   rays (11,R) f32 rows ox oy oz dx dy dz time ior lsx lsy valid;
 //   out (4,R) or (29,R) f32, in the order of fused_level's outputs.
 
+#include "lanes.cuh"
 #include "primitives.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = drt::kLaneBlock;  // threads, and lanes, a block
+constexpr int kU = drt::kUnroll;  // objects a thread tests side by side
 constexpr int kMatWidth = 13;
 constexpr float kOffset = 1e-4f;  // secondary/shadow ray offset (main.cpp:378)
 
@@ -65,33 +84,129 @@ __device__ __forceinline__ bool grid_slab(const float* gbox,
   return !(t0 > te || te < 0.0f);
 }
 
-__global__ void whitted_level_kernel(
+// Objects g + u * G (u < kU) of the table; indices past n_obj test object
+// n_obj - 1 again (their results are dropped), so that the kU tests are
+// always there to interleave.
+__device__ __forceinline__ void test_round(const float* __restrict__ table,
+                                           const int* __restrict__ types,
+                                           int n_obj, int g, int G,
+                                           const drt::Ray& r, float time,
+                                           bool mb, float* t) {
+  int typ[kU];
+  const float* row[kU];
+#pragma unroll
+  for (int u = 0; u < kU; ++u) {
+    const int k = min(g + u * G, n_obj - 1);
+    typ[u] = __ldg(types + k);
+    row[u] = table + (size_t)k * drt::kRowWidth;
+  }
+  drt::prim_t_n<true, kU>(typ, row, r, time, mb, t);
+}
+
+// The closest hit split over the group: each thread folds objects sub,
+// sub + G, ... in order, kU at a time (strict <), then the group reduces
+// to the serial fold's winner.  Returns its id or -1, and its t.
+__device__ __forceinline__ int closest_group(const float* __restrict__ table,
+                                             const int* __restrict__ types,
+                                             int n_obj, const drt::Group& grp,
+                                             const drt::Ray& r, float time,
+                                             bool mb, float* t_out) {
+  float bt = drt::kFltMax;
+  int best = -1, unused = 0;
+  const int G = grp.size;
+  for (int g = grp.sub; g < n_obj; g += G * kU) {
+    float t[kU];
+    test_round(table, types, n_obj, g, G, r, time, mb, t);
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      if (g + u * G < n_obj && t[u] < bt) {
+        bt = t[u];
+        best = g + u * G;
+      }
+    }
+  }
+  drt::group_min(grp, bt, best, unused);
+  *t_out = bt;
+  return best;
+}
+
+// Whether an object occludes the shadow ray (time 0), split over the
+// group: after each round of G x kU objects the group votes, so it stops
+// at the round of the first occluder.
+__device__ __forceinline__ bool any_group(const float* __restrict__ table,
+                                          const int* __restrict__ types,
+                                          int n_obj, const drt::Group& grp,
+                                          const drt::Ray& r, float dist,
+                                          int excl, int mode, bool mb) {
+  const int G = grp.size;
+  for (int b = 0; b < n_obj; b += G * kU) {
+    const int g = b + grp.sub;
+    float t[kU];
+    test_round(table, types, n_obj, g, G, r, 0.0f, mb, t);
+    bool h = false;
+#pragma unroll
+    for (int u = 0; u < kU; ++u)
+      h = h || (g + u * G < n_obj &&
+                drt::occludes(t[u], dist, g + u * G, excl, mode));
+    if (__any_sync(grp.mask, h)) return true;
+  }
+  return false;
+}
+
+// Two blocks an SM: ptxas then has up to 128 registers a thread and
+// spills nothing (with no floor it holds this kernel to 80 and spills in
+// the folds).
+__global__ void __launch_bounds__(kThreads, 2) whitted_level_kernel(
     const float* __restrict__ table, const int* __restrict__ types,
     const float* __restrict__ mrow, int n_obj,
     const float* __restrict__ lights, const int* __restrict__ light_quad,
     int n_lights, const float* __restrict__ gbox,
     const float* __restrict__ rays, int n, int motion_blur, int spawn,
     int ref_shadow, float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  __shared__ int s_lane[kThreads];
+  __shared__ int s_warp[kThreads / 32];
   const size_t N = n;
   const int n_out = spawn ? 29 : 4;
-  if (rays[10 * N + i] == 0.0f) {
-    for (int k = 0; k < n_out; ++k) out[k * N + i] = 0.0f;
-    return;
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  bool valid = false;
+  if (i < n) {
+    valid = !(rays[10 * N + i] == 0.0f);
+    if (!valid)  // one coalesced pass of zero rows
+      for (int k = 0; k < n_out; ++k) out[k * N + i] = 0.0f;
   }
-  const drt::Ray r{rays[i], rays[N + i], rays[2 * N + i],
-                   rays[3 * N + i], rays[4 * N + i], rays[5 * N + i]};
-  const float time = rays[6 * N + i];
-  const float ior1 = rays[7 * N + i];
-  const float lsx = rays[8 * N + i];
-  const float lsy = rays[9 * N + i];
+  const int live = drt::compact_lanes<kThreads>(valid, i, 0.0f, s_lane,
+                                                nullptr, s_warp);
+  if (live == 0) return;
+  const drt::Group grp = drt::make_group(live, kThreads);
+  if (!grp.active) return;  // whole groups: no vote or shuffle misses them
+  // A block whose valid lanes fill its threads (G = 1) runs the serial
+  // folds (primitives.cuh), whose loop the compiler unrolls itself; the
+  // others split theirs over their groups.
+  const bool serial = grp.size == 1;
+  const bool writer = grp.sub == 0;
+  const bool mb = motion_blur != 0;
+  const int lane = s_lane[grp.slot];
+  const drt::Ray r{rays[lane], rays[N + lane], rays[2 * N + lane],
+                   rays[3 * N + lane], rays[4 * N + lane],
+                   rays[5 * N + lane]};
+  const float time = rays[6 * N + lane];
+  const float ior1 = rays[7 * N + lane];
+  const float lsx = rays[8 * N + lane];
+  const float lsy = rays[9 * N + lane];
 
-  // ---- closest hit and the winner's material ----
+  // ---- closest hit, the winner's normal and material ----
   float t_hit;
-  float nrm[3];
-  const int gid = drt::closest_fold(table, types, n_obj, r, time,
-                                    motion_blur != 0, &t_hit, nrm);
+  float nrm[3] = {0.0f, 0.0f, 0.0f};
+  int gid;
+  if (serial) {
+    gid = drt::closest_fold(table, types, n_obj, r, time, mb, &t_hit, nrm);
+  } else {
+    gid = closest_group(table, types, n_obj, grp, r, time, mb, &t_hit);
+    if (gid >= 0)
+      drt::prim_normal(__ldg(types + gid), r,
+                       table + (size_t)gid * drt::kRowWidth, t_hit, time, mb,
+                       nrm);
+  }
   bool hit = gid >= 0;
   if (gbox != nullptr) {
     float t1;
@@ -122,8 +237,7 @@ __global__ void whitted_level_kernel(
   // ---- direct lighting (main.cpp:383-451) ----
   float direct[3] = {0.0f, 0.0f, 0.0f};
   float llx = 0.0f, lly = 0.0f, llz = 0.0f;
-  const drt::Ray shadow_base{px + Nx * kOffset, py + Ny * kOffset,
-                             pz + Nz * kOffset, 0.0f, 0.0f, 0.0f};
+  const int mode = gbox == nullptr ? drt::kModeNone : drt::kModeGrid;
   for (int j = 0; j < n_lights; ++j) {
     const float* L = lights + (size_t)j * 9;
     float lpx = __ldg(L + 0), lpy = __ldg(L + 1), lpz = __ldg(L + 2);
@@ -142,31 +256,32 @@ __global__ void whitted_level_kernel(
     norm3(hx, hy, hz);
     const float ndl = fmaxf(Nx * lx + Ny * ly + Nz * lz, 0.0f);
     const float ndh = fmaxf(Nx * hx + Ny * hy + Nz * hz, 0.0f);
-    const float spec = powf(fmaxf(ndh, 1e-12f), shine);
-    if (!hit) continue;
-    drt::Ray s = shadow_base;
-    s.dx = lx; s.dy = ly; s.dz = lz;
-    const float sdist = ref_shadow ? 1.0f : dist_true;
-    bool shadowed;
-    if (gbox == nullptr) {
-      shadowed = drt::any_fold(table, types, n_obj, s, sdist, gid,
-                               drt::kModeNone, motion_blur != 0);
-    } else {
+    const drt::Ray sray{px + Nx * kOffset, py + Ny * kOffset,
+                        pz + Nz * kOffset, lx, ly, lz};
+    // grid mode: a shadow ray whose slab init fails is shadowed untested
+    bool want = hit;
+    if (hit && gbox != nullptr) {
       float t_exit;
-      shadowed = !grid_slab(gbox, s, &t_exit) ||
-                 drt::any_fold(table, types, n_obj, s, sdist, gid,
-                               drt::kModeGrid, motion_blur != 0);
+      want = grid_slab(gbox, sray, &t_exit);
     }
-    if (shadowed) continue;
+    const float sdist = ref_shadow ? 1.0f : dist_true;
+    if (!want ||
+        (serial ? drt::any_fold(table, types, n_obj, sray, sdist, gid, mode,
+                                mb)
+                : any_group(table, types, n_obj, grp, sray, sdist, gid, mode,
+                            mb)))
+      continue;
+    const float spec = powf(fmaxf(ndh, 1e-12f), shine);
 #pragma unroll
     for (int k = 0; k < 3; ++k)
       direct[k] += m[k] * (kd * ndl) + m[3 + k] * (ks * spec);
   }
+  if (!writer) return;
 
-  out[i] = direct[0];
-  out[N + i] = direct[1];
-  out[2 * N + i] = direct[2];
-  out[3 * N + i] = hit ? 1.0f : 0.0f;
+  out[lane] = direct[0];
+  out[N + lane] = direct[1];
+  out[2 * N + lane] = direct[2];
+  out[3 * N + lane] = hit ? 1.0f : 0.0f;
   if (!spawn) return;
 
   // ---- children (main.cpp:456-518) ----
@@ -203,7 +318,7 @@ __global__ void whitted_level_kernel(
   const bool refl_gate = (flx * Nx + fly * Ny + flz * Nz) > 0.0f;
   const bool do_refl = hit && ks > 0.0f && refl_gate;
 
-  float* o = out + 4 * N + i;
+  float* o = out + 4 * N + lane;
   o[0] = do_refr ? 1.0f : 0.0f;
   o[1 * N] = px - Nx * kOffset;
   o[2 * N] = py - Ny * kOffset;
@@ -251,8 +366,7 @@ extern "C" int drt_whitted_level(const void* table, const void* types,
         static_cast<const float*>(lights),
         static_cast<const int*>(light_quad), n_lights,
         static_cast<const float*>(gbox), static_cast<const float*>(rays), n,
-        motion_blur, spawn, ref_shadow,
-        static_cast<float*>(out));
+        motion_blur, spawn, ref_shadow, static_cast<float*>(out));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -33,9 +33,12 @@ from distributionraytracer_tpu_torch.scene import (
     SCENE_BUILDERS, SceneBuilder, create_random_scene,
 )
 
+from distributionraytracer_tpu_torch.scene import pt_scenes as PS
+
 from torch_scenes import (
     compare_levels, crowd_scene, level_inputs, occlusion_inputs, prim_scene,
-    PT_PRIM_LEAVES, PT_VIEWS, pt_rays, random_rays, synthetic_faces,
+    PT_PRIM_LEAVES, PT_VIEWS, pt_crowd_leaves, pt_rays, pt_tie_leaves,
+    random_rays, synthetic_faces,
 )
 
 torch.set_num_threads(1)
@@ -181,6 +184,93 @@ def test_kernels_take_scenes_past_1024_objects(dev):
     assert _mismatch(ref.obj_id, h.obj_id) <= BUDGET
 
 
+# --------------------------- K3's compacted lanes, ties and large tables
+def _level_vs_plain(scene, cfg, args, spawn, grid_bbox=None):
+    ref = CW.fused_level_plain(scene, cfg, *args, spawn=spawn,
+                               grid_bbox=grid_bbox)
+    res = CW.fused_level_kernel(scene, cfg, *args, spawn=spawn,
+                                grid_bbox=grid_bbox)
+    torch.cuda.synchronize()
+    ref = {k: v.cpu().numpy() for k, v in ref.items()}
+    compare_levels(ref, res, args[-1].cpu().numpy(), lane_budget=BUDGET)
+
+
+def _scene_box(scene):
+    """A grid box around the scene's bounded objects, for K3's grid mode
+    on an accel-NONE scene."""
+    return (np.array([-5, -2, -5], np.float32),
+            np.array([5, 3, 5], np.float32))
+
+
+@pytest.mark.parametrize("kind", ["prim", "crowd"])
+@pytest.mark.parametrize("grid", [False, True], ids=["none", "grid"])
+def test_fused_level_kernel_sparse_valid_lanes(dev, kind, grid):
+    """K3 where 3% of the lanes are valid, scattered (the deep levels'
+    shape), spawn on and off, in both modes: on the four-primitive scene
+    and on the 1,100-object scene."""
+    builder = prim_scene if kind == "prim" else crowd_scene
+    scene = builder(SceneBuilder).to(dev)
+    cfg = RenderConfig(motion_blur=True)
+    o, d, t, ior, ls, _ = _cuda(dev, *level_inputs(N, seed=50))
+    valid = torch.from_numpy(np.random.default_rng(51).random(N) < 0.03)
+    valid = valid.to(dev)
+    assert 0.02 < float(valid.float().mean()) < 0.04
+    gb = _scene_box(scene) if grid else None
+    for spawn in (True, False):
+        _level_vs_plain(scene, cfg, [o, d, t, ior, ls, valid], spawn, gb)
+
+
+def test_fused_level_kernel_large_table_all_lanes(dev):
+    """K3 on every lane of the 1,100-object scene, both modes and both
+    shadow modes, with the fused-level budgets."""
+    scene = crowd_scene(SceneBuilder).to(dev)
+    args = _cuda(dev, *level_inputs(N, seed=54))
+    args[-1] = torch.ones_like(args[-1])
+    for gb in (None, _scene_box(scene)):
+        for mode in ("reference", "correct"):
+            _level_vs_plain(scene, RenderConfig(shadow_mode=mode), args,
+                            True, gb)
+
+
+def test_fused_level_kernel_no_valid_lane(dev):
+    """K3 with no valid lane writes zero to every output row of every
+    lane (the output starts as NaN)."""
+    scene = prim_scene(SceneBuilder).to(dev)
+    o, d, t, ior, ls, _ = _cuda(dev, *level_inputs(N, seed=52))
+    tb = CW.level_tables(scene)
+    rays = CI.ray_streams(N, o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1],
+                          d[:, 2], t, ior, ls[:, 0], ls[:, 1],
+                          torch.zeros(N, device=dev))
+    for spawn, rows in ((True, 29), (False, 4)):
+        out = torch.full((rows, N), float("nan"), device=dev)
+        CW.launch_level(tb, scene.static.n_objects, rays, RenderConfig(),
+                        spawn, out)
+        torch.cuda.synchronize()
+        assert bool((out == 0).all())
+
+
+@pytest.mark.parametrize("grid", [False, True], ids=["none", "grid"])
+def test_level_and_closest_kernels_ties_take_lower_id(dev, grid):
+    """Every sphere and triangle listed twice, the copies later and in
+    other materials: K3 equals its plain version (a copy's material would
+    show in the colour and the children), and K1 never returns a copy's
+    id, which would be a tie won by the higher id."""
+    scene = prim_scene(SceneBuilder, ties=True).to(dev)
+    args = _cuda(dev, *level_inputs(N, seed=53))
+    _level_vs_plain(scene, RenderConfig(), args, True,
+                    _scene_box(scene) if grid else None)
+    o, d, t = args[:3]
+    ref = closest_hit_brute(scene, o, d, t, False)
+    h = CI.closest_hit_kernel(scene, o, d, t, False)
+    torch.cuda.synchronize()
+    tied = torch.isin(ref.obj_id, torch.tensor([0, 2, 4, 5], device=dev))
+    assert float(tied.float().mean()) > 0.03
+    copies = torch.tensor([8, 9, 10, 11], device=dev)
+    assert not bool(torch.isin(h.obj_id, copies).any())
+    assert _mismatch(ref.obj_id, h.obj_id) <= BUDGET
+    assert _mismatch(ref.mat_id[ref.hit], h.mat_id[ref.hit]) <= BUDGET
+
+
 # ---------------------------------------------------------- path tracer
 def _pt_scene(dev, si):
     args = () if si == 0 else synthetic_faces(si)
@@ -249,6 +339,51 @@ def test_pt_bounce_kernel_matches_plain(dev, si):
             assert float(_bounce_lanes_off(ref, got).float().mean()) <= \
                 BUDGET
         CP.pt_bounce_plain(scene, state, uni, True)
+
+
+def _pt_variant(dev, kind):
+    """Scene 0, as it is, with every triangle and sphere listed twice
+    (``ties``), or with 1,000 small spheres (``crowd``)."""
+    base = _pt_scene(dev, 0)
+    if kind == "scene0":
+        return base
+    leaves = {n: getattr(base, n).cpu().numpy() for n in PS.PTScene._LEAVES}
+    fn = pt_tie_leaves if kind == "ties" else pt_crowd_leaves
+    return PS.pt_scene_from_numpy(fn(leaves), base.sky_mode).to(dev)
+
+
+@pytest.mark.parametrize("kind", ["scene0", "ties", "crowd"])
+def test_pt_bounce_kernel_sparse_live_lanes(dev, kind):
+    """K6 against its plain version with every path alive, with 3% alive
+    (scattered: the late bounces' shape), and with none (the state passes
+    through with its time cleared), on scene 0, on scene 0 with tied
+    copies (the lower index's material must win; K4's materials too) and
+    on 1,000 small spheres (a table ten times scene 0's)."""
+    scene = _pt_variant(dev, kind)
+    o, d, tm = _cuda(dev, *pt_rays(N, 60, *PT_VIEWS[0]))
+    g = torch.Generator(device=dev).manual_seed(60)
+    u = PT.draw_uniforms(scene, N, g, dev)
+    uni = CP.bounce_streams(u.uch, u.u3a, u.u3b, u.urr, u.uq,
+                            scene.qlight_pos.shape[0])
+    state = CP.bounce_state(o, d, tm)
+    for share in (1.0, 0.03, 0.0):
+        st = state.clone()
+        st[CP.ST_ALIVE] = (torch.rand(N, generator=g, device=dev)
+                           < share).float()
+        got = CP.pt_bounce_kernel(scene, st.clone(), uni, True)
+        ref = CP.pt_bounce_plain(scene, st.clone(), uni, True)
+        torch.cuda.synchronize()
+        assert float(_bounce_lanes_off(ref, got).float().mean()) <= BUDGET
+        if share == 0.0:
+            st[CP.ST_TIME] = 0.0
+            assert torch.equal(got, st)
+    if kind == "ties":
+        ref = PT.hit_world(scene, o, d, tm)
+        h = CP.pt_closest_kernel(scene, o, d, tm)
+        torch.cuda.synchronize()
+        assert float(ref.hit.float().mean()) > 0.3
+        same = (ref.hit == h.hit) & (~ref.hit | (ref.mat == h.mat))
+        assert float((~same).float().mean()) <= BUDGET
 
 
 @pytest.mark.parametrize("si", [0, 3])

@@ -22,7 +22,9 @@ from distributionraytracer_tpu_torch.ops import cuda_pt as CP
 from distributionraytracer_tpu_torch.scene import pt_scenes as PS
 from distributionraytracer_tpu_torch.utils.image import read_png
 
-from torch_scenes import PT_PRIM_LEAVES, PT_VIEWS, pt_rays, synthetic_faces
+from torch_scenes import (
+    PT_PRIM_LEAVES, PT_VIEWS, pt_rays, pt_tie_leaves, synthetic_faces,
+)
 
 torch.set_num_threads(1)
 
@@ -132,7 +134,31 @@ def test_pt_bounce_plain_matches_jax_kernel(si):
     mode, on a state whose first half is camera rays and whose second half
     is one bounce on (alive and dead paths, colour, throughput and latched
     misses).  Scene 1 has the quad light and the latched cubemap miss."""
-    js, ps = scenes(si)
+    _bounce_vs_jax(*scenes(si), si)
+
+
+def test_pt_bounce_plain_ties_match_jax():
+    """As above on scene 0 with every triangle and sphere listed twice,
+    the copies later and in the next material: the plain K6 agrees with
+    JAX ``pt_bounce`` in interpret mode, and every tie in t goes to the
+    lower index (the rule the kernel's group reduction reproduces): the
+    closest hit's material and t equal those without the copies."""
+    js0, ps0 = scenes(0)
+    leaves = pt_tie_leaves({n: np.asarray(getattr(js0, n))
+                            for n in PS.PTScene._LEAVES})
+    js = jax.device_put(dataclasses.replace(
+        js0, **{n: jnp.asarray(v) for n, v in leaves.items()}))
+    ps = PS.pt_scene_from_numpy(leaves, js0.sky_mode)
+    assert ps.sph_center.shape[0] == 2 * ps0.sph_center.shape[0]
+    _bounce_vs_jax(js, ps, 0)
+    o, d, tm = (t(a) for a in pt_rays(512, 5, *PT_VIEWS[0]))
+    h, h0 = PT.hit_world(ps, o, d, tm), PT.hit_world(ps0, o, d, tm)
+    assert torch.equal(h.hit, h0.hit) and torch.equal(h.t, h0.t)
+    assert torch.equal(h.mat[h.hit], h0.mat[h0.hit])
+    assert float(h.hit.float().mean()) > 0.3
+
+
+def _bounce_vs_jax(js, ps, si):
     R, h = 96, 48
     o, d, tm = pt_rays(R, 3 + si, *PT_VIEWS[si])
     n_ql = ps.qlight_pos.shape[0]

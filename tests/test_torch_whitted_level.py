@@ -10,6 +10,7 @@ from distributionraytracer_tpu.config import RenderConfig as JaxConfig
 from distributionraytracer_tpu.ops import pallas_whitted as PW
 from distributionraytracer_tpu_torch.config import RenderConfig
 from distributionraytracer_tpu_torch.ops import cuda_whitted as CW
+from distributionraytracer_tpu_torch.ops.intersect import closest_hit_brute
 
 from torch_port_util import prim_scene, to_port
 from torch_scenes import compare_levels, level_inputs
@@ -38,6 +39,30 @@ def test_fused_level_plain_matches_jax(spawn, shadow_mode, mb):
         assert res["refr_valid"].numpy().any()
         assert res["refl_valid"].numpy().any()
     compare_levels(ref, res, valid)
+
+
+def test_fused_level_plain_ties_match_jax():
+    """On a scene whose spheres and triangles are each listed twice, the
+    copies later and in other materials, the plain K3 and JAX
+    ``fused_level`` in interpret mode agree, and every tie in t goes to the
+    lower object id (the rule the kernels' group reduction reproduces):
+    ids and materials equal those on the scene without the copies."""
+    scene = prim_scene(ties=True)
+    o, d, t, ior, ls, valid = level_inputs(512, seed=13)
+    ref = PW.fused_level(scene.device_put(), JaxConfig(), o, d, t, ior, ls,
+                         valid, spawn=True, interpret=True)
+    tt = torch.from_numpy
+    port = to_port(scene)
+    res = CW.fused_level_plain(port, RenderConfig(), tt(o), tt(d), tt(t),
+                               tt(ior), tt(ls), tt(valid), spawn=True)
+    compare_levels(ref, res, valid)
+    h = closest_hit_brute(port, tt(o), tt(d), tt(t), False)
+    h0 = closest_hit_brute(to_port(prim_scene()), tt(o), tt(d), tt(t), False)
+    assert torch.equal(h.obj_id, h0.obj_id)
+    assert torch.equal(h.mat_id, h0.mat_id)
+    # the spheres (ids 0, 4) and triangles (2, 5) that have copies
+    tied = np.isin(h.obj_id.numpy(), [0, 2, 4, 5])
+    assert tied[valid].sum() >= 20
 
 
 def test_pack_whitted_mats_equal_jax():

@@ -40,6 +40,6 @@ def torch_samples(samples) -> TorchSampleSet:
                           t(samples.lens), t(samples.time))
 
 
-def prim_scene():
+def prim_scene(ties=False):
     """``torch_scenes.prim_scene`` built by the JAX package."""
-    return torch_scenes.prim_scene(jax_builder.SceneBuilder)
+    return torch_scenes.prim_scene(jax_builder.SceneBuilder, ties=ties)

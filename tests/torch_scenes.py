@@ -14,23 +14,36 @@ def random_rays(n, seed=0, spread=3.0):
     return o, d, t
 
 
-def prim_scene(builder_cls):
+def prim_scene(builder_cls, ties=False):
     """Every primitive type, interleaved in insertion order; glass, metal
     and diffuse materials; one point and one quad light.  ``builder_cls``
-    is either package's SceneBuilder, so both build the same scene."""
+    is either package's SceneBuilder, so both build the same scene.
+
+    ``ties``: each sphere and triangle is added a second time, after all
+    the others and in another material, so every hit on one is an exact
+    tie in t that the lower object id must win (its id and material)."""
     b = builder_cls()
     b.set_camera([0, 1, 6], [0, 0, 0], [0, 1, 0], 45, 0.01, 16, 12, 0, 1)
     m0 = b.add_material([0.6, 0.6, 0.2], 0.8, [0.2, 0.2, 0.2], 0.0, 10, 0, 1)
     m1 = b.add_material([0.1, 0.9, 0.2], 0.0, [1, 1, 1], 0.5, 30, 1, 1.5)
     m2 = b.add_material([0.9, 0.1, 0.1], 0.9, [1, 1, 1], 0.3, 50, 0, 1)
-    b.add_sphere([-0.8, 0, 0], 0.8, m2)
+    spheres = (([-0.8, 0, 0], 0.8, m2), ([0.5, 1.5, -1], 0.6, m1))
+    tris = (([0, 0, 0], [1.5, 0, 0], [0, 1.5, 0.5], m1),
+            ([-2, -1, -2], [2, -1, -2], [0, 2, -2], m0))
+    b.add_sphere(*spheres[0])
     b.add_plane_hessian([0, 1, 0], 1.0, m0)
-    b.add_triangle([0, 0, 0], [1.5, 0, 0], [0, 1.5, 0.5], m1)
+    b.add_triangle(*tris[0])
     b.add_box([1, -1, -1], [2, 0.5, 0], m2)
-    b.add_sphere([0.5, 1.5, -1], 0.6, m1)
-    b.add_triangle([-2, -1, -2], [2, -1, -2], [0, 2, -2], m0)
+    b.add_sphere(*spheres[1])
+    b.add_triangle(*tris[1])
     b.add_box([-2.5, -0.5, 1], [-1.5, 0.5, 2], m1)
     b.add_plane_hessian([0, 0, 1], 4.0, m2)
+    if ties:
+        other = {m0: m1, m1: m2, m2: m0}
+        for c, r, m in spheres:
+            b.add_sphere(c, r, other[m])
+        for v0, v1, v2, m in tris:
+            b.add_triangle(v0, v1, v2, other[m])
     b.add_point_light([2, 4, 2], [1, 1, 1])
     b.add_quad_light([-2, 4, 2], [1, 1, 1], [-1, 4, 2], [-2, 4, 3], 4)
     return b.build()
@@ -227,6 +240,36 @@ PT_VIEWS = {
     3: ([0, -3, -4], (-8, -12, 15), (8, 6, 25)),
     4: ([0, -1, -2], (-8, -9, 16), (8, 2, 24)),
 }
+
+
+def pt_tie_leaves(leaves):
+    """A path-tracer scene's numpy leaves with every triangle and sphere
+    listed a second time, after the originals and in the next material:
+    every hit on one is an exact tie in t that the lower index (the
+    original, with its material) must win."""
+    out = dict(leaves)
+    n_mat = leaves["mat_type"].shape[0]
+    for pre in ("tri_", "sph_"):
+        for k in [k for k in leaves if k.startswith(pre)]:
+            v = leaves[k]
+            copy = (v + 1) % n_mat if k.endswith("_mat") else v
+            out[k] = np.concatenate([v, copy.astype(v.dtype)])
+    return out
+
+
+def pt_crowd_leaves(leaves, n=1000, seed=9):
+    """A path-tracer scene's numpy leaves with its spheres copied, jittered
+    and shrunk to ``n`` spheres: a primitive table ten times scene 0's."""
+    rng = np.random.default_rng(seed)
+    out = dict(leaves)
+    S = leaves["sph_center"].shape[0]
+    pick = rng.integers(0, S, n)
+    out["sph_center"] = (leaves["sph_center"][pick] + rng.uniform(
+        -2, 2, (n, 3))).astype(leaves["sph_center"].dtype)
+    out["sph_radius"] = (leaves["sph_radius"][pick] * 0.3).astype(
+        leaves["sph_radius"].dtype)
+    out["sph_mat"] = leaves["sph_mat"][pick]
+    return out
 
 
 def pt_rays(n, seed, eye, lo=(-3, 0, -3), hi=(3, 2, 3)):
