@@ -6,8 +6,8 @@
 1. Prints the card's name and power limit; exits non-zero without CUDA.
 2. Builds the kernels from ``distributionraytracer_tpu_torch/csrc`` with
    nvcc (``ops/build.py``) and prints the build time and ptxas's register
-   and spill report (K3's and K6's registers, shared memory and spills on
-   a line of their own).
+   and spill report (K3's, K6's and the four K7/K8 walks' registers,
+   shared memory and spills on lines of their own).
 3. Holds each Whitted kernel against its plain torch version on the card,
    on 65,536 random rays against a scene with all four primitive types, a
    quad light and a point light:
@@ -104,14 +104,22 @@
    for K10, the smaller of its own stream's work and the plain packet
    walk's on the same lanes, since both give this occlusion).  A sphere
    test whose discriminant is negative counts its operations up to it.
+   Then records every K7/K8 launch of one frame of the accelerated main
+   path, the grid route and the legacy route, and times each: K7 at each
+   launch of the main path (levels 1-4 closest, 0-4 shadow) beside its
+   live share and the plain walk's node and object tests per live lane,
+   held to the plain walk on every lane; the bare launches' sums over each
+   frame; K8 on its row's inputs (the main path's level-1 closest and
+   primary shadow launches).
 7b. Times K3 at each level (0-4) of the Whitted frame's middle tile and K6
    at each bounce (0-9) of the PT frame's middle tile, on the inputs the
    frames give them, each beside its valid or live share, and holds each
    launch to its plain version.
 8. Profiles one more warm frame of each main path under ``torch.profiler``
    and prints the device-busy time, the idle share and the top device
-   kernels, and K3's and K6's summed time in their frames beside their
-   single-launch and per-tile times.
+   kernels, K3's and K6's summed time in their frames beside their
+   single-launch and per-tile times, and K7's (accelerated frame) and
+   K8's (one legacy-route frame) beside theirs.
 
 Prints the kernels' JSON line, then the result line last.  Any failure
 raises, so the exit code is non-zero and no result line is printed.
@@ -1262,6 +1270,158 @@ def accel_rows(torch, np, dev, card, st, errs, add_row):
             f"{nl} lanes of level 0, {n_obj} objects, spawn")
 
 
+# ---------------------------------------------------------------------------
+# K7 and K8 at each launch of their frames
+WALK_KERNELS = ("grouped_closest_kernel", "grouped_shadow_kernel",
+                "legacy_closest_kernel", "legacy_shadow_kernel")
+
+
+def record_walks(torch, render):
+    """Runs ``render`` once with K7/K8's launch functions wrapped: returns
+    each launch, in launch order, as (query, tables, packed rays, motion
+    blur, shadow mode, its output), all copied."""
+    from distributionraytracer_tpu_torch.accel import cuda_bvh as CBV
+
+    log = []
+    lc, ls = CBV.launch_packet_closest, CBV.launch_packet_shadow
+
+    def closest(tabs, rays, mb, out_f, out_i):
+        lc(tabs, rays, mb, out_f, out_i)
+        log.append(("closest", tabs, rays.clone(), mb, None,
+                    (out_f.clone(), out_i.clone())))
+
+    def shadow(tabs, rays, mb, mode, occ):
+        ls(tabs, rays, mb, mode, occ)
+        log.append(("shadow", tabs, rays.clone(), mb, mode, occ.clone()))
+
+    CBV.launch_packet_closest, CBV.launch_packet_shadow = closest, shadow
+    try:
+        render()
+        torch.cuda.synchronize()
+    finally:
+        CBV.launch_packet_closest, CBV.launch_packet_shadow = lc, ls
+    return log
+
+
+def walk_launcher(torch, rec):
+    """A bare launch of ``rec``'s walk into fresh outputs, a check of those
+    outputs against the recorded ones, and the outputs."""
+    from distributionraytracer_tpu_torch.accel import cuda_bvh as CBV
+    from distributionraytracer_tpu_torch.ops import build
+
+    lib = build.load().lib
+
+    q, tabs, rays, mb, mode, ref = rec
+    n = rays.shape[1]
+    walk = CBV.WALKS[tabs.kind]
+    if q == "closest":
+        out = (torch.empty_like(ref[0]), torch.empty_like(ref[1]))
+        args = (int(mb), walk, out[0].data_ptr(), out[1].data_ptr())
+        fn = lib.drt_packet_closest
+    else:
+        out = torch.empty_like(ref)
+        args = (int(mb), walk, int(mode == "grid"), out.data_ptr())
+        fn = lib.drt_packet_shadow
+
+    def launch():
+        err = fn(tabs.nodes.data_ptr(), tabs.n_nodes, tabs.objs.data_ptr(),
+                 rays.data_ptr(), n, *args,
+                 torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"drt_packet_{q}: CUDA error {err} at launch")
+
+    def same():
+        """Ids (closest) or occlusion (shadow) equal on every lane, t
+        within 1e-5 relative."""
+        torch.cuda.synchronize()
+        if q == "shadow":
+            return bool(torch.equal(out, ref))
+        hit = ref[1] >= 0
+        rel = ((out[0][0] - ref[0][0]).abs()
+               / ref[0][0].abs().clamp(min=1.0))[hit]
+        return bool(torch.equal(out[1], ref[1])) and (
+            rel.numel() == 0 or float(rel.max()) <= 1e-5)
+
+    return launch, same, out
+
+
+def walk_rows(torch, card, st):
+    """K7 at each launch of the accelerated frame's main path (4 closest,
+    5 shadow), held to the plain walk on every lane, beside its live share
+    and the plain walk's node and object tests per live lane; the bare
+    launches' sums over the frame's K7 launches (main and grid routes) and
+    K8's (legacy route); K8 on its row's inputs (the main path's level-1
+    closest and primary shadow launches, on K8's tables), each launch held
+    to its recorded output.  Returns the sums."""
+    from distributionraytracer_tpu_torch.accel.bvh import threaded_walk
+
+    samples = st["samples"]
+    frames = {key: record_walks(torch, lambda r=st[key]:
+                                r.render_with_samples(samples))
+              for key in ("bvh", "grid", "leg")}
+    # K8's row: its tables on the main path's level-1 closest and primary
+    # shadow launches, its first launch's outputs the reference (accel_rows
+    # holds them to the plain walk)
+    frames["leg-row"] = []
+    for q in ("closest", "shadow"):
+        rec = next(r for r in frames["bvh"][:2] if r[0] == q)
+        rec = (q, st["leg"].tabs) + rec[2:]
+        launch, _, out = walk_launcher(torch, rec)
+        launch()
+        frames["leg-row"].append(rec[:5] + (
+            tuple(x.clone() for x in out) if q == "closest" else out.clone(),))
+    times = {}  # frame -> [ms of each launch]
+    for key, log in frames.items():
+        ms = []
+        for rec in log:
+            launch, same, _ = walk_launcher(torch, rec)
+            launch()
+            check(same(), f"{key} route: a {rec[0]} launch differs from "
+                  "its recorded output")
+            ms.append(timed_ms(torch, launch, 20))
+        times[key] = ms
+    types = tuple(sorted(set(st["bvh"].scene.static.obj_types)))
+    level = {"closest": 1, "shadow": 0}
+    for j, rec in enumerate(frames["bvh"]):
+        q, tabs, rays, mb, mode, ref = rec
+        o, d = rays[0:3].T.contiguous(), rays[3:6].T.contiguous()
+        valid = rays[7] != 0
+        live = int(valid.sum())
+        stats = {}
+        if q == "closest":
+            got = threaded_walk(tabs, o, d, rays[6], valid, motion_blur=mb,
+                                types_present=types, stats=stats)[2]
+            ok = torch.equal(got, ref[1])
+        else:
+            got = threaded_walk(tabs, o, d, None, valid,
+                                shadow_dist=rays[6], shadow_mode=mode,
+                                motion_blur=mb, types_present=types,
+                                stats=stats)
+            ok = torch.equal(got, ref)
+        check(ok, f"K7 {q} at level {level[q]}: lanes differ from the "
+              "plain walk")
+        per = max(live, 1)
+        print(f"K7 {q} level {level[q]}: {rays.shape[1]} lanes, live share "
+              f"{live / rays.shape[1]:.4f}, plain walk "
+              f"{stats['node_tests'] / per:.1f} node and "
+              f"{stats['obj_tests'] / per:.1f} object tests per live lane; "
+              f"kernel {times['bvh'][j]:.4f} ms (equal to plain on every "
+              f"lane) | {card}")
+        level[q] += 1
+    for j, q in enumerate(("closest", "shadow")):
+        print(f"K8 {q} on the main path's {('level-1', 'primary')[j]} "
+              f"inputs (K8's row): {times['leg-row'][j]:.4f} ms | {card}")
+    sums = {}
+    for key, label in (("bvh", "K7, accelerated main path"),
+                       ("grid", "K7, grid route"),
+                       ("leg", "K8, legacy route")):
+        for q in ("closest", "shadow"):
+            idx = [j for j, rec in enumerate(frames[key]) if rec[0] == q]
+            sums[key, q] = sum(times[key][j] for j in idx)
+            print(f"{label}, {q}: {len(idx)} launches, bare-launch sum "
+                  f"{sums[key, q]:.4f} ms | {card}")
+    return sums
+
+
 def frame_sums(wprof, pprof, rows, levels, bounces, card):
     """K3's and K6's summed device time in the profiled frames, beside
     their single-launch time (level 0, bounce 0) and the per-level and
@@ -1280,6 +1440,23 @@ def frame_sums(wprof, pprof, rows, levels, bounces, card):
         out[key] = {"frame_launches": n, "frame_ms": ms, "tile_ms": tile,
                     "per_launch": per}
     return out
+
+
+def walk_frame_sums(aprof, lprof, rows, walk_sums, card):
+    """K7's summed device time in the profiled accelerated frame and K8's
+    in the profiled legacy-route frame, beside their single-launch times
+    (level-1 closest, primary shadow) and the bare launches' sums."""
+    single = {r["name"]: r["ms"] for r in rows}
+    for prof, walk, key, label in ((aprof, "grouped", "bvh", "accelerated "
+                                    "frame"),
+                                   (lprof, "legacy", "leg", "legacy-route "
+                                    "frame")):
+        for q in ("closest", "shadow"):
+            n, ms = kernel_sum(prof, f"{walk}_{q}_kernel")
+            print(f"{walk}_{q} in the profiled {label}: {n} launches, "
+                  f"{ms:.3f} ms summed; one launch "
+                  f"{single[walk + '_' + q]:.4f} ms; bare launches summed "
+                  f"{walk_sums[key, q]:.4f} ms | {card}")
 
 
 def main():
@@ -1339,7 +1516,8 @@ def main():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"  ptxas: {line.strip()}")
     for k, lines in ptxas_report(built.log, ("whitted_level_kernel",
-                                             "pt_bounce_kernel")).items():
+                                             "pt_bounce_kernel",
+                                             *WALK_KERNELS)).items():
         print(f"ptxas {k}: {'; '.join(lines)}")
 
     # ---- 2. Whitted kernels vs plain on the four-primitive scene ----
@@ -2007,6 +2185,8 @@ def main():
 
     accel_rows(torch, np, dev, card, acc, errs, add_row)
     light_rows(torch, dev, card, lit, errs, add_row)
+    # K7 at each launch of its frame, K8's and K7's sums over their frames
+    walk_sums = walk_rows(torch, card, acc)
 
     # ---- 7b. K3 per level and K6 per bounce on one tile of each frame ----
     levels = level_breakdown(torch, dev, card, r.scene, cfg, samples,
@@ -2020,8 +2200,11 @@ def main():
                           "Whitted frame")
     pprof = profile_frame(torch, pt_frame, pmed, "PT frame")
     frame_sums(wprof, pprof, rows, levels, bounces, card)
-    profile_frame(torch, lambda: acc["bvh"].render_with_samples(
+    aprof = profile_frame(torch, lambda: acc["bvh"].render_with_samples(
         acc["samples"]), acc["median"], "accelerated frame")
+    lprof = profile_frame(torch, lambda: acc["leg"].render_with_samples(
+        acc["samples"]), acc["runs"]["legacy"][2], "legacy-packet frame")
+    walk_frame_sums(aprof, lprof, rows, walk_sums, card)
     for key, label in (("bvh", "binned+ frame"),
                        ("off", "binned-primary+ box-ground frame")):
         profile_frame(torch, lambda r=lit[key]: r.render_with_samples(

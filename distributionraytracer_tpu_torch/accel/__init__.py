@@ -1,3 +1,3 @@
 """Acceleration structures: host-built grid and BVH tables and the packet
-traversal kernels K7 (grouped walk), K8 (union walk) and K9 (binned
+traversal kernels K7 (grouped walk), K8 (threaded walk) and K9 (binned
 primary rays)."""

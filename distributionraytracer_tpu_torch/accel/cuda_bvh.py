@@ -1,5 +1,5 @@
-"""Packet traversal of the threaded BVH: K8, the union walk, and the
-wrappers of K7 and K8.
+"""Packet traversal of the threaded BVH: K8's tables, and the wrappers of
+K7 and K8.
 
 Counterpart of ``distributionraytracer_tpu.accel.pallas_bvh``.
 :func:`pack_threaded` packs a leaf-collapsed :class:`ThreadedBVH` into the
@@ -13,12 +13,13 @@ its XLA threaded route (``bvh-xla``).
 ``make_pallas_bvh_intersectors`` (K8) and ``pallas_packet.
 make_grouped_intersectors`` (K7, whose tables ``accel/cuda_packet.py``
 packs), as the JAX renderer's ``packet_intersectors`` dispatches between
-them: the tables' ``kind`` selects the walk of ``csrc/bvh.cu`` on CUDA
-tensors (K7 one cursor per ray, K8 the warp-packet union walk); CPU
-tensors take the plain version, :func:`accel.bvh.threaded_walk`.  The two
-kernels compute the same function and differ in their tables and their
-walk.  Each launch adds one to ``LAUNCHES`` under its walk's name and
-query (``grouped_closest``, ``legacy_shadow``, ...).
+them: the tables' ``kind`` selects the kernel of ``csrc/bvh.cu`` on CUDA
+tensors (K7 on grouped tables, K8 on threaded ones; both run one per-lane
+walk, which beat the JAX package's warp-packet union walk on K8's tables);
+CPU tensors take the plain version, :func:`accel.bvh.threaded_walk`.  The
+two kernels compute the same function and differ in their tables.  Each
+launch adds one to ``LAUNCHES`` under its kernel's name and query
+(``grouped_closest``, ``legacy_shadow``, ...).
 """
 
 from __future__ import annotations

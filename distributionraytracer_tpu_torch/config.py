@@ -43,7 +43,7 @@ class RenderConfig:
                        the same route for grid and BVH scenes.
     - ``packet_kernel``: the packet kernel of grid and BVH scenes: 'grouped'
                        (K7, over 8-object groups; the binned route needs
-                       its tables) or 'legacy' (K8, the union walk; also
+                       its tables) or 'legacy' (K8, the threaded tables; also
                        taken where the grouped packer refuses a tree).
                        The renderer traces these scenes in tiles of
                        ``tile_rays`` primary samples, the binned route in

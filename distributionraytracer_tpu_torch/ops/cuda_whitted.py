@@ -25,7 +25,9 @@ import torch
 
 from distributionraytracer_tpu_torch.accel.grid import grid_slab
 from distributionraytracer_tpu_torch.ops import build
-from distributionraytracer_tpu_torch.ops.common import OFFSET, dot
+from distributionraytracer_tpu_torch.ops.common import (
+    OFFSET, dot, safe_sqrt,
+)
 from distributionraytracer_tpu_torch.ops.cuda_intersect import (
     ray_streams, require_cuda,
 )
@@ -184,11 +186,11 @@ def fused_level_plain(scene: SceneData, cfg, o, d, time, ior, light_sample,
         eta = ior1 / ior2
         vdn = dot(v, N)
         vt = N * vdn[:, None] - v
-        sin_i = torch.sqrt(torch.clamp(dot(vt, vt), min=0.0))
+        sin_i = safe_sqrt(dot(vt, vt))
         th = vt * (1.0 / torch.clamp(sin_i, min=1e-12))[:, None]
         sin_t = eta * sin_i
         no_tir = sin_t < 1.0
-        cos_t = torch.sqrt(torch.clamp(1.0 - sin_t * sin_t, min=0.0))
+        cos_t = safe_sqrt(1.0 - sin_t * sin_t)
         rn = torch.where((sin_i > 0.0)[:, None],
                          th * sin_t[:, None] - N * cos_t[:, None], -N)
         rd = _norm3(rn)

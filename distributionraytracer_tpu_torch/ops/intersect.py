@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from distributionraytracer_tpu_torch.ops.common import (
-    EPSILON, FLT_MAX, cross, dot, normalize,
+    EPSILON, FLT_MAX, cross, dot, normalize, safe_sqrt,
 )
 from distributionraytracer_tpu_torch.scene.types import (
     OBJ_BOX, OBJ_PLANE, OBJ_SPHERE, OBJ_TRIANGLE, SceneData,
@@ -73,7 +73,7 @@ def sphere_t(o, d, time, center, radius, motion_blur: bool):
     b = 2.0 * _dot3(oc, d[:, None, :])
     cq = _dot3(oc, oc) - (radius * radius)[None, :]
     disc = b * b - 4.0 * a * cq
-    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    sq = safe_sqrt(disc)  # sqrt's backward at disc <= 0 would be 0 * inf
     t1 = (-b - sq) / (2.0 * a)
     t2 = (-b + sq) / (2.0 * a)
     t = torch.where(t1 > EPSILON, t1, t2)
@@ -263,7 +263,7 @@ def hit_packed(o, d, time, row, typ, motion_blur: bool,
         b = 2.0 * _dot3(oc, d)
         cq = _dot3(oc, oc) - row[:, 3] * row[:, 3]
         disc = b * b - 4.0 * a * cq
-        sq = torch.sqrt(torch.clamp(disc, min=0.0))
+        sq = safe_sqrt(disc)
         t1 = (-b - sq) / (2.0 * a)
         t2 = (-b + sq) / (2.0 * a)
         ts = torch.where(t1 > EPSILON, t1, t2)

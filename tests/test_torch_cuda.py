@@ -544,6 +544,73 @@ def test_packet_kernels_match_plain_walk(dev, kind):
     assert _accel_launches()[name] == 3
 
 
+# K7/K8 walk cases: the share of live lanes, the lane count (not a
+# multiple of the 256-lane blocks), every triangle and sphere twice, motion
+# blur, the grid emulation's tree
+WALK_CASES = {
+    "live-0.5%": {"live": 0.005},
+    "live-38%": {"live": 0.38},
+    "live-100%": {"live": 1.0},
+    "no-live": {"live": 0.0},
+    "ragged": {"live": 0.38, "n": N + 77},
+    "ties": {"live": 0.38, "twice": True},
+    "motion": {"live": 0.38, "motion": True},
+    "grid": {"live": 0.38, "accel": ACCEL_GRID},
+}
+WALK_TRI = 10_000
+
+
+@pytest.mark.parametrize("case", sorted(WALK_CASES))
+@pytest.mark.parametrize("kind", ["grouped", "threaded"], ids=["K7", "K8"])
+def test_packet_walks_equal_plain_on_every_lane(dev, kind, case):
+    """K7 and K8 on the route's own tables against the plain walk: object
+    ids, and the occlusion of both shadow modes, equal on every lane (dead
+    lanes too); t and normals within 1e-5 relative on the hits."""
+    c = WALK_CASES[case]
+    accel, mb = c.get("accel", ACCEL_BVH), c.get("motion", False)
+    scene = mesh_scene(SceneBuilder, n_tri=WALK_TRI, accel=accel,
+                       res=(64, 64), twice=c.get("twice", False))
+    cfg = RenderConfig(spp=0, motion_blur=mb, packet_kernel=(
+        "grouped" if kind == "grouped" else "legacy"))
+    r = Renderer(scene, cfg, device=dev)
+    tabs = r.tabs.tabs if accel == ACCEL_GRID else r.tabs
+    assert tabs.kind == kind
+    n = c.get("n", N)
+    o, d, dist, _ = accel_rays(n, seed=60)
+    rng = np.random.default_rng(61)
+    valid = rng.random(n) < c["live"]
+    tm = (rng.random(n) if mb else np.zeros(n)).astype(np.float32)
+    o, d, dist, valid, tm = _cuda(dev, o, d, dist, valid, tm)
+    types = tuple(sorted(set(scene.static.obj_types)))
+    _accel_reset()
+    t, nrm, gid = CBV.packet_closest_kernel(tabs, o, d, tm, valid, mb)
+    rt, rn, rid = threaded_walk(tabs, o, d, tm, valid, motion_blur=mb,
+                                types_present=types)
+    torch.cuda.synchronize()
+    assert torch.equal(gid, rid)
+    hit = rid >= 0
+    assert bool((t[~hit] == rt[~hit]).all())
+    torch.testing.assert_close(t[hit], rt[hit], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(nrm[hit], rn[hit], rtol=1e-5, atol=1e-5)
+    if c["live"] >= 0.3:
+        assert float(hit[valid].float().mean()) > 0.5
+    if c.get("twice"):  # no copy wins a tie: the lower slot does
+        assert not bool((gid >= scene.static.n_objects // 2).any())
+    for mode in ("bvh", "grid"):
+        occ = CBV.packet_shadow_kernel(tabs, o, d, dist, valid, mb,
+                                       shadow_mode=mode)
+        ref = threaded_walk(tabs, o, d, None, valid, shadow_dist=dist,
+                            shadow_mode=mode, motion_blur=mb,
+                            types_present=types)
+        torch.cuda.synchronize()
+        assert torch.equal(occ, ref)
+        if c["live"] >= 0.3:
+            assert 0.2 < float(ref[valid].float().mean()) < 0.9
+    name = "grouped" if kind == "grouped" else "legacy"
+    assert CBV.LAUNCHES[name + "_closest"] == 1
+    assert CBV.LAUNCHES[name + "_shadow"] == 2
+
+
 def test_binned_kernel_matches_plain(dev):
     """K9 against its plain stream of the same candidate lists (ids equal,
     t within 1e-5 relative) and against the packet walk of the whole

@@ -76,7 +76,7 @@ MESH_GROUND_BOX = ((-8.0, -0.25, -8.0), (8.0, 0.0, 8.0))
 
 
 def mesh_scene(builder_cls, n_tri=100_000, accel=2, seed=0, res=(512, 512),
-               ground="sphere"):
+               ground="sphere", twice=False):
     """A scanned-mesh stand-in: a closed, displaced torus of exactly
     ``n_tri`` triangles (even) in a reflective material, a glass, a metal
     and two diffuse spheres, a ground, three point lights above the scene
@@ -84,8 +84,10 @@ def mesh_scene(builder_cls, n_tri=100_000, accel=2, seed=0, res=(512, 512),
     is the P3F code (1 grid, 2 bvh).  ``ground`` is ``"sphere"`` (radius
     1000) or ``"box"`` (``MESH_GROUND_BOX``, same material): the finite
     ground keeps the lights outside the scene box, so the light-frustum
-    shadow bins build.  Built from ``seed`` with either package's
-    SceneBuilder, so both build the same scene."""
+    shadow bins build.  ``twice``: every triangle and sphere is added a
+    second time, after all the others and in another material, so every
+    hit on one is an exact tie in t.  Built from ``seed`` with either
+    package's SceneBuilder, so both build the same scene."""
     if n_tri % 2:
         raise ValueError("mesh_scene tessellates quads: n_tri must be even")
     if ground not in ("sphere", "box"):
@@ -136,10 +138,17 @@ def mesh_scene(builder_cls, n_tri=100_000, accel=2, seed=0, res=(512, 512),
         b.add_box(*(list(c) for c in MESH_GROUND_BOX), gmat)
     else:
         b.add_sphere([0.0, -1000.0, 0.0], 1000.0, gmat)
-    b.add_sphere([-2.6, 0.8, 1.6], 0.8, glass)
-    b.add_sphere([2.6, 0.8, 1.2], 0.8, metal)
-    b.add_sphere([0.4, 0.45, 2.9], 0.45, matte)
-    b.add_sphere([-1.2, 0.35, -2.8], 0.35, matte)
+    spheres = [([-2.6, 0.8, 1.6], 0.8, glass), ([2.6, 0.8, 1.2], 0.8, metal),
+               ([0.4, 0.45, 2.9], 0.45, matte),
+               ([-1.2, 0.35, -2.8], 0.35, matte)]
+    for c, r_, m in spheres:
+        b.add_sphere(c, r_, m)
+    if twice:
+        b.add_triangles_bulk(verts, faces, matte)
+        if ground == "sphere":
+            spheres.insert(0, ([0.0, -1000.0, 0.0], 1000.0, gmat))
+        for c, r_, _ in spheres:
+            b.add_sphere(c, r_, mesh)
     for p in ([6, 12, 6], [-7, 10, 3], [1, 14, -8]):
         b.add_point_light(p, [1, 1, 1])
     return b.build()
