@@ -6,14 +6,15 @@
 1. Prints the card's name and power limit; exits non-zero without CUDA.
 2. Builds the kernels from ``distributionraytracer_tpu_torch/csrc`` with
    nvcc (``ops/build.py``) and prints the build time and ptxas's register
-   and spill report (K3's, K6's and the four K7/K8 walks' registers,
-   shared memory and spills on lines of their own).
+   and spill report (K2's, K3's, K5's, K6's and the four K7/K8 walks'
+   registers, shared memory and spills on lines of their own).
 3. Holds each Whitted kernel against its plain torch version on the card,
    on 65,536 random rays against a scene with all four primitive types, a
    quad light and a point light:
    - K1 closest hit: hit/object/material ids equal, t and normal within
      rtol 1e-4, atol 1e-4;
-   - K2 any hit: occlusion equal, in all three modes;
+   - K2 any hit: occlusion equal, in all three modes (and 7c: on every
+     lane of every launch of the staged and cost-brute frames);
    - K3 fused level: spawn on and off, motion blur on, valid lanes: flags
      equal, child origins within 1e-5 of their magnitude, every other float
      within atol 2e-4;
@@ -94,8 +95,8 @@
    131,072-path tile at bounce 0 of the path-traced frame; K7 to K9 and
    K3's grid mode: the inputs of 6b; K10: the binned+ BVH route's primary
    shadow batch of 6c, beside K7's bare launch on it) with CUDA
-   events: the bare launch on packed streams (``ms``) and the wrapper with
-   its stream packing (``wrapper_ms``).  Beside each, the least time the
+   events: the bare launch on the streams the kernel reads (``ms``) and
+   the wrapper with whatever packing it does (``wrapper_ms``).  Beside each, the least time the
    card could take for the same work (``bound_ms``): the larger of the
    bytes over 3.35 TB/s and the FP32 operations over 67 TFLOP/s, counted
    from these inputs (tests up to the first occluder where a fold stops
@@ -115,6 +116,19 @@
    at each bounce (0-9) of the PT frame's middle tile, on the inputs the
    frames give them, each beside its valid or live share, and holds each
    launch to its plain version.
+7c. Records the inputs of every K2 launch of the Whitted staged route
+   (``render_from_samples(..., inter=brute_intersectors(...))``) on its
+   middle tile and of every K5 launch of the PT staged body
+   (``render_pt(..., queries=kernel_queries(...))``) on its middle tile,
+   and of every K2 launch of one cost-brute frame of each mode (BVH, grid):
+   K2 at each level 0-4 with its lane count and valid share, K5 at each
+   bounce 0-9 and point light with its lane count and the share of lanes
+   live before the query (the lanes whose answer the staged body keeps),
+   each launch timed bare and held to its plain version on every lane
+   (lanes differing must be 0).  Then two warm frames of each staged
+   route and one more under ``torch.profiler``: device-busy time, idle
+   share, the frame sums of K1 and K2 (Whitted staged) and K4 and K5 (PT
+   staged), and the copy kernels that K2's and K5's wrappers launch.
 8. Profiles one more warm frame of each main path under ``torch.profiler``
    and prints the device-busy time, the idle share and the top device
    kernels, K3's and K6's summed time in their frames beside their
@@ -125,6 +139,7 @@ Prints the kernels' JSON line, then the result line last.  Any failure
 raises, so the exit code is non-zero and no result line is printed.
 """
 
+import bisect
 import dataclasses
 import json
 import os
@@ -410,11 +425,16 @@ def bounce_breakdown(torch, card, pts, pcfg, paths, pt_frame,
     return res
 
 
-def profile_frame(torch, render, wall_s, label):
+def profile_frame(torch, render, wall_s, label, scopes=()):
     """One frame under torch.profiler: device-busy ms (the union of the
     device activity intervals), its idle share of the unprofiled frame time
     ``wall_s``, the host ops and the top device activities by name.
-    Returns {device activity name: (count, ms)}."""
+    Returns {device activity name: (count, ms)}; with ``scopes`` (names of
+    ``record_function`` ranges that ``render`` opens), also {scope: the
+    device kernels launched by the host ops inside its ranges, as
+    {name: (count, ms)}}, and the busy ms.  Reads the profiler's raw
+    events: turning a staged frame's ~1.6M host events into FunctionEvents
+    takes minutes."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -422,31 +442,71 @@ def profile_frame(torch, render, wall_s, label):
                              ProfilerActivity.CUDA]) as prof:
         render()
         torch.cuda.synchronize()
-    events = prof.events()
-    device = [e for e in events if e.device_type == DeviceType.CUDA]
-    host = [e for e in events if e.device_type == DeviceType.CPU]
+    device, n_host, spans, ops = [], 0, {sc: {} for sc in scopes}, []
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() == DeviceType.CUDA:
+            if name not in spans:  # a scope's range on the device: no kernel
+                device.append((e.start_ns(), e.end_ns(), name,
+                               e.linked_correlation_id()))
+            continue
+        n_host += 1
+        if name in spans:
+            spans[name].setdefault(e.start_thread_id(), []).append(
+                (e.start_ns(), e.end_ns()))
+        elif scopes and e.linked_correlation_id() == 0:  # a host op
+            ops.append((e.start_thread_id(), e.start_ns(), e.end_ns(),
+                        e.correlation_id()))
+    scoped = {}
+    for scope, by_thread in spans.items():
+        # a device kernel links to the host op that launched it; the ops
+        # inside a range of the scope (sorted by start, per thread)
+        for v in by_thread.values():
+            v.sort()
+        starts = {th: [a for a, _ in v] for th, v in by_thread.items()}
+        inside = set()
+        for th, a, b, corr in ops:
+            if th in by_thread:
+                j = bisect.bisect_right(starts[th], a) - 1
+                if j >= 0 and b <= by_thread[th][j][1]:
+                    inside.add(corr)
+        got = {}
+        for a, b, name, link in device:
+            if link in inside:
+                n, ns = got.get(name, (0, 0))
+                got[name] = (n + 1, ns + (b - a))
+        scoped[scope] = {k: (n, ns / 1e6) for k, (n, ns) in got.items()}
+        print(f"profile {label}: {sum(map(len, by_thread.values()))} "
+              f"'{scope}' ranges, {len(inside)} host ops inside them "
+              f"launched {sum(n for n, _ in got.values())} device kernels, "
+              f"{sum(ns for _, ns in got.values()) / 1e6:.3f} ms: "
+              + (", ".join(f"{k[:48]} {n} x {ns / 1e6:.3f} ms"
+                           for k, (n, ns) in sorted(got.items()))
+                 or "none"))
     if not device:
         print(f"profile {label}: the profiler traced no device activity; "
               "device-busy time and idle share not measured")
-        return {}
-    busy_us, end = 0.0, float("-inf")
-    for e in sorted(device, key=lambda e: e.time_range.start):
-        s, t = max(e.time_range.start, end), e.time_range.end
-        busy_us += max(t - s, 0.0)
-        end = max(end, t)
-    busy_ms = busy_us / 1e3
+        return ({}, scoped, None) if scopes else {}
+    busy_ns, end = 0, None
+    by_name = {}
+    for a, b, name, _ in sorted(device):
+        lo = a if end is None else max(a, end)
+        busy_ns += max(b - lo, 0)
+        end = b if end is None else max(end, b)
+        n, ns = by_name.get(name, (0, 0))
+        by_name[name] = (n + 1, ns + (b - a))
+    busy_ms = busy_ns / 1e6
     print(f"profile {label}: device busy {busy_ms:.3f} ms of a "
           f"{wall_s * 1e3:.3f} ms frame (idle share "
           f"{1 - busy_ms / (wall_s * 1e3):.4f}); {len(device)} device "
-          f"activities from {len(host)} host events")
-    by_name = {}
-    for e in device:
-        n, us = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+          f"activities from {n_host} host events")
     top = sorted(by_name.items(), key=lambda kv: kv[1][1], reverse=True)
-    for name, (n, us) in top[:10]:
-        print(f"  {name[:64]:64s} {n:6d} x {us / 1e3:9.3f} ms")
-    return {name: (n, us / 1e3) for name, (n, us) in by_name.items()}
+    for name, (n, ns) in top[:10]:
+        print(f"  {name[:64]:64s} {n:6d} x {ns / 1e6:9.3f} ms")
+    out = {name: (n, ns / 1e6) for name, (n, ns) in by_name.items()}
+    if scopes:
+        return out, scoped, busy_ms
+    return out
 
 
 def kernel_sum(prof, kernel):
@@ -819,7 +879,7 @@ def accel_phase(torch, np, dev, card, counted, mesh=MESH, slab=ACCEL_SLAB,
     for key in ("grid", "legacy"):
         print(f"accelerated frame, {key} route: {runs[key][2]:.4f} s (one "
               f"frame) | {card}")
-    return dict(bvh=bvh, grid=grid, leg=leg, cbg=cbg, samples=samples,
+    return dict(bvh=bvh, grid=grid, leg=leg, cb=cb, cbg=cbg, samples=samples,
                 gb=gb, runs=runs, median=med, cfg=cfg)
 
 
@@ -1459,6 +1519,321 @@ def walk_frame_sums(aprof, lprof, rows, walk_sums, card):
                   f"{walk_sums[key, q]:.4f} ms | {card}")
 
 
+# ---------------------------------------------------------------------------
+# K2 and K5 at each launch of the staged frames
+PLAIN_CHUNK = 1 << 16  # lanes a plain any-hit call takes at a time
+
+
+def record_calls(module, name, run, keep):
+    """Runs ``run()`` with ``module.name`` wrapped: returns the arguments,
+    by name, and the result of each call whose index ``keep`` accepts, in
+    call order, and the number of calls."""
+    import inspect
+    orig = getattr(module, name)
+    sig = inspect.signature(orig)
+    log, calls = [], [0]
+
+    def rec(*args, **kw):
+        out = orig(*args, **kw)
+        if keep(calls[0]):
+            b = sig.bind(*args, **kw)
+            b.apply_defaults()
+            log.append((dict(b.arguments), out))
+        calls[0] += 1
+        return out
+
+    setattr(module, name, rec)
+    try:
+        run()
+    finally:
+        setattr(module, name, orig)
+    return log, calls[0]
+
+
+def any_hit_launch(torch, CI, a):
+    """A bare K2 launch on ``a`` (``any_hit``'s arguments by name) into a
+    fresh output, and that output.  K2 reads the callers' tensors in place;
+    the first version of K2 (its ``launch_any_hit`` takes ``rays``) reads
+    packed (8, R) streams, which are packed here once, outside the launch."""
+    import inspect
+    tb = a["tables"] if a["tables"] is not None else CI.object_tables(
+        a["scene"])
+    o, d, dist = a["o"], a["d"], a["max_dist"]
+    R = o.shape[0]
+    occ = torch.empty((R,), dtype=torch.bool, device=o.device)
+    ex, valid = a["exclude_obj"], a["valid"]
+    if "rays" in inspect.signature(CI.launch_any_hit).parameters:
+        v = (torch.ones(R, device=o.device) if valid is None
+             else valid.float())
+        rays = CI.ray_streams(R, o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1],
+                              d[:, 2], dist, v)
+        ex = (torch.full((R,), -1, dtype=torch.int32, device=o.device)
+              if ex is None else ex.to(torch.int32).contiguous())
+        n_obj = a["scene"].static.n_objects
+        return (lambda: CI.launch_any_hit(tb, n_obj, rays, ex, a["mode"],
+                                          a["motion_blur"], occ)), occ
+    ex = None if ex is None else ex.to(torch.int32).contiguous()
+    return (lambda: CI.launch_any_hit(tb, o, d, dist, ex, valid, a["mode"],
+                                      occ)), occ
+
+
+def pt_any_hit_launch(torch, CI, CP, a):
+    """A bare K5 launch on ``a`` (``pt_any_hit``'s arguments by name) into
+    a fresh output, and that output; the first version of K5 (its
+    ``launch_any_hit`` takes ``rays``) on (8, R) streams packed here once."""
+    import inspect
+    tb = a["tables"] if a["tables"] is not None else CP.pt_tables(a["scene"])
+    o, d, t, tmax = a["o"], a["d"], a["time"], a["tmax"]
+    R = o.shape[0]
+    occ = torch.empty((R,), dtype=torch.bool, device=o.device)
+    if "rays" in inspect.signature(CP.launch_any_hit).parameters:
+        tm = torch.broadcast_to(torch.as_tensor(
+            tmax, dtype=torch.float32, device=o.device), (R,))
+        rays = CI.ray_streams(R, o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1],
+                              d[:, 2], t, tm)
+        return (lambda: CP.launch_any_hit(tb, rays, occ)), occ
+    return (lambda: CP.launch_any_hit(tb, o, d, t, tmax, occ)), occ
+
+
+def k2_lanes_differing(torch, CI, a, occ):
+    """Lanes where K2's ``occ`` differs from its plain versions, as
+    (against ``any_hit_brute``, against ``any_hit_runs`` or None where the
+    tree has no such fold): valid lanes against the fold (taken
+    PLAIN_CHUNK lanes at a time), invalid lanes against no occluder.
+    ``any_hit_runs`` tests in the kernel's operation order, so it must give
+    0; ``any_hit_brute``'s triangle test takes torch's cross product, whose
+    rounding may move a hit at a triangle's edge."""
+    from distributionraytracer_tpu_torch.ops.intersect import any_hit_brute
+    valid = a["valid"]
+    dead = 0
+    if valid is not None:
+        dead = int(occ[~valid].sum())
+        idx = torch.nonzero(valid)[:, 0]
+    else:
+        idx = torch.arange(occ.shape[0], device=occ.device)
+    runs = getattr(CI, "any_hit_runs", None)
+    tb = a["tables"] if a["tables"] is not None else CI.object_tables(
+        a["scene"])
+    ex = a["exclude_obj"]
+    bad = [dead, dead if runs is not None else None]
+    for s in range(0, idx.shape[0], PLAIN_CHUNK):
+        k = idx[s:s + PLAIN_CHUNK]
+        dist, exk = a["max_dist"][k], None if ex is None else ex[k]
+        ref = any_hit_brute(a["scene"], a["o"][k], a["d"][k],
+                            torch.zeros_like(dist), dist, exk,
+                            a["motion_blur"], mode=a["mode"])
+        bad[0] += int((ref != occ[k]).sum())
+        if runs is not None:
+            ref = runs(tb, a["o"][k], a["d"][k], dist, exk, a["mode"])
+            bad[1] += int((ref != occ[k]).sum())
+    return tuple(bad)
+
+
+def k2_verdict(lanes, bad, label):
+    """Checks and words K2's lanes differing from its plain versions."""
+    brute, runs = bad
+    check(brute <= LANE_BUDGET * lanes and runs in (0, None),
+          f"{label}: lanes differing from any_hit_brute {brute}, from its "
+          f"run fold {runs}")
+    return (f"lanes differing {brute} (any_hit_brute)"
+            + ("" if runs is None else f", {runs} (its run fold)"))
+
+
+def same_answer(torch, a, occ, ref):
+    """Whether a bare launch's ``occ`` is the answer the frame got on the
+    lanes it consumes (its valid lanes)."""
+    v = a["valid"]
+    return bool(torch.equal(occ, ref) if v is None
+                else torch.equal(occ[v], ref[v]))
+
+
+def staged_breakdown(torch, card, scene, cfg, samples, pts, pcfg, paths,
+                     pt_frame, cost):
+    """K2 at each launch of the Whitted staged route's middle tile and of
+    one cost-brute frame of each mode, K5 at each launch of the PT staged
+    body's middle tile: bare launch times on the recorded inputs, each
+    launch held to its plain version on every lane.  ``cost`` maps a mode
+    to its cost-brute renderer and SampleSet.  Returns the per-launch
+    rows."""
+    from distributionraytracer_tpu_torch.integrator import pathtracer as PT
+    from distributionraytracer_tpu_torch.integrator.render import (
+        render_from_samples,
+    )
+    from distributionraytracer_tpu_torch.integrator.whitted import (
+        brute_intersectors,
+    )
+    from distributionraytracer_tpu_torch.ops import cuda_intersect as CI
+    from distributionraytracer_tpu_torch.ops import cuda_pt as CP
+
+    out = {"K2": [], "K2cost": {}, "K5": []}
+    # ---- K2, the Whitted staged route's middle tile ----
+    H, W, S = samples.time.shape
+    tiles = -(-(H * W * S) // cfg.tile_rays)
+    levels = cfg.max_depth + 1
+    k = tiles // 2
+    log, calls = record_calls(
+        CI, "any_hit", lambda: render_from_samples(
+            scene, cfg, samples, inter=brute_intersectors(scene, cfg)),
+        lambda j: j // levels == k)
+    check(calls == tiles * levels and len(log) == levels,
+          f"K2 breakdown: {calls} calls, {len(log)} on tile {k}")
+    for lv, (a, ref) in enumerate(log):
+        launch, occ = any_hit_launch(torch, CI, a)
+        launch()
+        n = occ.shape[0]
+        check(same_answer(torch, a, occ, ref), f"K2 level {lv}: the bare "
+              "launch differs from the frame's")
+        verdict = k2_verdict(n, k2_lanes_differing(torch, CI, a, occ),
+                             f"K2 level {lv}")
+        ms = timed_ms(torch, launch, 20)
+        share = 1.0 if a["valid"] is None else float(a["valid"].float().mean())
+        print(f"K2 level {lv} (Whitted staged route, tile {k}): {n} lanes, "
+              f"valid {share:.4f}, mode {a['mode']}: {ms:.4f} ms; vs plain: "
+              f"{verdict} | {card}")
+        out["K2"].append((n, share, ms))
+    print(f"K2, one tile's levels: {sum(x[-1] for x in out['K2']):.4f} ms "
+          f"| {card}")
+    # ---- K2, one cost-brute frame of each mode ----
+    for mode, (r, smp) in cost.items():
+        log, calls = record_calls(
+            CI, "any_hit", lambda r=r, smp=smp: r.render_with_samples(smp),
+            lambda j: True)
+        tot, ms_sum, lanes = [0, 0], 0.0, 0
+        for a, ref in log:
+            launch, occ = any_hit_launch(torch, CI, a)
+            launch()
+            check(a["mode"] == mode and same_answer(torch, a, occ, ref),
+                  f"cost-brute {mode}: a bare launch differs from the "
+                  "frame's")
+            bad = k2_lanes_differing(torch, CI, a, occ)
+            ms_sum += timed_ms(torch, launch, 20)
+            tot = [x + (y or 0) for x, y in zip(tot, bad)]
+            lanes += occ.shape[0]
+        verdict = k2_verdict(lanes, (tot[0], None if bad[1] is None
+                                     else tot[1]), f"cost-brute {mode}")
+        print(f"K2 cost-brute frame, mode {mode}: {calls} launches, {lanes} "
+              f"lanes, bare-launch sum {ms_sum:.4f} ms; vs plain: {verdict} "
+              f"| {card}")
+        out["K2cost"][mode] = (calls, ms_sum)
+    # ---- K5, the PT staged body's middle tile ----
+    B, n_pl = pcfg.max_bounces, pts.plight_pos.shape[0]
+    ptiles = -(-paths // pcfg.pt_tile_rays)
+    k = ptiles // 2
+    shadow = []
+
+    def pt_frame_staged():
+        log5, n5 = record_calls(
+            CP, "pt_any_hit", lambda: pt_frame(PT.kernel_queries(pts)),
+            lambda j: j // (B * n_pl) == k)
+        check(n5 == ptiles * B * n_pl, f"K5 breakdown: {n5} calls")
+        shadow.extend(log5)
+
+    # K4's calls give each bounce's hits; a lane the staged body has ended
+    # keeps its ray, so a lane is live at bounce b >= 1 where its ray moved
+    hits, n4 = record_calls(CP, "pt_closest", pt_frame_staged,
+                            lambda j: j // B == k)
+    check(n4 == ptiles * B and len(hits) == B and len(shadow) == B * n_pl,
+          f"K5 breakdown: {len(hits)} closest and {len(shadow)} shadow calls "
+          f"on tile {k}")
+    alive = None
+    for b in range(B):
+        a_c, h = hits[b]
+        if b == 0:
+            alive = torch.ones_like(h.hit)
+        else:
+            prev = hits[b - 1][0]
+            alive = ((a_c["o"] != prev["o"]).any(-1)
+                     | (a_c["d"] != prev["d"]).any(-1))
+        live = alive & h.hit
+        for j in range(n_pl):
+            a, ref = shadow[b * n_pl + j]
+            launch, occ = pt_any_hit_launch(torch, CI, CP, a)
+            launch()
+            plain = PT.any_hit(a["scene"], a["o"], a["d"], a["time"], 1e-3,
+                               a["tmax"])
+            bad = int((plain != occ).sum())
+            check(bad == 0 and torch.equal(occ, ref),
+                  f"K5 bounce {b} light {j}: {bad} lanes differ from plain")
+            ms = timed_ms(torch, launch, 20)
+            share = float(live.float().mean())
+            print(f"K5 bounce {b} light {j} (PT staged body, tile {k}): "
+                  f"{occ.shape[0]} lanes, live {share:.4f}: {ms:.4f} ms; vs "
+                  f"plain: lanes differing {bad} | {card}")
+            out["K5"].append((b, j, share, ms))
+    print(f"K5, one tile's bounces and lights: "
+          f"{sum(x[-1] for x in out['K5']):.4f} ms | {card}")
+    return out
+
+
+def staged_profiles(torch, card, scene, cfg, samples, pt_frame, pts,
+                    frames=2):
+    """Warm frames of the two staged routes, then one more of each under
+    torch.profiler with K2's and K5's wrappers in record_function ranges:
+    device-busy ms, idle share, the frame sums of K1 and K2 (Whitted
+    staged) and K4 and K5 (PT staged), and the copies the wrappers
+    launch."""
+    from torch.profiler import record_function
+
+    from distributionraytracer_tpu_torch.integrator import pathtracer as PT
+    from distributionraytracer_tpu_torch.integrator.render import (
+        render_from_samples,
+    )
+    from distributionraytracer_tpu_torch.integrator.whitted import (
+        brute_intersectors,
+    )
+    from distributionraytracer_tpu_torch.ops import cuda_intersect as CI
+    from distributionraytracer_tpu_torch.ops import cuda_pt as CP
+
+    routes = (
+        ("Whitted staged route", lambda: render_from_samples(
+            scene, cfg, samples, inter=brute_intersectors(scene, cfg)),
+         CI, "any_hit_kernel", "K2 wrapper",
+         (("K1", "closest_hit_kernel"), ("K2", "any_hit_kernel"))),
+        ("PT staged body", lambda: pt_frame(PT.kernel_queries(pts)),
+         CP, "pt_any_hit_kernel", "K5 wrapper",
+         (("K4", "pt_closest_kernel"), ("K5", "pt_any_hit_kernel"))))
+    out = {}
+    for label, render, mod, wrapper, scope, kernels in routes:
+        times = []
+        for _ in range(frames):
+            t0 = time.perf_counter()
+            render()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        med = statistics.median(times)
+        print(f"{label}: {frames} warm frames "
+              f"{' '.join(f'{x:.4f}' for x in times)} s (median {med:.4f}) "
+              f"| {card}")
+        orig = getattr(mod, wrapper)
+
+        def scoped(*args, orig=orig, scope=scope, **kw):
+            with record_function(scope):
+                return orig(*args, **kw)
+
+        setattr(mod, wrapper, scoped)
+        try:
+            prof, copies, busy = profile_frame(torch, render, med, label,
+                                               scopes=(scope,))
+        finally:
+            setattr(mod, wrapper, orig)
+        sums = {}
+        for key, kern in kernels:
+            # "any_hit_kernel" is also the tail of "pt_any_hit_kernel"
+            hit = [v for name, v in prof.items() if kern in name
+                   and not (kern == "any_hit_kernel" and "pt_" + kern in name)]
+            sums[key] = (sum(n for n, _ in hit), sum(ms for _, ms in hit))
+            print(f"{key} ({kern}) in the profiled {label} frame: "
+                  f"{sums[key][0]} launches, {sums[key][1]:.3f} ms summed | "
+                  f"{card}")
+        cp = copies.get(scope, {})
+        print(f"{label}: copies launched inside {wrapper}'s wrapper: "
+              f"{sum(n for n, _ in cp.values())} kernels, "
+              f"{sum(ms for _, ms in cp.values()):.3f} ms | {card}")
+        out[label] = {"median": med, "busy_ms": busy, "sums": sums,
+                      "copies_ms": sum(ms for _, ms in cp.values())}
+    return out
+
+
 def main():
     import numpy as np
     import torch
@@ -1497,12 +1872,19 @@ def main():
     card = card_line()
     dev = torch.device("cuda")
     print(card)
+    t_run = time.perf_counter()
+
+    def phase(name):
+        print(f"phase {name}: {time.perf_counter() - t_run:.1f} s into "
+              "the run")
+
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     # ---- 1. build ----
+    phase("1 (build)")
     built = build.load()
     print(f"build: {os.path.relpath(built.path, REPO)} in "
           f"{built.seconds:.2f}s (0.00 = already built)")
@@ -1517,10 +1899,13 @@ def main():
             print(f"  ptxas: {line.strip()}")
     for k, lines in ptxas_report(built.log, ("whitted_level_kernel",
                                              "pt_bounce_kernel",
+                                             "pt_any_hit_kernel",
+                                             "any_hit_kernel",
                                              *WALK_KERNELS)).items():
         print(f"ptxas {k}: {'; '.join(lines)}")
 
     # ---- 2. Whitted kernels vs plain on the four-primitive scene ----
+    phase("2")
     rng = np.random.default_rng(0)
     R = 65536
 
@@ -1624,6 +2009,7 @@ def main():
               f"differing {m:.2e}, max abs err elsewhere {e:.3e}  PASS")
 
     # ---- 3. path-tracer kernels vs plain, scenes 0 and 3 ----
+    phase("3")
     def cmp_pt_closest(scene, o, d, tm):
         ref = PT.hit_world(scene, o, d, tm)
         h = CP.pt_closest_kernel(scene, o, d, tm)
@@ -1698,6 +2084,7 @@ def main():
             CP.pt_bounce_plain(sc, state, uni, True)
 
     # ---- 4. the Whitted frame: 800x600, 16 spp, depth 4, three routes ----
+    phase("4")
     def reset_launches():
         for m in (CI, CW, CP, CBV, CBN):
             m.reset_launches()
@@ -1805,6 +2192,7 @@ def main():
           f"{card}")
 
     # ---- 5. the path-traced frame: scene 0, 800x600, 16 spp, 10 bounces --
+    phase("5")
     pf = PT_FRAME
     PW, PH = pf["res"]
     pts = SCENE_BUILDERS[pf["scene"]]().to(dev)
@@ -1889,11 +2277,14 @@ def main():
           f"{paths / pst_s / 1e6:.4f} Msamples/s | {card}")
 
     # ---- 5b. the accelerated frame: 100,000 triangles, five routes ----
+    phase("5b")
     acc = accel_phase(torch, np, dev, card, counted)
     # ---- 5c. the box-ground frame: K10 on the binned+ routes ----
+    phase("5c")
     lit = light_phase(torch, np, dev, card, counted)
 
     # ---- 6. kernel times and bounds at the main paths' shapes ----
+    phase("6")
     def w_normal_ops(sc, h, mb):
         """The winners' normals, once per hit lane."""
         per = torch.tensor([W_NORMAL_OPS[t] + int(mb and t == OBJ_SPHERE)
@@ -2017,18 +2408,15 @@ def main():
         n * f4(8 + 4 + 2) + n_obj * f4(14),
         closest_ops + w_normal_ops(sc, h, mb))
 
-    rays2 = CI.ray_streams(nl * n, so_[:, 0], so_[:, 1], so_[:, 2],
-                           sd_[:, 0], sd_[:, 1], sd_[:, 2], sdist,
-                           svalid.float())
-    ex2 = sex.to(torch.int32).contiguous()
-    occ2 = torch.empty((nl * n,), dtype=torch.bool, device=dev)
-    row("K2", nl * n,
-        lambda: CI.launch_any_hit(tab, n_obj, rays2, ex2, "none", mb, occ2),
+    launch2, _ = any_hit_launch(torch, CI, dict(
+        scene=sc, o=so_, d=sd_, max_dist=sdist, exclude_obj=sex,
+        motion_blur=mb, mode="none", valid=svalid, tables=tab))
+    row("K2", nl * n, launch2,
         lambda: CI.any_hit_kernel(sc, so_, sd_, sdist, sex, mb, valid=svalid,
                                   tables=tab),
         lambda: any_hit_brute(sc, so_, sd_, torch.zeros_like(sdist), sdist,
                               sex, mb),
-        nl * n * (f4(8 + 1) + 1) + n_obj * f4(13),
+        nl * n * (f4(6 + 1 + 1) + 1 + 1) + n_obj * f4(13),
         w_shadow_ops(sc, so_, sd_, sdist, sex, mb, svalid)[0])
 
     # K3's own shadow rays (fused_level_plain's construction)
@@ -2103,10 +2491,9 @@ def main():
     d5 = torch.nn.functional.normalize(lu, dim=-1).contiguous()
     t5, tmax5 = torch.zeros(n, device=dev), dist - 1e-3
     _, _ = cmp_pt_any(pts, o5, d5, t5, tmax5)
-    rays5 = CI.ray_streams(n, o5[:, 0], o5[:, 1], o5[:, 2], d5[:, 0],
-                           d5[:, 1], d5[:, 2], t5, tmax5)
-    occ5 = torch.empty((n,), dtype=torch.bool, device=dev)
-    row("K5", n, lambda: CP.launch_any_hit(ptb, rays5, occ5),
+    launch5, _ = pt_any_hit_launch(torch, CI, CP, dict(
+        scene=pts, o=o5, d=d5, time=t5, tmax=tmax5, tables=ptb))
+    row("K5", n, launch5,
         lambda: CP.pt_any_hit_kernel(pts, o5, d5, t5, tmax5, tables=ptb),
         lambda: PT.any_hit(pts, o5, d5, t5, 1e-3, tmax5),
         n * (f4(8) + 1) + K * f4(12),
@@ -2189,13 +2576,21 @@ def main():
     walk_sums = walk_rows(torch, card, acc)
 
     # ---- 7b. K3 per level and K6 per bounce on one tile of each frame ----
+    phase("7b")
     levels = level_breakdown(torch, dev, card, r.scene, cfg, samples,
                              cmp_level)
     bounces = bounce_breakdown(torch, card, pts, pcfg,
                                pf["res"][0] * pf["res"][1] * pf["spp"],
                                pt_frame, cmp_pt_bounce)
+    # ---- 7c. K2 and K5 at each launch of the staged frames ----
+    phase("7c")
+    staged_breakdown(torch, card, r.scene, cfg, samples, pts, pcfg, paths,
+                     pt_frame, {"bvh": (acc["cb"], acc["samples"]),
+                                "grid": (acc["cbg"], acc["samples"])})
+    staged_profiles(torch, card, r.scene, cfg, samples, pt_frame, pts)
 
     # ---- 7. profiles of one warm frame of each main path ----
+    phase("8 (profiles)")
     wprof = profile_frame(torch, lambda: r.render_with_samples(samples), med,
                           "Whitted frame")
     pprof = profile_frame(torch, pt_frame, pmed, "PT frame")
@@ -2211,6 +2606,7 @@ def main():
             lit["samples"]), lit["median"]["bvh+" if key == "bvh" else "off"],
             label)
 
+    phase("end")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,15 +1,16 @@
-// Block-level lane work shared by K3 (whitted_level.cu) and K6 (pt.cu):
-// compaction of a block's live lanes, and thread groups that split one
-// lane's object folds.
+// Block-level lane work shared by K2 (intersect.cu), K3 (whitted_level.cu)
+// and K6 (pt.cu): compaction of a block's live lanes, and thread groups
+// that split one lane's object folds.
 //
 // A block covers as many lanes as it has threads.  Each thread brings one
 // lane's live flag; the live lanes are listed in lane order in shared
 // memory (ballot and popc within a warp, a scan over the warps' counts).
 // The block then picks a group size G (1, 2, 4, ... 32 threads a lane) so
 // that its live lanes fill its threads: group k takes live lane k.  With
-// G = 1 (at least half the block's lanes live) each thread runs the serial
-// folds; with G > 1 each thread of a group folds every G-th object of the
-// table, kUnroll objects side by side.  The fold's results do not
+// G = 1 (at least half the block's lanes live) each thread runs its lane's
+// folds (K3, K6: the serial folds; K2: its rounds); with G > 1 each thread
+// of a group folds every G-th object of the table, kUnroll objects side by
+// side.  The fold's results do not
 // depend on the order in which lanes are taken, and the closest-hit
 // reduction below reproduces the serial fold's "strict <, first wins"
 // exactly, so all of this is exact.

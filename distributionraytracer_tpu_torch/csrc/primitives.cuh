@@ -14,16 +14,25 @@
 // by direction components that may be zero and needs IEEE inf.
 //
 // Objects live in a packed (O,12) f32 table in insertion order with an
-// (O,) i32 type array (scene/types.py::packed_objects), or in the packet
-// kernels' (S,16) slot records, read straight from global memory through
-// __ldg: where every thread of a warp reads the same row, one broadcast,
-// cached load per field; K3's split folds read a few rows at once, which
-// stay in L1 all the same (or from shared memory, for rows a block stages
-// itself: the <false> instances).
+// (O,) i32 type array (scene/types.py::packed_objects), in K2's type runs
+// (ops/cuda_intersect.py::type_runs), or in the packet kernels' (S,16)
+// slot records, read straight from global memory through __ldg: where
+// every thread of a warp reads the same row, one broadcast, cached load
+// per field; the split folds read a few rows at once, which stay in L1 all
+// the same.  The <false> instances read rows a caller holds in registers
+// (K2's type runs, loaded 16 bytes at a time).
+//
+// The end of this file holds the group folds that K2 and K3 share: the
+// any-hit fold split over a group of threads (lanes.cuh), in rounds of
+// kUnroll objects (round_occludes), over the insertion-order table
+// (MixedRows) or over one type run (TypedRows); K3 votes by group
+// (any_group), K2 keeps the warp together (any_warp).
 #pragma once
 
 #include <cfloat>
 #include <cuda_runtime.h>
+
+#include "lanes.cuh"
 
 namespace drt {
 
@@ -50,7 +59,7 @@ __device__ __forceinline__ float max_nan(float a, float b) {
 }
 
 // A row field: through the read-only cache from global memory (kGlobal),
-// or a plain load (rows staged in shared memory by a block).
+// or a plain load (rows a caller holds in registers).
 template <bool kGlobal = true>
 __device__ __forceinline__ float ld(const float* p, int i) {
   if constexpr (kGlobal) return __ldg(p + i);
@@ -322,6 +331,133 @@ __device__ __forceinline__ bool any_fold(const float* table, const int* types,
     if (occludes(t, dist, g, excl, mode)) return true;
   }
   return false;
+}
+
+// ------------------------------------------------------------ group folds
+// A table of n rows that a group fold walks: round(g, G, ...) tests rows
+// g + u * G (u < kUnroll) side by side, indices past n testing row n - 1
+// again (their results are dropped), so that the kUnroll tests are always
+// there to interleave; id(k) is row k's object id, the one an excluded id
+// is compared with.
+
+// The packed (O,12) table in insertion order, with its (O,) types (K1,
+// K3): a row's id is its index.
+struct MixedRows {
+  const float* table;
+  const int* types;
+  int n;
+
+  __device__ __forceinline__ void round(int g, int G, const Ray& r,
+                                        float time, bool mb, float* t) const {
+    int typ[kUnroll];
+    const float* row[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int k = min(g + u * G, n - 1);
+      typ[u] = __ldg(types + k);
+      row[u] = table + (size_t)k * kRowWidth;
+    }
+    prim_t_n<true, kUnroll>(typ, row, r, time, mb, t);
+  }
+  __device__ __forceinline__ int id(int k) const { return k; }
+};
+
+// One type run of K2's tables: n rows of kType, 16-byte aligned, spheres
+// [cx, cy, cz, r] in 4 floats and the other types in their 12-float rows,
+// each row read as the 16-byte loads its test needs; ids: each row's
+// object id.  The type is known at compile time, so no test branches on
+// it.
+template <int kType>
+struct TypedRows {
+  static constexpr int kWidth = kType == kSphere ? 4 : kRowWidth;
+  // 16-byte loads a test reads: sphere 4 floats, triangle 9, plane 4, box 6
+  static constexpr int kVecs = kType == kTriangle ? 3 : kType == kBox ? 2 : 1;
+  const float* rows;
+  const int* ids;
+  int n;
+
+  __device__ __forceinline__ void round(int g, int G, const Ray& r,
+                                        float time, bool mb, float* t) const {
+    float v[kUnroll][4 * kVecs];
+    int typ[kUnroll];
+    const float* row[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int k = min(g + u * G, n - 1);
+      const float4* p =
+          reinterpret_cast<const float4*>(rows + (size_t)k * kWidth);
+#pragma unroll
+      for (int q = 0; q < kVecs; ++q) {
+        const float4 x = __ldg(p + q);
+        v[u][4 * q] = x.x;
+        v[u][4 * q + 1] = x.y;
+        v[u][4 * q + 2] = x.z;
+        v[u][4 * q + 3] = x.w;
+      }
+      typ[u] = kType;
+      row[u] = v[u];
+    }
+    prim_t_n<false, kUnroll>(typ, row, r, time, mb, t);
+  }
+  __device__ __forceinline__ int id(int k) const { return __ldg(ids + k); }
+};
+
+// Whether one of the rows g + u * G (u < kUnroll) of `rows` occludes the
+// shadow ray (time 0).
+template <class Rows>
+__device__ __forceinline__ bool round_occludes(const Rows& rows, int g, int G,
+                                               const Ray& r, float dist,
+                                               int excl, int mode, bool mb) {
+  float t[kUnroll];
+  rows.round(g, G, r, 0.0f, mb, t);
+  bool h = false;
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u)
+    h = h || (g + u * G < rows.n &&
+              occludes(t[u], dist, rows.id(g + u * G), excl, mode));
+  return h;
+}
+
+// Whether a row of `rows` occludes the shadow ray (time 0), the fold split
+// over the group (K3's split shadow folds): after each round of G x
+// kUnroll rows the group votes, so it stops at the round of the first
+// occluder.  Every thread of the group must call it; other groups of the
+// warp need not.
+template <class Rows>
+__device__ __forceinline__ bool any_group(const Rows& rows, const Group& grp,
+                                          const Ray& r, float dist, int excl,
+                                          int mode, bool mb) {
+  const int G = grp.size;
+  for (int b = 0; b < rows.n; b += G * kUnroll)
+    if (__any_sync(grp.mask, round_occludes(rows, b + grp.sub, G, r, dist,
+                                            excl, mode, mb)))
+      return true;
+  return false;
+}
+
+// The same fold with the warp kept together (K2): every working thread of
+// the warp (`warp`, a mask that every one of them passes) runs the same
+// rounds; a group that has found its occluder (done) sits the rounds out,
+// and the warp leaves when every group is done.  One ballot a round gives
+// each group its vote.  A group-mask vote in a loop that groups leave at
+// different rounds let the warp's groups run apart (measured: PERF.md).
+// Returns done, or whether a row occludes.  Every working thread of the
+// warp must call it.
+template <class Rows>
+__device__ __forceinline__ bool any_warp(const Rows& rows, const Group& grp,
+                                         unsigned warp, const Ray& r,
+                                         float dist, int excl, int mode,
+                                         bool mb, bool done) {
+  const int G = grp.size;
+  for (int b = 0; b < rows.n; b += G * kUnroll) {
+    if (__all_sync(warp, done)) break;
+    bool h = false;
+    if (!done)
+      h = round_occludes(rows, b + grp.sub, G, r, dist, excl, mode, mb);
+    const unsigned votes = __ballot_sync(warp, h);  // every thread, always
+    done = done || (votes & grp.mask) != 0;
+  }
+  return done;
 }
 
 }  // namespace drt

@@ -13,10 +13,25 @@
 // per closest query and up to once more per point light (rays x primitives
 // x (1 + lights) tests; the tests are uncontracted, so each mul/add issues
 // alone); memory traffic is the lane's streams in and out.
-// K4 and K5: one thread per lane, primitives walked in hit_world's order
+// K4: one thread per lane, primitives walked in hit_world's order
 // (triangles, spheres, moving spheres) with strict < so the first of equal
 // t wins; the three groups are separate loops, so there is no
 // per-primitive type branch; tables are warp-uniform __ldg reads.
+// K5, redesigned for the H100.  What held the first version back: a serial
+// chain of up to 105 tests, each ending in a branch that may leave the
+// fold, so nothing overlapped one test with the next; scalar row loads;
+// and the wrapper stacked eight (R,) columns into an (8, R) copy before
+// every launch, which cost as much as the kernel.  The design:
+//   - it reads the callers' tensors in place: o and d as (R,3), time as
+//     (R,), tmax as (R,) or one value for every lane (null pointer);
+//   - one thread a lane, every lane (the Pallas kernel has no valid input,
+//     and the staged body asks for every lane), 128 a block;
+//   - within each type run a thread tests kU rows side by side, each row
+//     read with the 16-byte loads its test needs into registers, and
+//     leaves at the round of its first occluder (any_rounds).  Keeping the
+//     warp's threads in step (a ballot a round, as K2) cost 5%; a vote on a
+//     one-thread mask let them run apart and cost 2.3x (PERF.md);
+//   - a missed sphere's IEEE root is skipped (quad_t).
 // K6, redesigned for the H100.  What bounds it: the latency of each
 // lane's fold, a dependent chain of ~105 uncontracted tests x (1 + point
 // lights) with IEEE sqrt and divisions in it, and too few warps to hide
@@ -66,7 +81,8 @@
 //   plights (Lp,6) [pos, color]; qlights (Lq,12) [pos, e1, e2, color];
 //   K4 rays (7,R) ox oy oz dx dy dz time -> out_f (4,R) t nx ny nz,
 //      out_i (R,) i32 material;
-//   K5 rays (8,R) ox oy oz dx dy dz time tmax -> occ (R,) u8;
+//   K5 o, d (R,3), time (R,), tmax (R,) or a scalar -> occ (R,) u8; the
+//      table 16-byte aligned;
 //   K6 state (20,R) ox oy oz dx dy dz time col3 thr3 alive mw3 md3, read
 //      and written in place; uni (8+2*Lq,R) uch u3a3 u3b3 urr uq...
 // Each launch function returns cudaGetLastError().
@@ -93,8 +109,12 @@ struct Ray {
   float ox, oy, oz, dx, dy, dz;
 };
 
+// A row field through the read-only cache (G), or from a row the caller
+// holds in registers (K5's rounds).
+template <bool G = true>
 __device__ __forceinline__ float ld(const float* p, int i) {
-  return __ldg(p + i);
+  if constexpr (G) return __ldg(p + i);
+  return p[i];
 }
 // One IEEE rounding per operation, never contracted into an FMA.
 __device__ __forceinline__ float mul(float a, float b) {
@@ -112,10 +132,11 @@ __device__ __forceinline__ float dot3(float ax, float ay, float az, float bx,
 }
 
 // hit_triangle (common.glsl:418-447) in hit_world's formulation.
+template <bool G = true>
 __device__ __forceinline__ float tri_t(const Ray& r, const float* row) {
-  const float v0x = ld(row, 0), v0y = ld(row, 1), v0z = ld(row, 2);
-  const float e1x = ld(row, 3), e1y = ld(row, 4), e1z = ld(row, 5);
-  const float e2x = ld(row, 6), e2y = ld(row, 7), e2z = ld(row, 8);
+  const float v0x = ld<G>(row, 0), v0y = ld<G>(row, 1), v0z = ld<G>(row, 2);
+  const float e1x = ld<G>(row, 3), e1y = ld<G>(row, 4), e1z = ld<G>(row, 5);
+  const float e2x = ld<G>(row, 6), e2y = ld<G>(row, 7), e2z = ld<G>(row, 8);
   const float hx = sub(mul(r.dy, e2z), mul(r.dz, e2y));
   const float hy = sub(mul(r.dz, e2x), mul(r.dx, e2z));
   const float hz = sub(mul(r.dx, e2y), mul(r.dy, e2x));
@@ -152,11 +173,12 @@ __device__ __forceinline__ float quad_t(float a, float b, float disc,
 }
 
 // hit_sphere (common.glsl:513-549): b and the discriminant; a = d.d.
+template <bool G = true>
 __device__ __forceinline__ float sph_disc(const Ray& r, const float* row,
                                           float a_dd, float* b_out) {
-  const float rad = ld(row, 3);
-  const float ocx = sub(r.ox, ld(row, 0)), ocy = sub(r.oy, ld(row, 1)),
-              ocz = sub(r.oz, ld(row, 2));
+  const float rad = ld<G>(row, 3);
+  const float ocx = sub(r.ox, ld<G>(row, 0)), ocy = sub(r.oy, ld<G>(row, 1)),
+              ocz = sub(r.oz, ld<G>(row, 2));
   const float b = mul(2.0f, dot3(ocx, ocy, ocz, r.dx, r.dy, r.dz));
   const float c = sub(dot3(ocx, ocy, ocz, ocx, ocy, ocz), mul(rad, rad));
   *b_out = b;
@@ -174,14 +196,15 @@ __device__ __forceinline__ float sph_t(const Ray& r, const float* row,
 // hit_movingSphere (common.glsl:551-605): the shader's quadratic in
 // d1 = center(time+EPS) - center(time) = (c1-c0)*EPS; returns its
 // discriminant, with a and b.
+template <bool G = true>
 __device__ __forceinline__ float msph_disc(const Ray& r, const float* row,
                                            float time, float a_dd,
                                            float* a_out, float* b_out) {
-  const float bx = ld(row, 3), by = ld(row, 4), bz = ld(row, 5);
-  const float rad = ld(row, 6);
-  const float c0x = add(ld(row, 0), mul(bx, time));
-  const float c0y = add(ld(row, 1), mul(by, time));
-  const float c0z = add(ld(row, 2), mul(bz, time));
+  const float bx = ld<G>(row, 3), by = ld<G>(row, 4), bz = ld<G>(row, 5);
+  const float rad = ld<G>(row, 6);
+  const float c0x = add(ld<G>(row, 0), mul(bx, time));
+  const float c0y = add(ld<G>(row, 1), mul(by, time));
+  const float c0z = add(ld<G>(row, 2), mul(bz, time));
   const float d1x = mul(bx, kEps), d1y = mul(by, kEps), d1z = mul(bz, kEps);
   const float ocx = sub(r.ox, c0x), ocy = sub(r.oy, c0y),
               ocz = sub(r.oz, c0z);
@@ -210,20 +233,20 @@ __device__ __forceinline__ float msph_t(const Ray& r, const float* row,
 // their arithmetic can interleave (a lane's fold is a dependent chain, and
 // a warp has few others to hide its latency behind): for (moving)
 // spheres every discriminant first, then the roots of those that are not
-// misses.  out[u]: a moving sphere's near-root flag.
-template <int U>
+// misses.  out[u]: a moving sphere's near-root flag.  G as in ld.
+template <int U, bool G = true>
 __device__ __forceinline__ void tri_t_n(const Ray& r, const float* const* row,
                                         float* t) {
 #pragma unroll
-  for (int u = 0; u < U; ++u) t[u] = tri_t(r, row[u]);
+  for (int u = 0; u < U; ++u) t[u] = tri_t<G>(r, row[u]);
 }
 
-template <int U>
+template <int U, bool G = true>
 __device__ __forceinline__ void sph_t_n(const Ray& r, const float* const* row,
                                         float a_dd, float* t) {
   float b[U], disc[U];
 #pragma unroll
-  for (int u = 0; u < U; ++u) disc[u] = sph_disc(r, row[u], a_dd, &b[u]);
+  for (int u = 0; u < U; ++u) disc[u] = sph_disc<G>(r, row[u], a_dd, &b[u]);
 #pragma unroll
   for (int u = 0; u < U; ++u) {
     bool near_root;
@@ -231,14 +254,14 @@ __device__ __forceinline__ void sph_t_n(const Ray& r, const float* const* row,
   }
 }
 
-template <int U>
+template <int U, bool G = true>
 __device__ __forceinline__ void msph_t_n(const Ray& r,
                                          const float* const* row, float time,
                                          float a_dd, float* t, bool* out) {
   float a[U], b[U], disc[U];
 #pragma unroll
   for (int u = 0; u < U; ++u)
-    disc[u] = msph_disc(r, row[u], time, a_dd, &a[u], &b[u]);
+    disc[u] = msph_disc<G>(r, row[u], time, a_dd, &a[u], &b[u]);
 #pragma unroll
   for (int u = 0; u < U; ++u) t[u] = quad_t(a[u], b[u], disc[u], &out[u]);
 }
@@ -352,19 +375,6 @@ __global__ void pt_closest_kernel(const float* __restrict__ table,
   out_i[i] = g >= 0 ? __ldg(mats + g) : 0;
 }
 
-__global__ void pt_any_hit_kernel(const float* __restrict__ table, int T,
-                                  int S, int M,
-                                  const float* __restrict__ rays, int n,
-                                  unsigned char* __restrict__ occ) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const size_t N = n;
-  const Ray r{rays[i], rays[N + i], rays[2 * N + i],
-              rays[3 * N + i], rays[4 * N + i], rays[5 * N + i]};
-  occ[i] = any_fold(table, T, S, M, r, rays[6 * N + i], rays[7 * N + i])
-               ? 1 : 0;
-}
-
 // --------------------------------------------------------------- K6 helpers
 __device__ __forceinline__ void norm3(float& x, float& y, float& z) {
   const float inv = rsqrtf(fmaxf(x * x + y * y + z * z, 1e-24f));
@@ -455,6 +465,30 @@ __device__ __forceinline__ void round_rows(const float* table, int hi, int g,
     row[u] = table + (size_t)min(g + u * G, hi - 1) * kRow;
 }
 
+// Rows g + u (u < kU) of the type range ending at hi, as round_rows
+// picks them for one thread, read into registers with kVecs 16-byte loads
+// a row (a test reads the row's first 9, 4 or 7 floats: triangle 3,
+// sphere 1, moving sphere 2); row[u] = v[u].
+template <int kVecs>
+__device__ __forceinline__ void round_regs(const float* table, int hi, int g,
+                                           float (*v)[kRow],
+                                           const float** row) {
+#pragma unroll
+  for (int u = 0; u < kU; ++u) {
+    const float4* p = reinterpret_cast<const float4*>(
+        table + (size_t)min(g + u, hi - 1) * kRow);
+#pragma unroll
+    for (int q = 0; q < kVecs; ++q) {
+      const float4 x = __ldg(p + q);
+      v[u][4 * q] = x.x;
+      v[u][4 * q + 1] = x.y;
+      v[u][4 * q + 2] = x.z;
+      v[u][4 * q + 3] = x.w;
+    }
+    row[u] = v[u];
+  }
+}
+
 // closest_fold split over the group: each thread folds rows sub, sub + G,
 // ... of each type range in order, kU at a time (strict <), then the
 // group reduces to the serial fold's winner (least t, then least index).
@@ -542,6 +576,51 @@ __device__ __forceinline__ bool any_group(const float* __restrict__ table,
       return true;
   }
   return false;
+}
+
+// K5's fold: one thread a lane, in rounds of kU rows of each type range,
+// read into registers (round_regs); it leaves at the round of its first
+// occluder.
+__device__ __forceinline__ bool any_rounds(const float* __restrict__ table,
+                                           int T, int S, int K, const Ray& r,
+                                           float time, float tmax) {
+  const float a_dd = dot3(r.dx, r.dy, r.dz, r.dx, r.dy, r.dz);
+  const int TS = T + S;
+  const float* row[kU];
+  float v[kU][kRow];
+  float t[kU];
+  bool done = false;
+  for (int b = 0; b < T && !done; b += kU) {
+    round_regs<3>(table, T, b, v, row);
+    tri_t_n<kU, false>(r, row, t);
+    done = round_hit(t, b, 1, T, tmax);
+  }
+  for (int b = T; b < TS && !done; b += kU) {
+    round_regs<1>(table, TS, b, v, row);
+    sph_t_n<kU, false>(r, row, a_dd, t);
+    done = round_hit(t, b, 1, TS, tmax);
+  }
+  for (int b = TS; b < K && !done; b += kU) {
+    bool out[kU];
+    round_regs<2>(table, K, b, v, row);
+    msph_t_n<kU, false>(r, row, time, a_dd, t, out);
+    done = round_hit(t, b, 1, K, tmax);
+  }
+  return done;
+}
+
+// K5: every lane's shadow fold on its own thread, in rounds.
+__global__ void __launch_bounds__(kThreads) pt_any_hit_kernel(
+    const float* __restrict__ table, int T, int S, int M,
+    const float* __restrict__ o, const float* __restrict__ d,
+    const float* __restrict__ time, const float* __restrict__ tmax,
+    float tmax_all, int n, unsigned char* __restrict__ occ) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+  const Ray r{o[3 * i], o[3 * i + 1], o[3 * i + 2],
+              d[3 * i], d[3 * i + 1], d[3 * i + 2]};
+  const float tx = tmax != nullptr ? tmax[i] : tmax_all;
+  occ[i] = any_rounds(table, T, S, T + S + M, r, time[i], tx) ? 1 : 0;
 }
 
 // Two blocks an SM: ptxas then has up to 128 registers a thread and
@@ -836,15 +915,18 @@ extern "C" int drt_pt_closest(const void* table, const void* mats, int T,
   return static_cast<int>(cudaGetLastError());
 }
 
+// tmax: (R,) f32, or null for tmax_all on every lane.
 extern "C" int drt_pt_any_hit(const void* table, int T, int S, int M,
-                              const void* rays, int n, void* occ,
-                              void* stream) {
+                              const void* o, const void* d, const void* time,
+                              const void* tmax, float tmax_all, int n,
+                              void* occ, void* stream) {
   if (n > 0) {
     pt_any_hit_kernel<<<blocks_for(n), kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(table), T, S, M,
-        static_cast<const float*>(rays), n,
-        static_cast<unsigned char*>(occ));
+        static_cast<const float*>(o), static_cast<const float*>(d),
+        static_cast<const float*>(time), static_cast<const float*>(tmax),
+        tmax_all, n, static_cast<unsigned char*>(occ));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -33,7 +33,8 @@
 //     object, kU at a time written so that their arithmetic interleaves;
 //     the closest hit is a shuffle reduction (least t, then least index:
 //     the serial fold's winner), the shadow folds vote after each round
-//     and stop at the first occluder's round;
+//     and stop at the first occluder's round (primitives.cuh::any_group,
+//     which K2 shares);
 //   - the IEEE root of every missed sphere: sphere_t returns on a negative
 //     (or NaN) discriminant before its sqrt and divisions;
 //   - the winner's normal (a sqrt and three divisions) is computed once,
@@ -84,25 +85,6 @@ __device__ __forceinline__ bool grid_slab(const float* gbox,
   return !(t0 > te || te < 0.0f);
 }
 
-// Objects g + u * G (u < kU) of the table; indices past n_obj test object
-// n_obj - 1 again (their results are dropped), so that the kU tests are
-// always there to interleave.
-__device__ __forceinline__ void test_round(const float* __restrict__ table,
-                                           const int* __restrict__ types,
-                                           int n_obj, int g, int G,
-                                           const drt::Ray& r, float time,
-                                           bool mb, float* t) {
-  int typ[kU];
-  const float* row[kU];
-#pragma unroll
-  for (int u = 0; u < kU; ++u) {
-    const int k = min(g + u * G, n_obj - 1);
-    typ[u] = __ldg(types + k);
-    row[u] = table + (size_t)k * drt::kRowWidth;
-  }
-  drt::prim_t_n<true, kU>(typ, row, r, time, mb, t);
-}
-
 // The closest hit split over the group: each thread folds objects sub,
 // sub + G, ... in order, kU at a time (strict <), then the group reduces
 // to the serial fold's winner.  Returns its id or -1, and its t.
@@ -114,9 +96,10 @@ __device__ __forceinline__ int closest_group(const float* __restrict__ table,
   float bt = drt::kFltMax;
   int best = -1, unused = 0;
   const int G = grp.size;
+  const drt::MixedRows rows{table, types, n_obj};
   for (int g = grp.sub; g < n_obj; g += G * kU) {
     float t[kU];
-    test_round(table, types, n_obj, g, G, r, time, mb, t);
+    rows.round(g, G, r, time, mb, t);
 #pragma unroll
     for (int u = 0; u < kU; ++u) {
       if (g + u * G < n_obj && t[u] < bt) {
@@ -128,29 +111,6 @@ __device__ __forceinline__ int closest_group(const float* __restrict__ table,
   drt::group_min(grp, bt, best, unused);
   *t_out = bt;
   return best;
-}
-
-// Whether an object occludes the shadow ray (time 0), split over the
-// group: after each round of G x kU objects the group votes, so it stops
-// at the round of the first occluder.
-__device__ __forceinline__ bool any_group(const float* __restrict__ table,
-                                          const int* __restrict__ types,
-                                          int n_obj, const drt::Group& grp,
-                                          const drt::Ray& r, float dist,
-                                          int excl, int mode, bool mb) {
-  const int G = grp.size;
-  for (int b = 0; b < n_obj; b += G * kU) {
-    const int g = b + grp.sub;
-    float t[kU];
-    test_round(table, types, n_obj, g, G, r, 0.0f, mb, t);
-    bool h = false;
-#pragma unroll
-    for (int u = 0; u < kU; ++u)
-      h = h || (g + u * G < n_obj &&
-                drt::occludes(t[u], dist, g + u * G, excl, mode));
-    if (__any_sync(grp.mask, h)) return true;
-  }
-  return false;
 }
 
 // Two blocks an SM: ptxas then has up to 128 registers a thread and
@@ -268,8 +228,8 @@ __global__ void __launch_bounds__(kThreads, 2) whitted_level_kernel(
     if (!want ||
         (serial ? drt::any_fold(table, types, n_obj, sray, sdist, gid, mode,
                                 mb)
-                : any_group(table, types, n_obj, grp, sray, sdist, gid, mode,
-                            mb)))
+                : drt::any_group(drt::MixedRows{table, types, n_obj}, grp,
+                                 sray, sdist, gid, mode, mb)))
       continue;
     const float spec = powf(fmaxf(ndh, 1e-12f), shine);
 #pragma unroll

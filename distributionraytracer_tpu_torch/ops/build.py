@@ -38,12 +38,15 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signatures of the launch functions; every one returns cudaError_t.
 SIGNATURES = {
     # table, types, mats, n_obj, rays, n, motion_blur, out_f, out_i, stream
     "drt_closest_hit": [_P, _P, _P, _I, _P, _I, _I, _P, _P, _P],
-    # table, types, n_obj, rays, excl, n, mode, motion_blur, occ, stream
-    "drt_any_hit": [_P, _P, _I, _P, _P, _I, _I, _I, _P, _P],
+    # runs, ids, n_sph, n_tri, n_pln, n_box, o, d, dist, excl, valid, n,
+    # mode, occ, stream
+    "drt_any_hit": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P,
+                    _P],
     # table, types, mrow, n_obj, lights, light_quad, n_lights, gbox, rays,
     # n, motion_blur, spawn, ref_shadow, out, stream
     "drt_whitted_level": [_P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I,
@@ -61,8 +64,9 @@ SIGNATURES = {
     "drt_binned_shadow": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P],
     # table, mats, n_tri, n_sph, n_msph, rays, n, out_f, out_i, stream
     "drt_pt_closest": [_P, _P, _I, _I, _I, _P, _I, _P, _P, _P],
-    # table, n_tri, n_sph, n_msph, rays, n, occ, stream
-    "drt_pt_any_hit": [_P, _I, _I, _I, _P, _I, _P, _P],
+    # table, n_tri, n_sph, n_msph, o, d, time, tmax, tmax_all, n, occ,
+    # stream
+    "drt_pt_any_hit": [_P, _I, _I, _I, _P, _P, _P, _P, _F, _I, _P, _P],
     # table, mrow, n_tri, n_sph, n_msph, plights, n_pl, qlights, n_ql,
     # state, uniforms, n, russian_roulette, gradient_sky, stream
     "drt_pt_bounce": [_P, _P, _I, _I, _I, _P, _I, _P, _I, _P, _P, _I, _I,

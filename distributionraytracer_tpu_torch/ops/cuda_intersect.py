@@ -1,10 +1,14 @@
 """Brute-force closest hit (K1) and any hit (K2) as CUDA kernels.
 
-Counterpart of ``distributionraytracer_tpu.ops.pallas_intersect``.  The
-kernels (``csrc/intersect.cu`` over ``csrc/primitives.cuh``) walk the packed
+Counterpart of ``distributionraytracer_tpu.ops.pallas_intersect``.  K1
+(``csrc/intersect.cu`` over ``csrc/primitives.cuh``) walks the packed
 ``(O, 12)`` object table in insertion order with the strict-``<`` first-wins
-update, one thread per ray.  Their plain versions are
-:func:`ops.intersect.closest_hit_brute` and :func:`ops.intersect.any_hit_brute`.
+update, one thread per ray.  K2 tests the same objects in type runs
+(:func:`type_runs`), a lane's fold split over a group of threads where its
+block holds few valid lanes, and reads the callers' tensors in place.
+Their plain versions are :func:`ops.intersect.closest_hit_brute` and
+:func:`ops.intersect.any_hit_brute`; :func:`any_hit_runs` is K2's fold over
+its type runs in plain torch.
 
 Dispatch is by the tensors' device: CPU tensors take the plain version,
 CUDA tensors launch the kernel (a failed build or launch raises).  Each
@@ -18,11 +22,13 @@ from typing import NamedTuple, Optional
 import torch
 
 from distributionraytracer_tpu_torch.ops import build
-from distributionraytracer_tpu_torch.ops.common import FLT_MAX
+from distributionraytracer_tpu_torch.ops.common import EPSILON, FLT_MAX
 from distributionraytracer_tpu_torch.ops.intersect import (
-    HitResult, any_hit_brute, closest_hit_brute,
+    HitResult, any_hit_brute, box_t, closest_hit_brute, occluders, sphere_t,
 )
-from distributionraytracer_tpu_torch.scene.types import SceneData
+from distributionraytracer_tpu_torch.scene.types import (
+    OBJ_BOX, OBJ_PLANE, OBJ_SPHERE, OBJ_TRIANGLE, SceneData,
+)
 
 ANY_HIT_MODES = {"none": 0, "grid": 1, "bvh": 2}
 
@@ -35,16 +41,110 @@ def reset_launches():
         LAUNCHES[k] = 0
 
 
+# K2's type runs, in the order it tests them, with each type's row width.
+RUN_TYPES = (OBJ_SPHERE, OBJ_TRIANGLE, OBJ_PLANE, OBJ_BOX)
+RUN_WIDTHS = (4, 12, 12, 12)
+
+
 class ObjectTables(NamedTuple):
-    data: torch.Tensor  # (O,12) f32
+    data: torch.Tensor  # (O,12) f32, insertion order (K1)
     types: torch.Tensor  # (O,) i32
     mats: torch.Tensor  # (O,) i32
+    runs: torch.Tensor  # f32 rows in type runs (K2), see type_runs
+    ids: torch.Tensor  # (O,) i32 each run row's object id
+    counts: tuple  # objects of each type of RUN_TYPES
+
+
+def type_runs(data, types, n_obj: int):
+    """K2's tables: ``(runs, ids, counts)``.
+
+    ``runs`` is one flat f32 tensor: the spheres' ``[cx, cy, cz, r]`` rows
+    (16 bytes), then the triangles', planes' and boxes' 12-float rows of
+    ``data`` (``packed_objects``' layout), each type in insertion order;
+    ``ids`` (O,) i32 gives each run row's object id, the one an excluded id
+    is compared with; ``counts`` the number of each type of RUN_TYPES.
+    Every row starts 16 bytes into the tensor times a whole number."""
+    data, types = data[:n_obj], types[:n_obj]
+    rows, ids, counts = [], [], []
+    for typ, width in zip(RUN_TYPES, RUN_WIDTHS):
+        k = torch.nonzero(types == typ)[:, 0]
+        rows.append(data[k, :width].reshape(-1))
+        ids.append(k)
+        counts.append(int(k.numel()))
+    runs = torch.cat(rows).to(torch.float32).contiguous()
+    if runs.numel() == 0:  # no object: one row nothing reads
+        runs = data.new_zeros(4)
+    return runs, torch.cat(ids).to(torch.int32).contiguous(), tuple(counts)
 
 
 def object_tables(scene: SceneData) -> ObjectTables:
     data, types, mats = scene.packed_objects()
+    runs, ids, counts = type_runs(data, types, scene.static.n_objects)
     return ObjectTables(data.contiguous(), types.contiguous(),
-                        mats.contiguous())
+                        mats.contiguous(), runs, ids, counts)
+
+
+def run_rows(tb: ObjectTables):
+    """The runs of ``tb`` as ``(type, (n, width) rows, (n,) ids)``."""
+    out, a, b = [], 0, 0
+    for typ, width, n in zip(RUN_TYPES, RUN_WIDTHS, tb.counts):
+        out.append((typ, tb.runs[a:a + n * width].reshape(n, width),
+                    tb.ids[b:b + n]))
+        a, b = a + n * width, b + n
+    return out
+
+
+def _run_tmat(typ: int, o, d, rows):
+    """(R, N) t matrix of rays (R, 3) against run rows (N, width), a miss
+    FLT_MAX: every sum and product its own rounded operation, left to
+    right, in the kernels' order (as :func:`ops.intersect.hit_packed`),
+    so the plain fold decides every hit as K2 does."""
+    c = lambda a, k: a[:, k][:, None]  # (R,) component -> (R, 1)
+    r = lambda k: rows[:, k][None, :]  # (N,) field -> (1, N)
+    dx, dy, dz, ox, oy, oz = (c(d, 0), c(d, 1), c(d, 2), c(o, 0), c(o, 1),
+                              c(o, 2))
+    if typ == OBJ_SPHERE:
+        return sphere_t(o, d, None, rows[:, 0:3], rows[:, 3], False)
+    if typ == OBJ_TRIANGLE:
+        hx = dy * r(8) - dz * r(7)
+        hy = dz * r(6) - dx * r(8)
+        hz = dx * r(7) - dy * r(6)
+        a = r(3) * hx + r(4) * hy + r(5) * hz
+        nz = a != 0.0
+        f = 1.0 / torch.where(nz, a, torch.ones_like(a))
+        sx, sy, sz = ox - r(0), oy - r(1), oz - r(2)
+        u = f * (sx * hx + sy * hy + sz * hz)
+        qx = sy * r(5) - sz * r(4)
+        qy = sz * r(3) - sx * r(5)
+        qz = sx * r(4) - sy * r(3)
+        v = f * (qx * dx + qy * dy + qz * dz)
+        t = f * (r(6) * qx + r(7) * qy + r(8) * qz)
+        ok = (nz & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0)
+              & (t > EPSILON))
+        return torch.where(ok, t, FLT_MAX)
+    if typ == OBJ_PLANE:
+        denom = dx * r(0) + dy * r(1) + dz * r(2)
+        par = torch.abs(denom) >= EPSILON
+        t = -((ox * r(0) + oy * r(1) + oz * r(2)) + r(3)) / torch.where(
+            par, denom, torch.ones_like(denom))
+        return torch.where(par & (t > 0.0), t, FLT_MAX)
+    return box_t(o, d, rows[:, 0:3], rows[:, 3:6])
+
+
+def any_hit_runs(tb: ObjectTables, o, d, max_dist, exclude_obj,
+                 mode: str = "none"):
+    """K2's fold over its type runs in plain torch: occluded (R,) bool,
+    shadow rays at time 0, the compares of :func:`any_hit_brute`'s
+    ``mode`` with each row's object id for the excluded one.  Each test in
+    the kernels' operation order (:func:`_run_tmat`), so it equals K2 on
+    every lane; :func:`any_hit_brute` gives the same occlusion up to the
+    rounding of torch's cross product at a triangle's edges."""
+    occ = torch.zeros(o.shape[:-1], dtype=torch.bool, device=o.device)
+    for typ, rows, ids in run_rows(tb):
+        if rows.shape[0]:
+            occ |= occluders(_run_tmat(typ, o, d, rows), max_dist, ids,
+                             exclude_obj, mode).any(dim=1)
+    return occ
 
 
 def require_cuda(name: str, *tensors):
@@ -88,14 +188,19 @@ def launch_closest_hit(tb: ObjectTables, n_obj: int, rays, motion_blur: bool,
     build.check(err, "drt_closest_hit")
 
 
-def launch_any_hit(tb: ObjectTables, n_obj: int, rays, excl, mode: str,
-                   motion_blur: bool, occ):
-    """K2 on packed (8, R) rays and (R,) i32 excluded ids into (R,) bool."""
-    with torch.cuda.device(rays.device):
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def launch_any_hit(tb: ObjectTables, o, d, dist, excl, valid, mode: str,
+                   occ):
+    """K2 on (R,3) o and d, (R,) f32 dist, (R,) i32 excluded ids or None,
+    (R,) bool valid or None (every lane) into (R,) bool, read in place."""
+    with torch.cuda.device(o.device):
         err = build.load().lib.drt_any_hit(
-            tb.data.data_ptr(), tb.types.data_ptr(), n_obj,
-            rays.data_ptr(), excl.data_ptr(), rays.shape[1],
-            ANY_HIT_MODES[mode], int(motion_blur), occ.data_ptr(),
+            tb.runs.data_ptr(), tb.ids.data_ptr(), *tb.counts, o.data_ptr(),
+            d.data_ptr(), dist.data_ptr(), _ptr(excl), _ptr(valid),
+            o.shape[0], ANY_HIT_MODES[mode], occ.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     build.check(err, "drt_any_hit")
 
@@ -119,25 +224,44 @@ def closest_hit_kernel(scene: SceneData, o, d, time, motion_blur: bool,
                      obj_id=out_i[0], mat_id=out_i[1])
 
 
+def ray_inputs(name: str, o, d, *cols):
+    """``o`` and ``d`` as contiguous (R, 3) f32, each (R,) column as given
+    (already of its type), checked for shape and device: the tensors a
+    kernel reads in place (no copy where the caller's already are)."""
+    R = o.shape[0]
+    o = o.to(torch.float32).contiguous()
+    d = d.to(torch.float32).contiguous()
+    for t in (o, d):
+        if t.shape != (R, 3):
+            raise ValueError(f"{name}: expected ({R}, 3) rays, got "
+                             f"{tuple(t.shape)}")
+    for c in cols:
+        if c is not None and c.shape != (R,):
+            raise ValueError(f"{name}: expected a ({R},) stream, got "
+                             f"{tuple(c.shape)}")
+    require_cuda(name, o, d, *(c for c in cols if c is not None))
+    return o, d
+
+
 def any_hit_kernel(scene: SceneData, o, d, max_dist, exclude_obj,
                    motion_blur: bool, mode: str = "none", valid=None,
                    tables: Optional[ObjectTables] = None):
     """K2 on CUDA tensors; returns occluded (R,) bool.  Shadow rays carry
-    time 0; lanes with ``valid`` false report no occluder."""
+    time 0, where motion blur moves no sphere, so ``motion_blur`` changes
+    nothing; lanes with ``valid`` false report no occluder."""
     if mode not in ANY_HIT_MODES:
         raise ValueError(f"bad any-hit mode: {mode}")
-    R = o.shape[0]
     tb = tables if tables is not None else object_tables(scene)
-    rays = ray_streams(R, o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1],
-                       d[:, 2], max_dist, _valid_stream(valid, max_dist))
-    if exclude_obj is None:
-        exclude_obj = torch.full((R,), -1, dtype=torch.int32,
-                                 device=rays.device)
-    excl = exclude_obj.to(torch.int32).contiguous()
-    require_cuda("any_hit", rays, excl, tb.data, tb.types)
-    occ = torch.empty((R,), dtype=torch.bool, device=rays.device)
-    launch_any_hit(tb, scene.static.n_objects, rays, excl, mode, motion_blur,
-                   occ)
+    dist = max_dist.to(torch.float32).contiguous()
+    excl = (None if exclude_obj is None
+            else exclude_obj.to(torch.int32).contiguous())
+    valid = None if valid is None else valid.to(torch.bool).contiguous()
+    o, d = ray_inputs("any_hit", o, d, dist, excl, valid)
+    require_cuda("any_hit", o, tb.runs, tb.ids)
+    if tb.runs.data_ptr() % 16:
+        raise ValueError("any_hit: the type runs must be 16-byte aligned")
+    occ = torch.empty((o.shape[0],), dtype=torch.bool, device=o.device)
+    launch_any_hit(tb, o, d, dist, excl, valid, mode, occ)
     LAUNCHES["any_hit"] += 1
     return occ
 

@@ -4,8 +4,10 @@ K6 ``pt_bounce`` as CUDA kernels (``csrc/pt.cu``).
 Counterpart of ``distributionraytracer_tpu.ops.pallas_pt``.  The kernels walk
 the packed ``(K, 12)`` primitive table in ``hit_world``'s group order
 (triangles, spheres, moving spheres) with the strict-``<`` first-wins
-update, one thread per ray lane.  Plain versions: ``pathtracer.hit_world``
-(K4), ``pathtracer.any_hit`` (K5) and :func:`pt_bounce_plain` (K6).
+update, one thread per ray lane; K5 reads the callers' tensors in place and
+tests in rounds of rows side by side.  Plain versions:
+``pathtracer.hit_world`` (K4), ``pathtracer.any_hit`` (K5) and
+:func:`pt_bounce_plain` (K6).
 
 Dispatch is by the tensors' device: CPU tensors take the plain version,
 CUDA tensors launch the kernel (a failed build or launch raises).  Each
@@ -26,7 +28,7 @@ import torch
 from distributionraytracer_tpu_torch.integrator import pathtracer as PT
 from distributionraytracer_tpu_torch.ops import build
 from distributionraytracer_tpu_torch.ops.cuda_intersect import (
-    ray_streams, require_cuda,
+    ray_inputs, ray_streams, require_cuda,
 )
 from distributionraytracer_tpu_torch.scene.pt_scenes import (
     MT_DIELECTRIC, MT_DIFFUSE, MT_METAL, MT_PLASTIC, PTScene, SKY_GRADIENT,
@@ -132,12 +134,16 @@ def launch_closest(tb: PTTables, rays, out_f, out_i):
     build.check(err, "drt_pt_closest")
 
 
-def launch_any_hit(tb: PTTables, rays, occ):
-    """K5 on packed (8, R) rays into an (R,) bool output."""
-    with torch.cuda.device(rays.device):
+def launch_any_hit(tb: PTTables, o, d, time, tmax, occ):
+    """K5 on (R,3) o and d, (R,) f32 time, and tmax (R,) f32 or one float
+    for every lane, into an (R,) bool output, read in place."""
+    each = isinstance(tmax, torch.Tensor)
+    with torch.cuda.device(o.device):
         err = build.load().lib.drt_pt_any_hit(
-            tb.data.data_ptr(), *tb.counts, rays.data_ptr(), rays.shape[1],
-            occ.data_ptr(), _stream())
+            tb.data.data_ptr(), *tb.counts, o.data_ptr(), d.data_ptr(),
+            time.data_ptr(), tmax.data_ptr() if each else None,
+            0.0 if each else float(tmax), o.shape[0], occ.data_ptr(),
+            _stream())
     build.check(err, "drt_pt_any_hit")
 
 
@@ -161,16 +167,23 @@ def pt_closest_kernel(scene: PTScene, o, d, time,
 
 def pt_any_hit_kernel(scene: PTScene, o, d, time, tmax,
                       tables: Optional[PTTables] = None):
-    """K5 on CUDA tensors: occluded (R,) bool, tmin fixed at 1e-3."""
+    """K5 on CUDA tensors: occluded (R,) bool, tmin fixed at 1e-3.  ``tmax``
+    is an (R,) tensor or one value for every lane, which the kernel
+    broadcasts."""
     tb = _tables(scene, tables)
     R = o.shape[0]
-    tmax = torch.broadcast_to(torch.as_tensor(tmax, dtype=torch.float32,
-                                              device=o.device), (R,))
-    rays = ray_streams(R, o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1],
-                       d[:, 2], time, tmax)
-    require_cuda("pt_any_hit", rays, tb.data)
-    occ = torch.empty((R,), dtype=torch.bool, device=rays.device)
-    launch_any_hit(tb, rays, occ)
+    time = time.to(torch.float32).contiguous()
+    if isinstance(tmax, torch.Tensor) and tmax.dim() > 0:
+        tmax = tmax.to(torch.float32).contiguous()
+        o, d = ray_inputs("pt_any_hit", o, d, time, tmax)
+    else:
+        tmax = float(tmax)
+        o, d = ray_inputs("pt_any_hit", o, d, time)
+    require_cuda("pt_any_hit", o, tb.data)
+    if tb.data.data_ptr() % 16:
+        raise ValueError("pt_any_hit: the table must be 16-byte aligned")
+    occ = torch.empty((R,), dtype=torch.bool, device=o.device)
+    launch_any_hit(tb, o, d, time, tmax, occ)
     LAUNCHES["pt_any_hit"] += 1
     return occ
 

@@ -326,15 +326,22 @@ def any_hit_brute(scene: SceneData, o, d, time, max_dist, exclude_obj,
     if mode not in ("none", "grid", "bvh"):
         raise ValueError(f"bad any-hit mode: {mode}")
     occluded = torch.zeros(o.shape[:-1], dtype=torch.bool, device=o.device)
-    dist = max_dist[:, None]
     for _typ, gids, tmat in _type_tmats(scene, o, d, time, motion_blur):
-        if mode == "grid":
-            ok = tmat < dist
-        elif mode == "bvh":
-            ok = tmat <= dist + EPSILON
-        else:
-            ok = (tmat < dist) & (tmat > 1e-4)
-            if exclude_obj is not None:
-                ok &= gids[None, :] != exclude_obj[:, None]
-        occluded |= ok.any(dim=1)
+        occluded |= occluders(tmat, max_dist, gids, exclude_obj,
+                              mode).any(dim=1)
     return occluded
+
+
+def occluders(tmat, max_dist, gids, exclude_obj, mode: str):
+    """(R, N) bool: which objects of a t matrix occlude each shadow ray of
+    length ``max_dist`` (R,), by ``mode``'s compare (:func:`any_hit_brute`);
+    ``gids`` (N,) are the objects' ids for ``exclude_obj``."""
+    dist = max_dist[:, None]
+    if mode == "grid":
+        return tmat < dist
+    if mode == "bvh":
+        return tmat <= dist + EPSILON
+    ok = (tmat < dist) & (tmat > 1e-4)
+    if exclude_obj is not None:
+        ok &= gids[None, :] != exclude_obj[:, None]
+    return ok

@@ -91,17 +91,75 @@ def test_closest_hit_kernel_matches_plain(dev, mb):
     assert float((ids | off).float().mean()) <= BUDGET
 
 
-@pytest.mark.parametrize("mode", ["none", "grid", "bvh"])
-def test_any_hit_kernel_matches_plain(dev, mode):
-    scene = prim_scene(SceneBuilder).to(dev)
-    o, d, dist, ex = _cuda(dev, *occlusion_inputs(scene.static.n_objects, N,
-                                                  7))
-    ref = any_hit_brute(scene, o, d, torch.zeros_like(dist), dist, ex, False,
+# K2 cases: the share of valid lanes (None: no valid input), a lane count
+# that is not a multiple of the 256-lane blocks, every object listed twice
+K2_CASES = {
+    "valid-0%": {"valid": 0.0},
+    "valid-0.5%": {"valid": 0.005},
+    "valid-38%": {"valid": 0.38},
+    "valid-100%": {"valid": 1.0},
+    "no-valid-input": {"valid": None},
+    "ragged": {"valid": 0.38, "n": N + 77},
+    "twice": {"valid": 0.38, "twice": True},
+}
+
+
+def _k2_every_lane(scene, o, d, dist, ex, valid, mode, mb):
+    """K2 against any_hit_brute and against its fold over the type runs,
+    equal on every lane (an invalid lane: no occluder).  Returns the
+    reference."""
+    ref = any_hit_brute(scene, o, d, torch.zeros_like(dist), dist, ex, mb,
                         mode=mode)
-    occ = CI.any_hit_kernel(scene, o, d, dist, ex, False, mode=mode)
+    runs = CI.any_hit_runs(CI.object_tables(scene), o, d, dist, ex, mode)
+    occ = CI.any_hit_kernel(scene, o, d, dist, ex, mb, mode=mode,
+                            valid=valid)
     torch.cuda.synchronize()
-    assert 0.05 < float(ref.float().mean()) < 0.95
-    assert _mismatch(ref, occ) <= BUDGET
+    if valid is not None:
+        ref, runs = ref & valid, runs & valid
+    assert torch.equal(runs, ref)
+    assert torch.equal(occ, ref)
+    return ref
+
+
+@pytest.mark.parametrize("case", sorted(K2_CASES))
+@pytest.mark.parametrize("mb", [False, True], ids=["static", "motion"])
+@pytest.mark.parametrize("mode", ["none", "grid", "bvh"])
+def test_any_hit_kernel_matches_plain(dev, mode, mb, case):
+    """K2 on the scene of every primitive type (every type run), in each
+    mode, with and without motion blur (shadow rays carry time 0), at
+    valid shares from none to all, equal to plain on every lane."""
+    c = K2_CASES[case]
+    scene = prim_scene(SceneBuilder, twice=c.get("twice", False)).to(dev)
+    n = c.get("n", N)
+    o, d, dist, ex = _cuda(dev, *occlusion_inputs(scene.static.n_objects, n,
+                                                  71))
+    share = c["valid"]
+    valid = None if share is None else torch.from_numpy(
+        np.random.default_rng(72).random(n) < share).to(dev)
+    ref = _k2_every_lane(scene, o, d, dist, ex, valid, mode, mb)
+    if share is None or share >= 0.3:
+        assert 0.05 < float(ref.float().mean()) < 0.9
+
+
+@pytest.mark.parametrize("mode", ["none", "grid", "bvh"])
+def test_any_hit_kernel_lane_whose_only_occluder_is_excluded(dev, mode):
+    """Lanes whose one occluder (in mode none) is their excluded object:
+    unoccluded in mode none, occluded in the modes with no exclusion."""
+    from distributionraytracer_tpu_torch.ops.intersect import _type_tmats
+    scene = prim_scene(SceneBuilder).to(dev)
+    o, d, dist, _ = _cuda(dev, *occlusion_inputs(scene.static.n_objects, N,
+                                                 73))
+    okm = torch.zeros((N, scene.static.n_objects), dtype=torch.bool,
+                      device=dev)
+    for _typ, gids, tm in _type_tmats(scene, o, d, torch.zeros_like(dist),
+                                      False):
+        okm[:, gids.long()] = (tm < dist[:, None]) & (tm > 1e-4)
+    one = okm.sum(1) == 1
+    assert float(one.float().mean()) > 0.05
+    ex = torch.where(one, okm.float().argmax(1), -1).to(torch.int32)
+    ref = _k2_every_lane(scene, o, d, dist, ex, None, mode, False)
+    assert bool(ref[one].all()) if mode != "none" else not bool(
+        ref[one].any())
 
 
 @pytest.mark.parametrize("spawn", [True, False], ids=["spawn", "leaf"])
@@ -304,6 +362,33 @@ def test_pt_query_kernels_match_plain(dev, si):
     torch.cuda.synchronize()
     assert 0.05 < float(ref_occ.float().mean()) < 0.95
     assert _mismatch(ref_occ, occ) <= BUDGET
+
+
+@pytest.mark.parametrize("si", [0, 1, 2, 3, 4])
+def test_pt_any_hit_kernel_equals_plain_on_every_lane(dev, si):
+    """K5 against pathtracer.any_hit on every lane of each GLSL scene:
+    moving spheres at times in [0, 1), tmax at or below the 1e-3 tmin on a
+    tenth of the lanes (no occluder there), a ragged lane count, and one
+    tmax for every lane."""
+    scene = _pt_scene(dev, si)
+    eye, lo, hi = PT_VIEWS[si]
+    n = N + 77
+    rng = np.random.default_rng(80 + si)
+    o = rng.uniform(lo, hi, (n, 3)).astype(np.float32)
+    _, d, tm = pt_rays(n, 81 + si, eye, lo, hi)
+    tmax = rng.uniform(0.0, 20.0, n).astype(np.float32)
+    low = rng.random(n) < 0.1
+    tmax[low] = rng.uniform(-1e-3, 1e-3, int(low.sum()))
+    o, d, tm, tmax, low = _cuda(dev, o, d, tm, tmax, low)
+    ref = PT.any_hit(scene, o, d, tm, 1e-3, tmax)
+    occ = CP.pt_any_hit_kernel(scene, o, d, tm, tmax)
+    torch.cuda.synchronize()
+    assert torch.equal(occ, ref)
+    assert not bool(ref[low].any())
+    if scene.tri_v0.shape[0] + scene.sph_center.shape[0] > 4:
+        assert 0.05 < float(ref[~low].float().mean()) < 0.95
+    ref5 = PT.any_hit(scene, o, d, tm, 1e-3, torch.full_like(tmax, 5.0))
+    assert torch.equal(CP.pt_any_hit_kernel(scene, o, d, tm, 5.0), ref5)
 
 
 def _bounce_lanes_off(ref, got):

@@ -40,6 +40,7 @@ def torch_samples(samples) -> TorchSampleSet:
                           t(samples.lens), t(samples.time))
 
 
-def prim_scene(ties=False):
+def prim_scene(ties=False, twice=False):
     """``torch_scenes.prim_scene`` built by the JAX package."""
-    return torch_scenes.prim_scene(jax_builder.SceneBuilder, ties=ties)
+    return torch_scenes.prim_scene(jax_builder.SceneBuilder, ties=ties,
+                                   twice=twice)

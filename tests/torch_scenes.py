@@ -14,14 +14,16 @@ def random_rays(n, seed=0, spread=3.0):
     return o, d, t
 
 
-def prim_scene(builder_cls, ties=False):
+def prim_scene(builder_cls, ties=False, twice=False):
     """Every primitive type, interleaved in insertion order; glass, metal
     and diffuse materials; one point and one quad light.  ``builder_cls``
     is either package's SceneBuilder, so both build the same scene.
 
     ``ties``: each sphere and triangle is added a second time, after all
     the others and in another material, so every hit on one is an exact
-    tie in t that the lower object id must win (its id and material)."""
+    tie in t that the lower object id must win (its id and material).
+    ``twice``: every object, planes and boxes too, is added a second time
+    after all the others, in another material."""
     b = builder_cls()
     b.set_camera([0, 1, 6], [0, 0, 0], [0, 1, 0], 45, 0.01, 16, 12, 0, 1)
     m0 = b.add_material([0.6, 0.6, 0.2], 0.8, [0.2, 0.2, 0.2], 0.0, 10, 0, 1)
@@ -30,20 +32,25 @@ def prim_scene(builder_cls, ties=False):
     spheres = (([-0.8, 0, 0], 0.8, m2), ([0.5, 1.5, -1], 0.6, m1))
     tris = (([0, 0, 0], [1.5, 0, 0], [0, 1.5, 0.5], m1),
             ([-2, -1, -2], [2, -1, -2], [0, 2, -2], m0))
-    b.add_sphere(*spheres[0])
-    b.add_plane_hessian([0, 1, 0], 1.0, m0)
-    b.add_triangle(*tris[0])
-    b.add_box([1, -1, -1], [2, 0.5, 0], m2)
-    b.add_sphere(*spheres[1])
-    b.add_triangle(*tris[1])
-    b.add_box([-2.5, -0.5, 1], [-1.5, 0.5, 2], m1)
-    b.add_plane_hessian([0, 0, 1], 4.0, m2)
+    objs = ((b.add_sphere, spheres[0]),
+            (b.add_plane_hessian, ([0, 1, 0], 1.0, m0)),
+            (b.add_triangle, tris[0]),
+            (b.add_box, ([1, -1, -1], [2, 0.5, 0], m2)),
+            (b.add_sphere, spheres[1]),
+            (b.add_triangle, tris[1]),
+            (b.add_box, ([-2.5, -0.5, 1], [-1.5, 0.5, 2], m1)),
+            (b.add_plane_hessian, ([0, 0, 1], 4.0, m2)))
+    for add, args in objs:
+        add(*args)
+    other = {m0: m1, m1: m2, m2: m0}
     if ties:
-        other = {m0: m1, m1: m2, m2: m0}
         for c, r, m in spheres:
             b.add_sphere(c, r, other[m])
         for v0, v1, v2, m in tris:
             b.add_triangle(v0, v1, v2, other[m])
+    if twice:
+        for add, args in objs:
+            add(*args[:-1], other[args[-1]])
     b.add_point_light([2, 4, 2], [1, 1, 1])
     b.add_quad_light([-2, 4, 2], [1, 1, 1], [-1, 4, 2], [-2, 4, 3], 4)
     return b.build()
