@@ -6,7 +6,7 @@
 1. Prints the card's name and power limit; exits non-zero without CUDA.
 2. Builds the kernels from ``distributionraytracer_tpu_torch/csrc`` with
    nvcc (``ops/build.py``) and prints the build time and ptxas's register
-   and spill report (K2's, K3's, K5's, K6's and the four K7/K8 walks'
+   and spill report (K2's to K6's, the four K7/K8 walks' and K10's
    registers, shared memory and spills on lines of their own).
 3. Holds each Whitted kernel against its plain torch version on the card,
    on 65,536 random rays against a scene with all four primitive types, a
@@ -23,7 +23,8 @@
    of scene 0 (triangles, spheres, moving spheres at times in [0, 1)) and
    scene 3 (quad light, cubemap sky with synthetic faces):
    - K4 closest: hit and material equal, t within rtol 2e-4, normals beyond
-     1e-3 on under 0.5% of the hits;
+     1e-3 on under 0.5% of the hits (and 7c: every lane of every launch of
+     the staged frame's middle tile equal to ``hit_world``);
    - K5 any hit: occlusion equal;
    - K6 bounce, from camera rays and from the state after three bounces,
      on the same uniforms: alive flags equal, origins within 1e-5 of their
@@ -85,8 +86,11 @@
    - the BVH scene with the switch off (``binned-primary+grouped-packet``):
      K9 and K7, no K10.
    Rows 240:272 of each are held to plain torch as in 6b.  K10 is held to
-   its plain version on each binned+ route's own primary shadow inputs
-   (occlusion equal on every lane) and compared with K7's any-hit on the
+   its plain version in both shadow modes on each binned+ route's own
+   primary shadow inputs (occlusion equal on every lane), its work list
+   (the chains' records, rows and item starts) to ``shadow_work_plain``,
+   and it prints E, the work items, the most entries an item streams (at
+   most E) and its bare launch; it is compared with K7's any-hit on the
    same inputs (lanes differing printed, at most 0.2%).  Five warm frames
    of the binned+ BVH route and five of the switched-off route alternate:
    medians, rays/s and peak memory of each.
@@ -118,10 +122,12 @@
    launch to its plain version.
 7c. Records the inputs of every K2 launch of the Whitted staged route
    (``render_from_samples(..., inter=brute_intersectors(...))``) on its
-   middle tile and of every K5 launch of the PT staged body
+   middle tile and of every K4 and K5 launch of the PT staged body
    (``render_pt(..., queries=kernel_queries(...))``) on its middle tile,
    and of every K2 launch of one cost-brute frame of each mode (BVH, grid):
-   K2 at each level 0-4 with its lane count and valid share, K5 at each
+   K2 at each level 0-4 with its lane count and valid share, K4 at each
+   bounce 0-9 with the share of lanes whose ray moved since the last
+   bounce, K5 at each
    bounce 0-9 and point light with its lane count and the share of lanes
    live before the query (the lanes whose answer the staged body keeps),
    each launch timed bare and held to its plain version on every lane
@@ -133,7 +139,8 @@
    and prints the device-busy time, the idle share and the top device
    kernels, K3's and K6's summed time in their frames beside their
    single-launch and per-tile times, and K7's (accelerated frame) and
-   K8's (one legacy-route frame) beside theirs.
+   K8's (one legacy-route frame) beside theirs; one frame of the binned+
+   and the switched-off box-ground routes, with K10's frame sum.
 
 Prints the kernels' JSON line, then the result line last.  Any failure
 raises, so the exit code is non-zero and no result line is printed.
@@ -1023,8 +1030,10 @@ def light_phase(torch, np, dev, card, counted, mesh=MESH, slab=ACCEL_SLAB,
 
 
 def light_rows(torch, dev, card, st, errs, add_row):
-    """K10 against its plain version and K7's any-hit on each binned+ route's
-    own primary shadow inputs, and K10's row (the BVH route's inputs)."""
+    """K10 against its plain version in both shadow modes and against K7's
+    any-hit on each binned+ route's own primary shadow inputs, its work
+    list (items of at most E entries) against its plain version, its bare
+    launch per route, and K10's row (the BVH route's inputs)."""
     from distributionraytracer_tpu_torch.accel import cuda_binned as CBN
     from distributionraytracer_tpu_torch.accel import cuda_bvh as CBV
     from distributionraytracer_tpu_torch.accel.bvh import threaded_walk
@@ -1035,6 +1044,7 @@ def light_rows(torch, dev, card, st, errs, add_row):
     samples = st["samples"]
     errs["K10"] = 0.0
     row = None
+    split = hasattr(CBN, "shadow_work_plain")  # items spread over the card
     for key, mode in (("bvh", "bvh"), ("grid", "grid")):
         r = st[key]
         sc = r.scene
@@ -1051,27 +1061,64 @@ def light_rows(torch, dev, card, st, errs, add_row):
         tabs = r.tabs.tabs if key == "grid" else r.tabs
         lb = bins.lights
         types = tuple(sorted(set(sc.static.obj_types)))
-        occ = CBN.binned_shadow_kernel(tabs, lb, lid, o, d, dist, valid, mode)
-        stats = {}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ref = CBN.binned_shadow_plain(tabs, lb, lid, o, d, dist, valid, mode,
-                                      types, stats)
-        torch.cuda.synchronize()
-        plain_s = time.perf_counter() - t0
-        bad = int((occ != ref).sum())
-        check(bad == 0, f"K10 ({mode} mode, binned+ {key} route): {bad} "
-              "lanes differ from the plain version")
+        differing = {}
+        for m in (mode, "grid" if mode == "bvh" else "bvh"):
+            occ = CBN.binned_shadow_kernel(tabs, lb, lid, o, d, dist, valid,
+                                           m)
+            stats = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = CBN.binned_shadow_plain(tabs, lb, lid, o, d, dist, valid, m,
+                                          types, stats)
+            torch.cuda.synchronize()
+            if m == mode:
+                plain_s, own, own_stats = time.perf_counter() - t0, occ, stats
+            differing[m] = int((occ != ref).sum())
+            check(differing[m] == 0, f"K10 ({m} mode, binned+ {key} route): "
+                  f"{differing[m]} lanes differ from the plain version")
+        occ, stats = own, own_stats
         live = int(valid.sum())
         ce = stats["chain_entries"].double()
         print(f"K10 ({mode} mode) vs plain, binned+ {key} route, on {nl} "
               f"lanes ({live} live, {nl // 128} chains): occlusion equal "
-              f"({float(ref[valid].float().mean()):.3f} occluded), "
+              f"({float(occ[valid].float().mean()):.3f} occluded), "
               f"{stats['entries']} entries streamed (a chain: mean "
               f"{float(ce.mean()):.1f}, median {float(ce.median()):.0f}, "
               f"99th percentile {float(ce.quantile(0.99)):.0f}, max "
               f"{int(ce.max())}), {stats['obj_tests']} object tests; plain "
               f"{plain_s:.2f} s  PASS")
+        launch, got, last_work = binned_shadow_launch(
+            torch, CBN, CBV, tabs, lb, lid, o, d, dist, valid, mode)
+        launch()
+        check(torch.equal(got, occ), f"K10 ({key}): a bare launch differs "
+              "from the wrapper's")
+        if split:
+            E, work = CBN.ITEM_ENTRIES, last_work()
+            plain = CBN.shadow_work_plain(lb, lid, o, valid)
+            nrow = (plain.chains[:, 4] - plain.chains[:, 3] + 1).clamp(min=0)
+            upto = (torch.arange(lb.k + 1, device=dev)[None, :]
+                    <= nrow[:, None])
+            same = (torch.equal(work.chains, plain.chains)
+                    and torch.equal(work.item_start, plain.item_start)
+                    and torch.equal(torch.where(upto, work.rows, 0),
+                                    plain.rows))
+            check(same, f"K10 ({key}): the kernel's work list differs from "
+                  "shadow_work_plain's")
+            it, _ = CBN.shadow_item_entries(lb, plain)
+            items, most = int(plain.item_start[-1]), int(
+                torch.bincount(it).max())
+            check(most <= E, f"K10 ({key}): an item streams {most} > E")
+            split_s = (f"E {E}, {items} work items over {nl // 128} chains "
+                       f"({int(plain.chains[:, 6].sum())} stream positions, "
+                       f"{it.numel()} entries), most entries an item streams "
+                       f"{most}, work list equal to shadow_work_plain's")
+        else:
+            split_s = (f"one block a chain, most entries a block streams "
+                       f"{int(ce.max())}")
+        ms = timed_ms(torch, launch, 20)
+        print(f"K10 binned+ {key} route: {split_s}; bare launch {ms:.4f} ms; "
+              f"lanes differing {differing['bvh']} (bvh mode), "
+              f"{differing['grid']} (grid mode) | {card}")
         walk = CBV.packet_shadow_kernel(tabs, o, d, dist, valid,
                                         shadow_mode=mode)
         diff = int((walk != occ)[valid].sum())
@@ -1080,9 +1127,9 @@ def light_rows(torch, dev, card, st, errs, add_row):
         print(f"K10 vs K7 shadow ({mode} mode), binned+ {key} route: {diff} "
               f"of {live} live lanes differ  PASS")
         if key == "bvh":
-            row = (tabs, lb, lid, o, d, dist, valid, stats, plain_s)
+            row = (tabs, lb, lid, o, d, dist, valid, stats, plain_s, launch)
 
-    tabs, lb, lid, o, d, dist, valid, stats, plain_s = row
+    tabs, lb, lid, o, d, dist, valid, stats, plain_s, k10_bare = row
     nl = o.shape[0]
     # K10's bound: the least work that gives this occlusion, the smaller of
     # its own stream (each lane's tests up to its first occluder, each bin
@@ -1092,7 +1139,7 @@ def light_rows(torch, dev, card, st, errs, add_row):
     types = tuple(sorted(set(st["bvh"].scene.static.obj_types)))
     threaded_walk(tabs, o, d, None, valid, shadow_dist=dist,
                   types_present=types, stats=wst)
-    own = (nl * (4 * 8 + 4 + 1)
+    own = (nl * (4 * 7 + 1 + 4 + 1)
            + (lb.tile_start.numel() + lb.frames.numel()) * 4
            + stats["bin_entries"] * 8 + stats["groups"] * 8 * 64,
            type_ops(torch, stats["type_tests"])
@@ -1106,10 +1153,7 @@ def light_rows(torch, dev, card, st, errs, add_row):
               f"({nb / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP)")
     nbytes, ops = min(own, walk, key=lambda w: bound(*w)[0])
     rays = CBV._rays(o, d, dist, valid)
-    lid32 = lid.to(torch.int32).contiguous()
     occ_out = torch.empty((nl,), dtype=torch.bool, device=dev)
-    k10_bare = lambda: CBN.launch_binned_shadow(tabs, lb, lid32, rays, "bvh",
-                                                occ_out)
     add_row("K10", st["runs"]["bvh+"][0]["K10"], "binned+ route frame", nl,
             k10_bare,
             lambda: CBN.binned_shadow_kernel(tabs, lb, lid, o, d, dist, valid),
@@ -1595,6 +1639,66 @@ def pt_any_hit_launch(torch, CI, CP, a):
     return (lambda: CP.launch_any_hit(tb, o, d, t, tmax, occ)), occ
 
 
+def pt_closest_launch(torch, CI, CP, a):
+    """A bare K4 launch on ``a`` (``pt_closest``'s arguments by name) into
+    fresh outputs, and a function returning them as (hit, t, normal,
+    material).  K4 reads the callers' tensors in place; its first version
+    (its ``launch_closest`` takes ``rays``) reads (7, R) streams, packed
+    here once, outside the launch."""
+    import inspect
+    tb = a["tables"] if a["tables"] is not None else CP.pt_tables(a["scene"])
+    o, d, t = a["o"], a["d"], a["time"].to(torch.float32).contiguous()
+    R = o.shape[0]
+    if "rays" in inspect.signature(CP.launch_closest).parameters:
+        rays = CI.ray_streams(R, o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1],
+                              d[:, 2], t)
+        of = torch.empty((4, R), device=o.device)
+        oi = torch.empty((R,), dtype=torch.int32, device=o.device)
+        return ((lambda: CP.launch_closest(tb, rays, of, oi)),
+                lambda: (of[0] < 1e4, of[0], of[1:4].T, oi))
+    out = CP.closest_outputs(R, o.device)
+    return ((lambda: CP.launch_closest(tb, o, d, t, out)),
+            lambda: (out.hit, out.t, out.normal, out.mat))
+
+
+def pt_closest_differing(torch, PT, a, got):
+    """Lanes where K4's (hit, t, normal, material) differ from hit_world's
+    on the same inputs: hit or material (the winner's) unequal, or, on a
+    hit, t beyond rtol 1e-5 or a normal beyond 1e-4 (the card tests'
+    tolerances)."""
+    hit, t, nrm, mat = got
+    ref = PT.hit_world(a["scene"], a["o"], a["d"], a["time"])
+    bad = (hit != ref.hit) | (mat != ref.mat)
+    bad |= ref.hit & (((t - ref.t).abs() > 1e-5 * ref.t.abs())
+                      | ((nrm - ref.normal).abs().amax(-1) > 1e-4))
+    return int(bad.sum())
+
+
+def binned_shadow_launch(torch, CBN, CBV, tabs, lb, lid, o, d, dist, valid,
+                         mode):
+    """A bare K10 launch on these inputs into a fresh output: (launch, its
+    output, a function returning the work list of its last launch, or
+    None).  K10 reads the callers' tensors in place; its first version
+    (its ``launch_binned_shadow`` takes ``rays``: one block a chain) reads
+    (8, R) streams packed here once."""
+    import inspect
+    R = o.shape[0]
+    occ = torch.empty((R,), dtype=torch.bool, device=o.device)
+    if "rays" in inspect.signature(CBN.launch_binned_shadow).parameters:
+        rays = CBV._rays(o, d, dist, valid)
+        lid32 = lid.to(torch.int32).contiguous()
+        return (lambda: CBN.launch_binned_shadow(tabs, lb, lid32, rays, mode,
+                                                 occ)), occ, None
+    o, d, dist, valid, lid = CBN.shadow_inputs(o, d, dist, valid, lid)
+    last = []
+
+    def launch():
+        last[:] = [CBN.launch_binned_shadow(tabs, lb, lid, o, d, dist, valid,
+                                            mode, occ)]
+
+    return launch, occ, lambda: last[0]
+
+
 def k2_lanes_differing(torch, CI, a, occ):
     """Lanes where K2's ``occ`` differs from its plain versions, as
     (against ``any_hit_brute``, against ``any_hit_runs`` or None where the
@@ -1650,9 +1754,9 @@ def same_answer(torch, a, occ, ref):
 def staged_breakdown(torch, card, scene, cfg, samples, pts, pcfg, paths,
                      pt_frame, cost):
     """K2 at each launch of the Whitted staged route's middle tile and of
-    one cost-brute frame of each mode, K5 at each launch of the PT staged
-    body's middle tile: bare launch times on the recorded inputs, each
-    launch held to its plain version on every lane.  ``cost`` maps a mode
+    one cost-brute frame of each mode, K4 and K5 at each launch of the PT
+    staged body's middle tile: bare launch times on the recorded inputs,
+    each launch held to its plain version on every lane.  ``cost`` maps a mode
     to its cost-brute renderer and SampleSet.  Returns the per-launch
     rows."""
     from distributionraytracer_tpu_torch.integrator import pathtracer as PT
@@ -1665,7 +1769,7 @@ def staged_breakdown(torch, card, scene, cfg, samples, pts, pcfg, paths,
     from distributionraytracer_tpu_torch.ops import cuda_intersect as CI
     from distributionraytracer_tpu_torch.ops import cuda_pt as CP
 
-    out = {"K2": [], "K2cost": {}, "K5": []}
+    out = {"K2": [], "K2cost": {}, "K4": [], "K5": []}
     # ---- K2, the Whitted staged route's middle tile ----
     H, W, S = samples.time.shape
     tiles = -(-(H * W * S) // cfg.tile_rays)
@@ -1715,7 +1819,7 @@ def staged_breakdown(torch, card, scene, cfg, samples, pts, pcfg, paths,
               f"lanes, bare-launch sum {ms_sum:.4f} ms; vs plain: {verdict} "
               f"| {card}")
         out["K2cost"][mode] = (calls, ms_sum)
-    # ---- K5, the PT staged body's middle tile ----
+    # ---- K4 and K5, the PT staged body's middle tile ----
     B, n_pl = pcfg.max_bounces, pts.plight_pos.shape[0]
     ptiles = -(-paths // pcfg.pt_tile_rays)
     k = ptiles // 2
@@ -1744,6 +1848,19 @@ def staged_breakdown(torch, card, scene, cfg, samples, pts, pcfg, paths,
             prev = hits[b - 1][0]
             alive = ((a_c["o"] != prev["o"]).any(-1)
                      | (a_c["d"] != prev["d"]).any(-1))
+        launch4, got4 = pt_closest_launch(torch, CI, CP, a_c)
+        launch4()
+        g4 = got4()
+        check(torch.equal(g4[0], h.hit) and torch.equal(g4[3], h.mat),
+              f"K4 bounce {b}: the bare launch differs from the frame's")
+        bad4 = pt_closest_differing(torch, PT, a_c, g4)
+        check(bad4 == 0, f"K4 bounce {b}: {bad4} lanes differ from hit_world")
+        ms4 = timed_ms(torch, launch4, 20)
+        share4 = float(alive.float().mean())
+        print(f"K4 bounce {b} (PT staged body, tile {k}): {h.hit.shape[0]} "
+              f"lanes, live {share4:.4f}: {ms4:.4f} ms; vs hit_world: lanes "
+              f"differing {bad4} | {card}")
+        out["K4"].append((b, share4, ms4))
         live = alive & h.hit
         for j in range(n_pl):
             a, ref = shadow[b * n_pl + j]
@@ -1760,6 +1877,8 @@ def staged_breakdown(torch, card, scene, cfg, samples, pts, pcfg, paths,
                   f"{occ.shape[0]} lanes, live {share:.4f}: {ms:.4f} ms; vs "
                   f"plain: lanes differing {bad} | {card}")
             out["K5"].append((b, j, share, ms))
+    print(f"K4, one tile's bounces: {sum(x[-1] for x in out['K4']):.4f} "
+          f"ms | {card}")
     print(f"K5, one tile's bounces and lights: "
           f"{sum(x[-1] for x in out['K5']):.4f} ms | {card}")
     return out
@@ -1901,6 +2020,10 @@ def main():
                                              "pt_bounce_kernel",
                                              "pt_any_hit_kernel",
                                              "any_hit_kernel",
+                                             "pt_closest_kernel",
+                                             "binned_shadow_kernel",
+                                             "shadow_chains_kernel",
+                                             "shadow_items_kernel",
                                              *WALK_KERNELS)).items():
         print(f"ptxas {k}: {'; '.join(lines)}")
 
@@ -2473,15 +2596,15 @@ def main():
     hits = float(h.hit.sum())
     e4, _, _ = cmp_pt_closest(pts, o, d, t)
 
-    rays4 = CI.ray_streams(n, o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1],
-                           d[:, 2], t)
-    of4 = torch.empty((4, n), device=dev)
-    oi4 = torch.empty((n,), dtype=torch.int32, device=dev)
-    row("K4", n, lambda: CP.launch_closest(ptb, rays4, of4, oi4),
+    # K4 reads o, d, time and writes PTHit: hit (a byte), t, pos, normal,
+    # material; pos = o + d * s is 6 operations a lane
+    launch4, _ = pt_closest_launch(torch, CI, CP, dict(
+        scene=pts, o=o, d=d, time=t, tables=ptb))
+    row("K4", n, launch4,
         lambda: CP.pt_closest_kernel(pts, o, d, t, tables=ptb),
         lambda: PT.hit_world(pts, o, d, t),
-        n * f4(7 + 4 + 1) + K * f4(12 + 1),
-        pt_closest_ops + hits * PT_WINNER_OPS)
+        n * (f4(7 + 1 + 3 + 3 + 1) + 1) + K * f4(12 + 1),
+        pt_closest_ops + hits * PT_WINNER_OPS + n * 6)
 
     # K5: the staged body's shadow rays towards point light 0
     nrm = torch.nn.functional.normalize(h.normal, dim=-1)
@@ -2602,9 +2725,16 @@ def main():
     walk_frame_sums(aprof, lprof, rows, walk_sums, card)
     for key, label in (("bvh", "binned+ frame"),
                        ("off", "binned-primary+ box-ground frame")):
-        profile_frame(torch, lambda r=lit[key]: r.render_with_samples(
+        bprof = profile_frame(torch, lambda r=lit[key]: r.render_with_samples(
             lit["samples"]), lit["median"]["bvh+" if key == "bvh" else "off"],
             label)
+        if key == "bvh":  # K10: one kernel, or its three passes
+            got = [kernel_sum(bprof, k) for k in (
+                "binned_shadow_kernel", "shadow_chains_kernel",
+                "shadow_scan_kernel", "shadow_items_kernel")]
+            print(f"K10 in the profiled binned+ frame: "
+                  f"{sum(n for n, _ in got)} device kernels, "
+                  f"{sum(ms for _, ms in got):.3f} ms summed | {card}")
 
     phase("end")
     print(json.dumps({"kernels": rows}))

@@ -21,7 +21,11 @@ live origins cover that are no farther from the light than its farthest
 origin: an occluder on the segment from an origin to the light lies in
 the origin's tile and nearer the light.  K10 (``csrc/binned.cu``) and its
 plain version :func:`binned_shadow_plain` compute that any-hit, with the
-BVH compare ``t <= dist + EPSILON`` or the grid's ``t < dist``.
+BVH compare ``t <= dist + EPSILON`` or the grid's ``t < dist``.  The
+chains' streams are skewed (a few hold thousands of entries), so K10
+splits each into work items of at most ``ITEM_ENTRIES`` entries that warps
+all over the card take and OR into the output; :func:`shadow_work_plain`
+and :func:`shadow_item_entries` are the plain versions of its work list.
 
 Eligibility (:func:`binned_supported`) is the JAX package's: no infinite
 planes (their default boxes gate which rays test them), no motion blur
@@ -54,7 +58,9 @@ from distributionraytracer_tpu_torch.integrator.render import _block_perm
 from distributionraytracer_tpu_torch.integrator.whitted import Intersectors
 from distributionraytracer_tpu_torch.ops import build
 from distributionraytracer_tpu_torch.ops.common import EPSILON, FLT_MAX
-from distributionraytracer_tpu_torch.ops.cuda_intersect import require_cuda
+from distributionraytracer_tpu_torch.ops.cuda_intersect import (
+    ray_inputs, require_cuda,
+)
 from distributionraytracer_tpu_torch.ops.intersect import hit_packed
 from distributionraytracer_tpu_torch.scene.types import (
     ACCEL_GRID, OBJ_BOX, OBJ_PLANE, OBJ_SPHERE, OBJ_TRIANGLE, SceneData,
@@ -68,6 +74,9 @@ MAX_CANDIDATES = 1 << 24  # (chain, group) pairs kept at most
 P_BUCKET = 16384  # candidate arrays are padded to a multiple of this
 LIGHT_K = 128  # light-frustum tiles per axis
 SHADOW_PAIRS = 1 << 17  # (lane, entry) pairs a step of binned_shadow_plain
+# K10: stream positions (bin entries) a work item at most; csrc/binned.cu's
+# kItemEntries, which the kernel uses (chosen by measurement, PERF.md)
+ITEM_ENTRIES = 128
 # The renderer builds light bins (and routes the primary shadow query to
 # K10) only while this is set.  Off, as in the JAX package.
 SHADOW_BINNING = False
@@ -559,14 +568,11 @@ def binned_closest_kernel(tabs: PacketTables, bins: PrimaryBins, o, d, time,
 
 
 # ------------------------------------------------------------------ K10
-def _chain_spans(lbins: LightBins, light_id, O, V):
+def _chain_rects(lbins: LightBins, light_id, O, V):
     """Each chain's light (its first lane's), the tile rectangle of its live
-    lanes' origins and its distance cut, then its bin entries in streaming
-    order (row by row, tile by tile, each tile's entries ascending in
-    distance) no farther from the light than the cut.  Returns the entries'
-    chains and positions in ``lbins.group``, sorted by chain.  Every f32
-    operation is rounded on its own, in the kernel's order."""
-    C, dev = O.shape[0], O.device
+    lanes' origins (tx0, tx1, ty0, ty1; ty1 = -1 where no lane is live)
+    and its distance cut maxd.  Every f32 operation is rounded on its own,
+    in the kernel's order."""
     K = lbins.k
     lid = light_id[:, 0].long()
     fr = lbins.frames[lid]  # (C, 16)
@@ -590,6 +596,18 @@ def _chain_spans(lbins: LightBins, light_id, O, V):
     od2 = vx * vx + vy * vy + vz * vz
     maxd = torch.sqrt(torch.clamp(torch.where(V, od2, torch.zeros_like(od2))
                                   .amax(1), min=0.0)) + 1e-3
+    return lid, tx0, tx1, ty0, ty1, maxd
+
+
+def _chain_spans(lbins: LightBins, light_id, O, V):
+    """Each chain's light, rectangle and cut (:func:`_chain_rects`), then its
+    bin entries in streaming order (row by row, tile by tile, each tile's
+    entries ascending in distance) no farther from the light than the cut.
+    Returns the entries' chains and positions in ``lbins.group``, sorted by
+    chain."""
+    C, dev = O.shape[0], O.device
+    K = lbins.k
+    lid, tx0, tx1, ty0, ty1, maxd = _chain_rects(lbins, light_id, O, V)
     # (chain, tile) pairs, row by row, x fastest
     nrow = torch.where(ty1 >= 0, ty1 - ty0 + 1, torch.zeros_like(ty1))
     ncol = torch.where(ty1 >= 0, tx1 - tx0 + 1, torch.zeros_like(tx1))
@@ -702,28 +720,144 @@ def binned_shadow_plain(tabs: PacketTables, lbins: LightBins, light_id, o, d,
     return occ.reshape(n)[:R]
 
 
-def launch_binned_shadow(tabs: PacketTables, lbins: LightBins, light_id,
-                         rays, shadow_mode: str, occ):
-    """K10 on packed (8, R) rays (row 6: the shadow distance) and (R,) i32
-    light ids into (R,) bool; counts nothing."""
-    with torch.cuda.device(rays.device):
+class ShadowWork(NamedTuple):
+    """K10's work list (its first two passes' output): ``chains`` (C, 8) i32
+    rows ``[light, tx0, tx1, ty0, ty1, maxd (f32 bits), positions,
+    items]``; ``rows`` (C, K+1) i32, row r of chain c's rectangle starting
+    at position ``rows[c, r]`` of its stream (``rows[c, nrow]``: its
+    positions; entries past nrow are not written); ``item_start`` (C+1,)
+    i32, the exclusive scan of the items; ``counter`` (1,) i32, the units
+    taken (the kernel's scratch)."""
+
+    chains: torch.Tensor
+    rows: torch.Tensor
+    item_start: torch.Tensor
+    counter: torch.Tensor
+
+
+def shadow_work_plain(lbins: LightBins, light_id, o, valid=None,
+                      item_entries: int = ITEM_ENTRIES) -> ShadowWork:
+    """Plain version of K10's first two passes.  Chain c's stream is the
+    rows ty0..ty1 of its rectangle, each row the bin entries of its tiles
+    tx0..tx1, one contiguous span of ``lbins.group`` (x fastest); its
+    entries are the positions no farther from the light than maxd, which
+    in each tile is the list up to the cut (distances ascend in a tile).
+    A work item is ``item_entries`` consecutive positions of one chain's
+    stream; ``rows`` is zero past each chain's rows."""
+    C = -(-o.shape[0] // LANES)
+    n, dev, K = C * LANES, o.device, lbins.k
+    lb = lbins.to(dev)
+    v = (torch.ones((o.shape[0],), dtype=torch.bool, device=dev)
+         if valid is None else valid.to(torch.bool))
+    lid, tx0, tx1, ty0, ty1, maxd = _chain_rects(
+        lb, _pad_lanes(light_id.to(dev), n).reshape(C, LANES),
+        _pad_lanes(o, n).reshape(C, LANES, 3),
+        _pad_lanes(v, n).reshape(C, LANES))
+    nrow = torch.where(ty1 >= 0, ty1 - ty0 + 1, torch.zeros_like(ty1))
+    r = torch.arange(K, device=dev)
+    live = r[None, :] < nrow[:, None]  # (C, K)
+    base = (lid[:, None] * K + ty0[:, None] + r[None, :]) * K
+    ts = lb.tile_start.long()
+    ix = lambda t: ts[torch.where(live, t, 0)]
+    span = torch.where(live, ix(base + tx1[:, None] + 1)
+                       - ix(base + tx0[:, None]), 0)
+    rows = torch.zeros((C, K + 1), dtype=torch.int64, device=dev)
+    rows[:, 1:] = torch.cumsum(span, 1)
+    rows = torch.where(torch.arange(K + 1, device=dev)[None, :]
+                       <= nrow[:, None], rows, 0)
+    positions = span.sum(1)
+    items = -(-positions // item_entries)
+    item_start = torch.zeros((C + 1,), dtype=torch.int64, device=dev)
+    item_start[1:] = torch.cumsum(items, 0)
+    chains = torch.stack([lid, tx0, tx1, ty0, ty1,
+                          maxd.view(torch.int32).long(), positions, items], 1)
+    i32 = lambda x: x.to(torch.int32)
+    return ShadowWork(i32(chains), i32(rows), i32(item_start),
+                      torch.zeros((1,), dtype=torch.int32, device=dev))
+
+
+def shadow_item_entries(lbins: LightBins, work: ShadowWork,
+                        item_entries: int = ITEM_ENTRIES):
+    """The entries each work item of ``work`` streams, as the kernel finds
+    them: item (c, k) takes positions k E .. k E + E - 1 of chain c's
+    stream, a position's row is the last whose start is at or below it,
+    and it keeps those no farther from the light than maxd.  Returns the
+    entries' items and positions in ``lbins.group``, in streaming order."""
+    dev, K = work.chains.device, lbins.k
+    lb = lbins.to(dev)
+    ch = work.chains.long()
+    ist = work.item_start.long()
+    C = ch.shape[0]
+    items = ch[:, 7]
+    item = torch.arange(int(ist[-1]), device=dev)
+    c = torch.repeat_interleave(torch.arange(C, device=dev), items)
+    first = (item - ist[c]) * item_entries
+    n = torch.minimum(ch[c, 6] - first, torch.full_like(first,
+                                                        item_entries))
+    ie = torch.repeat_interleave(item, n)
+    ce = c[ie]
+    v = first[ie] + torch.arange(ie.numel(), device=dev) - \
+        torch.repeat_interleave(torch.cumsum(n, 0) - n, n)
+    nrow = ch[ce, 4] - ch[ce, 3] + 1
+    rows = work.rows.long()
+    # the last row whose start is at or below v (rows past nrow: never)
+    past = torch.arange(K + 1, device=dev)[None, :] >= nrow[:, None]
+    ro = ((rows[ce] <= v[:, None]) & ~past).sum(1) - 1
+    ts = lb.tile_start.long()
+    t0 = (ch[ce, 0] * K + ch[ce, 3] + ro) * K + ch[ce, 1]
+    pos = ts[t0] + v - rows[ce, ro]
+    keep = lb.dist[pos] <= ch[ce, 5].to(torch.int32).view(torch.float32)
+    return ie[keep], pos[keep]
+
+
+def launch_binned_shadow(tabs: PacketTables, lbins: LightBins, light_id, o,
+                         d, dist, valid, shadow_mode: str,
+                         occ) -> ShadowWork:
+    """K10 on (R,3) o and d, (R,) f32 dist, (R,) bool valid or None (every
+    lane live) and (R,) i32 light ids, read in place, into an (R,) bool
+    output; counts nothing.  Returns the work list it wrote into its
+    scratch (one allocation, views into it)."""
+    C, K = -(-o.shape[0] // LANES), lbins.k
+    scratch = torch.empty((C * (8 + K + 2) + 2,), dtype=torch.int32,
+                          device=o.device)
+    cut = scratch.split([C * 8, C * (K + 1), C + 1, 1])
+    work = ShadowWork(cut[0].view(C, 8), cut[1].view(C, K + 1), cut[2],
+                      cut[3])
+    with torch.cuda.device(o.device):
         err = build.load().lib.drt_binned_shadow(
             tabs.objs.data_ptr(), lbins.tile_start.data_ptr(),
-            lbins.frames.data_ptr(), lbins.k, lbins.group.data_ptr(),
-            lbins.dist.data_ptr(), light_id.data_ptr(), rays.data_ptr(),
-            rays.shape[1], int(shadow_mode == "grid"), occ.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+            lbins.frames.data_ptr(), K, lbins.group.data_ptr(),
+            lbins.dist.data_ptr(), light_id.data_ptr(), o.data_ptr(),
+            d.data_ptr(), dist.data_ptr(),
+            None if valid is None else valid.data_ptr(), o.shape[0],
+            int(shadow_mode == "grid"), *(t.data_ptr() for t in work),
+            occ.data_ptr(), torch.cuda.current_stream().cuda_stream)
     build.check(err, "drt_binned_shadow")
+    return work
+
+
+def shadow_inputs(o, d, dist, valid, light_id):
+    """K10's inputs as it reads them in place: (o, d, dist, valid or None,
+    light ids), checked for shape and device."""
+    dist = dist.to(torch.float32).contiguous()
+    valid = None if valid is None else valid.to(torch.bool).contiguous()
+    lid = light_id.to(torch.int32).contiguous()
+    o, d = ray_inputs("binned_shadow", o, d, dist, valid, lid)
+    return o, d, dist, valid, lid
 
 
 def binned_shadow_kernel(tabs: PacketTables, lbins: LightBins, light_id, o,
                          d, dist, valid=None, shadow_mode: str = "bvh"):
     """K10 on CUDA tensors: occluded (R,) bool."""
-    rays = _rays(o, d, dist, valid)
-    lid = light_id.to(torch.int32).contiguous()
-    require_cuda("binned_shadow", rays, lid, tabs.objs, *lbins)
-    occ = torch.empty((o.shape[0],), dtype=torch.bool, device=rays.device)
-    launch_binned_shadow(tabs, lbins, lid, rays, shadow_mode, occ)
+    o, d, dist, valid, lid = shadow_inputs(o, d, dist, valid, light_id)
+    require_cuda("binned_shadow", tabs.objs, *lbins)
+    if tabs.objs.data_ptr() % 16:
+        raise ValueError("binned_shadow: the slot records must be 16-byte "
+                         "aligned")
+    R = o.shape[0]
+    occ = torch.empty((R,), dtype=torch.bool, device=o.device)
+    launch_binned_shadow(tabs, lbins, lid, o, d, dist, valid, shadow_mode,
+                         occ)
     LAUNCHES["binned_shadow"] += 1
     return occ
 

@@ -13,10 +13,22 @@
 // per closest query and up to once more per point light (rays x primitives
 // x (1 + lights) tests; the tests are uncontracted, so each mul/add issues
 // alone); memory traffic is the lane's streams in and out.
-// K4: one thread per lane, primitives walked in hit_world's order
-// (triangles, spheres, moving spheres) with strict < so the first of equal
-// t wins; the three groups are separate loops, so there is no
-// per-primitive type branch; tables are warp-uniform __ldg reads.
+// K4, redesigned for the H100.  What held the first version back: one
+// thread a lane ran a serial chain of uncontracted tests, one primitive
+// at a time with scalar loads, and its wrapper stacked seven (R,) columns
+// into a (7, R) copy before every launch and transposed the normals
+// after.  The design, as K5's:
+//   - it reads the callers' (R,3) o and d and (R,) time in place, and
+//     writes PTHit's fields in their layouts (hit, t, pos, (R,3) normal,
+//     material), so the wrapper launches nothing else;
+//   - one thread a lane, every lane (the Pallas kernel has no valid
+//     input, and the staged body asks for every lane), 128 a block;
+//   - within each type run (hit_world's order: triangles, spheres, moving
+//     spheres) a thread tests kClosestU = 2 rows side by side (one, four
+//     and no launch bound measured slower), read with 16-byte loads into
+//     registers (closest_rounds), and takes each round's results in table
+//     order with strict <, so the first of equal t wins;
+//   - the winner's normal and material are fetched once, after the fold.
 // K5, redesigned for the H100.  What held the first version back: a serial
 // chain of up to 105 tests, each ending in a branch that may leave the
 // fold, so nothing overlapped one test with the next; scalar row loads;
@@ -79,8 +91,8 @@
 //   mats (K,) i32; mrow (K,16) [type, albedo3, spec3, emissive3, rough,
 //     refidx, refract3, stripe];
 //   plights (Lp,6) [pos, color]; qlights (Lq,12) [pos, e1, e2, color];
-//   K4 rays (7,R) ox oy oz dx dy dz time -> out_f (4,R) t nx ny nz,
-//      out_i (R,) i32 material;
+//   K4 o, d (R,3), time (R,) -> hit (R,) u8, t (R,), pos (R,3), normal
+//      (R,3), material (R,) i32; the table 16-byte aligned;
 //   K5 o, d (R,3), time (R,), tmax (R,) or a scalar -> occ (R,) u8; the
 //      table 16-byte aligned;
 //   K6 state (20,R) ox oy oz dx dy dz time col3 thr3 alive mw3 md3, read
@@ -96,7 +108,8 @@ namespace {
 
 constexpr int kThreads = 128;               // K4, K5: threads a block
 constexpr int kBounceThreads = drt::kLaneBlock;  // K6: threads, and lanes
-constexpr int kU = drt::kUnroll;  // K6: primitives a thread tests side by side
+constexpr int kU = drt::kUnroll;  // K5, K6: rows a thread tests side by side
+constexpr int kClosestU = 2;      // K4: rows a thread tests side by side
 constexpr int kRow = 12;
 constexpr int kMat = 16;
 constexpr float kEps = 1e-3f;  // common.glsl:7
@@ -356,25 +369,6 @@ __device__ bool any_fold(const float* __restrict__ table, int T, int S, int M,
   return false;
 }
 
-__global__ void pt_closest_kernel(const float* __restrict__ table,
-                                  const int* __restrict__ mats, int T, int S,
-                                  int M, const float* __restrict__ rays,
-                                  int n, float* __restrict__ out_f,
-                                  int* __restrict__ out_i) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const size_t N = n;
-  const Ray r{rays[i], rays[N + i], rays[2 * N + i],
-              rays[3 * N + i], rays[4 * N + i], rays[5 * N + i]};
-  float t, nrm[3];
-  const int g = closest_fold(table, T, S, M, r, rays[6 * N + i], &t, nrm);
-  out_f[i] = t;
-  out_f[N + i] = nrm[0];
-  out_f[2 * N + i] = nrm[1];
-  out_f[3 * N + i] = nrm[2];
-  out_i[i] = g >= 0 ? __ldg(mats + g) : 0;
-}
-
 // --------------------------------------------------------------- K6 helpers
 __device__ __forceinline__ void norm3(float& x, float& y, float& z) {
   const float inv = rsqrtf(fmaxf(x * x + y * y + z * z, 1e-24f));
@@ -465,16 +459,16 @@ __device__ __forceinline__ void round_rows(const float* table, int hi, int g,
     row[u] = table + (size_t)min(g + u * G, hi - 1) * kRow;
 }
 
-// Rows g + u (u < kU) of the type range ending at hi, as round_rows
+// Rows g + u (u < U) of the type range ending at hi, as round_rows
 // picks them for one thread, read into registers with kVecs 16-byte loads
 // a row (a test reads the row's first 9, 4 or 7 floats: triangle 3,
 // sphere 1, moving sphere 2); row[u] = v[u].
-template <int kVecs>
+template <int kVecs, int U = kU>
 __device__ __forceinline__ void round_regs(const float* table, int hi, int g,
                                            float (*v)[kRow],
                                            const float** row) {
 #pragma unroll
-  for (int u = 0; u < kU; ++u) {
+  for (int u = 0; u < U; ++u) {
     const float4* p = reinterpret_cast<const float4*>(
         table + (size_t)min(g + u, hi - 1) * kRow);
 #pragma unroll
@@ -607,6 +601,83 @@ __device__ __forceinline__ bool any_rounds(const float* __restrict__ table,
     done = round_hit(t, b, 1, K, tmax);
   }
   return done;
+}
+
+// K4's fold: one thread a lane, in rounds of kClosestU rows of each type
+// range read into registers (round_regs) and tested side by side, each
+// round's results taken in table order with strict <, so the first of
+// equal t wins, as in the serial fold.  Returns the winner's index or
+// -1, its t (kBig when none) and a moving sphere's near-root flag.
+__device__ __forceinline__ int closest_rounds(const float* __restrict__ table,
+                                              int T, int S, int K,
+                                              const Ray& r, float time,
+                                              float* t_out, bool* out_flag) {
+  const float a_dd = dot3(r.dx, r.dy, r.dz, r.dx, r.dy, r.dz);
+  const int TS = T + S;
+  const float* row[kClosestU];
+  float v[kClosestU][kRow];
+  float t[kClosestU];
+  float bt = kBig;
+  int best = -1;
+  bool bout = false;
+  for (int b = 0; b < T; b += kClosestU) {
+    round_regs<3, kClosestU>(table, T, b, v, row);
+    tri_t_n<kClosestU, false>(r, row, t);
+#pragma unroll
+    for (int u = 0; u < kClosestU; ++u)
+      if (b + u < T && t[u] < bt) { bt = t[u]; best = b + u; }
+  }
+  for (int b = T; b < TS; b += kClosestU) {
+    round_regs<1, kClosestU>(table, TS, b, v, row);
+    sph_t_n<kClosestU, false>(r, row, a_dd, t);
+#pragma unroll
+    for (int u = 0; u < kClosestU; ++u)
+      if (b + u < TS && t[u] < bt) { bt = t[u]; best = b + u; }
+  }
+  for (int b = TS; b < K; b += kClosestU) {
+    bool out[kClosestU];
+    round_regs<2, kClosestU>(table, K, b, v, row);
+    msph_t_n<kClosestU, false>(r, row, time, a_dd, t, out);
+#pragma unroll
+    for (int u = 0; u < kClosestU; ++u)
+      if (b + u < K && t[u] < bt) {
+        bt = t[u];
+        best = b + u;
+        bout = out[u];
+      }
+  }
+  *t_out = bt;
+  *out_flag = bout;
+  return best;
+}
+
+// K4: every lane's closest hit on its own thread, in rounds; the winner's
+// normal and material once, after the fold.  Writes PTHit's fields in
+// its layouts: hit, t, pos = o + d * (hit ? t : 1), normal, material.
+__global__ void __launch_bounds__(kThreads) pt_closest_kernel(
+    const float* __restrict__ table, const int* __restrict__ mats, int T,
+    int S, int M, const float* __restrict__ o, const float* __restrict__ d,
+    const float* __restrict__ time, int n, unsigned char* __restrict__ hit,
+    float* __restrict__ t_out, float* __restrict__ pos,
+    float* __restrict__ normal, int* __restrict__ mat) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+  const Ray r{o[3 * i], o[3 * i + 1], o[3 * i + 2],
+              d[3 * i], d[3 * i + 1], d[3 * i + 2]};
+  const float tm = time[i];
+  float bt, nrm[3];
+  bool bout;
+  const int g = closest_rounds(table, T, S, T + S + M, r, tm, &bt, &bout);
+  winner_normal(table, T, S, r, tm, bt, g, bout, nrm);
+  const float s = g >= 0 ? bt : 1.0f;
+  hit[i] = g >= 0 ? 1 : 0;
+  t_out[i] = bt;
+  pos[3 * i] = add(r.ox, mul(r.dx, s));
+  pos[3 * i + 1] = add(r.oy, mul(r.dy, s));
+  pos[3 * i + 2] = add(r.oz, mul(r.dz, s));
+#pragma unroll
+  for (int k = 0; k < 3; ++k) normal[3 * i + k] = nrm[k];
+  mat[i] = g >= 0 ? __ldg(mats + g) : 0;
 }
 
 // K5: every lane's shadow fold on its own thread, in rounds.
@@ -903,14 +974,19 @@ int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 }  // namespace
 
 extern "C" int drt_pt_closest(const void* table, const void* mats, int T,
-                              int S, int M, const void* rays, int n,
-                              void* out_f, void* out_i, void* stream) {
+                              int S, int M, const void* o, const void* d,
+                              const void* time, int n, void* hit, void* t,
+                              void* pos, void* normal, void* mat,
+                              void* stream) {
   if (n > 0) {
     pt_closest_kernel<<<blocks_for(n), kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(table), static_cast<const int*>(mats), T,
-        S, M, static_cast<const float*>(rays), n, static_cast<float*>(out_f),
-        static_cast<int*>(out_i));
+        S, M, static_cast<const float*>(o), static_cast<const float*>(d),
+        static_cast<const float*>(time), n,
+        static_cast<unsigned char*>(hit), static_cast<float*>(t),
+        static_cast<float*>(pos), static_cast<float*>(normal),
+        static_cast<int*>(mat));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -59,11 +59,14 @@ SIGNATURES = {
     # objs, chain_start, n_chains, cand, cand_dist, rays, n, motion_blur,
     # out_f, out_i, stream
     "drt_binned_closest": [_P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P],
-    # objs, tile_start, frames, K, group, gdist, light_id, rays, n,
-    # grid_mode, occ, stream
-    "drt_binned_shadow": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P],
-    # table, mats, n_tri, n_sph, n_msph, rays, n, out_f, out_i, stream
-    "drt_pt_closest": [_P, _P, _I, _I, _I, _P, _I, _P, _P, _P],
+    # objs, tile_start, frames, K, group, gdist, light_id, o, d, dist,
+    # valid, n, grid_mode, chains, rows, item_start, counter, occ, stream
+    "drt_binned_shadow": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
+                          _I, _P, _P, _P, _P, _P, _P],
+    # table, mats, n_tri, n_sph, n_msph, o, d, time, n, hit, t, pos,
+    # normal, mat, stream
+    "drt_pt_closest": [_P, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P,
+                       _P, _P],
     # table, n_tri, n_sph, n_msph, o, d, time, tmax, tmax_all, n, occ,
     # stream
     "drt_pt_any_hit": [_P, _I, _I, _I, _P, _P, _P, _P, _F, _I, _P, _P],

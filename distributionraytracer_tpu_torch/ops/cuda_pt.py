@@ -4,8 +4,9 @@ K6 ``pt_bounce`` as CUDA kernels (``csrc/pt.cu``).
 Counterpart of ``distributionraytracer_tpu.ops.pallas_pt``.  The kernels walk
 the packed ``(K, 12)`` primitive table in ``hit_world``'s group order
 (triangles, spheres, moving spheres) with the strict-``<`` first-wins
-update, one thread per ray lane; K5 reads the callers' tensors in place and
-tests in rounds of rows side by side.  Plain versions:
+update, one thread per ray lane; K4 and K5 read the callers' tensors in
+place and test in rounds of rows side by side, and K4 writes ``PTHit``'s
+fields in their layouts.  Plain versions:
 ``pathtracer.hit_world`` (K4), ``pathtracer.any_hit`` (K5) and
 :func:`pt_bounce_plain` (K6).
 
@@ -28,14 +29,13 @@ import torch
 from distributionraytracer_tpu_torch.integrator import pathtracer as PT
 from distributionraytracer_tpu_torch.ops import build
 from distributionraytracer_tpu_torch.ops.cuda_intersect import (
-    ray_inputs, ray_streams, require_cuda,
+    ray_inputs, require_cuda,
 )
 from distributionraytracer_tpu_torch.scene.pt_scenes import (
     MT_DIELECTRIC, MT_DIFFUSE, MT_METAL, MT_PLASTIC, PTScene, SKY_GRADIENT,
 )
 
 EPS = 1e-3  # common.glsl:7
-BIG = 1e4  # hit_world's default tmax: t >= BIG is a miss
 PI = float(np.float32(3.14159265358979))
 
 # Kernel launches since the last reset_launches(), by kernel.
@@ -122,16 +122,26 @@ def _stream():
 
 
 # ---------------------------------------------------------------- K4, K5
-# The launch_* functions run a kernel on streams that are already packed;
-# they count nothing.  The *_kernel wrappers pack, launch and count.
-def launch_closest(tb: PTTables, rays, out_f, out_i):
-    """K4 on packed (7, R) rays into (4, R) f32 and (R,) i32 outputs."""
-    with torch.cuda.device(rays.device):
+# The launch_* functions run a kernel on tensors already checked; they count
+# nothing.  The *_kernel wrappers check, allocate, launch and count.
+def launch_closest(tb: PTTables, o, d, time, out: PT.PTHit):
+    """K4 on (R,3) o and d and (R,) f32 time, read in place, into ``out``'s
+    tensors: hit (R,) bool, t (R,), pos (R,3), normal (R,3), mat (R,)
+    i32."""
+    with torch.cuda.device(o.device):
         err = build.load().lib.drt_pt_closest(
             tb.data.data_ptr(), tb.mats.data_ptr(), *tb.counts,
-            rays.data_ptr(), rays.shape[1], out_f.data_ptr(),
-            out_i.data_ptr(), _stream())
+            o.data_ptr(), d.data_ptr(), time.data_ptr(), o.shape[0],
+            *(x.data_ptr() for x in out), _stream())
     build.check(err, "drt_pt_closest")
+
+
+def closest_outputs(R: int, device) -> PT.PTHit:
+    """Uninitialised outputs of K4."""
+    e = lambda *shape, dtype=torch.float32: torch.empty(
+        shape, dtype=dtype, device=device)
+    return PT.PTHit(hit=e(R, dtype=torch.bool), t=e(R), pos=e(R, 3),
+                    normal=e(R, 3), mat=e(R, dtype=torch.int32))
 
 
 def launch_any_hit(tb: PTTables, o, d, time, tmax, occ):
@@ -151,18 +161,15 @@ def pt_closest_kernel(scene: PTScene, o, d, time,
                       tables: Optional[PTTables] = None) -> PT.PTHit:
     """K4 on CUDA tensors: hit_world at its default tmax."""
     tb = _tables(scene, tables)
-    R = o.shape[0]
-    rays = ray_streams(R, o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1],
-                       d[:, 2], time)
-    require_cuda("pt_closest", rays, tb.data, tb.mats)
-    out_f = torch.empty((4, R), dtype=torch.float32, device=rays.device)
-    out_i = torch.empty((R,), dtype=torch.int32, device=rays.device)
-    launch_closest(tb, rays, out_f, out_i)
+    time = time.to(torch.float32).contiguous()
+    o, d = ray_inputs("pt_closest", o, d, time)
+    require_cuda("pt_closest", o, tb.data, tb.mats)
+    if tb.data.data_ptr() % 16:
+        raise ValueError("pt_closest: the table must be 16-byte aligned")
+    out = closest_outputs(o.shape[0], o.device)
+    launch_closest(tb, o, d, time, out)
     LAUNCHES["pt_closest"] += 1
-    t = out_f[0]
-    hit = t < BIG
-    pos = o + d * torch.where(hit, t, 1.0)[:, None]
-    return PT.PTHit(hit=hit, t=t, pos=pos, normal=out_f[1:4].T, mat=out_i)
+    return out
 
 
 def pt_any_hit_kernel(scene: PTScene, o, d, time, tmax,

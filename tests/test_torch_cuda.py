@@ -37,8 +37,8 @@ from distributionraytracer_tpu_torch.scene import pt_scenes as PS
 
 from torch_scenes import (
     compare_levels, crowd_scene, level_inputs, occlusion_inputs, prim_scene,
-    PT_PRIM_LEAVES, PT_VIEWS, pt_crowd_leaves, pt_rays, pt_tie_leaves,
-    random_rays, synthetic_faces,
+    PT_PRIM_LEAVES, PT_VIEWS, pt_crowd_leaves, pt_own_material_leaves,
+    pt_rays, pt_tie_leaves, random_rays, synthetic_faces,
 )
 
 torch.set_num_threads(1)
@@ -391,6 +391,68 @@ def test_pt_any_hit_kernel_equals_plain_on_every_lane(dev, si):
     assert torch.equal(CP.pt_any_hit_kernel(scene, o, d, tm, 5.0), ref5)
 
 
+def _pt_own_materials(dev, si, ties=False):
+    """Scene si with each primitive in a material of its own (a hit's
+    material is the winner's index); ``ties``: every triangle and sphere
+    listed twice first."""
+    base = _pt_scene(dev, si)
+    leaves = {n: getattr(base, n).cpu().numpy() for n in PS.PTScene._LEAVES}
+    if ties:
+        leaves = pt_tie_leaves(leaves)
+    return PS.pt_scene_from_numpy(pt_own_material_leaves(leaves),
+                                  base.sky_mode).to(dev)
+
+
+@pytest.mark.parametrize("si", [0, 1, 2, 3, 4])
+def test_pt_closest_kernel_equals_plain_on_every_lane(dev, si):
+    """K4 against pathtracer.hit_world on every lane of each GLSL scene,
+    each primitive in a material of its own, so the material names the
+    winner: origins at the view's eye and spread over its box, moving
+    spheres at times in [0, 1), a ragged lane count.  Hit, winner and
+    position's hit flag equal on every lane; t to rtol 1e-5 and normals to
+    1e-4 on every hit lane (test_pt_query_kernels_match_plain allows rtol
+    2e-4, and normals beyond 1e-3 on 0.5% of the hits)."""
+    scene = _pt_own_materials(dev, si)
+    eye, lo, hi = PT_VIEWS[si]
+    n = N + 77
+    rng = np.random.default_rng(90 + si)
+    o, d, tm = pt_rays(n, 91 + si, eye, lo, hi)
+    half = rng.random(n) < 0.5
+    o[half] = rng.uniform(lo, hi, (int(half.sum()), 3))
+    o, d, tm = _cuda(dev, o.astype(np.float32), d, tm)
+    ref = PT.hit_world(scene, o, d, tm)
+    h = CP.pt_closest_kernel(scene, o, d, tm)
+    torch.cuda.synchronize()
+    assert 0.05 < float(ref.hit.float().mean())
+    assert torch.equal(h.hit, ref.hit)
+    assert torch.equal(h.mat, ref.mat)
+    hit = ref.hit
+    assert bool(((h.t - ref.t).abs() <= 1e-5 * ref.t.abs())[hit].all())
+    assert bool(torch.equal(h.t[~hit], ref.t[~hit]))
+    assert float((h.normal - ref.normal).abs()[hit].max()) <= 1e-4
+    assert torch.equal(h.normal[~hit], ref.normal[~hit])
+    assert float((h.pos - ref.pos).abs().max()) <= 1e-4 * max(
+        1.0, float(ref.pos.abs().max()))
+
+
+@pytest.mark.parametrize("si", [0, 3])
+def test_pt_closest_kernel_ties_take_the_lower_index(dev, si):
+    """K4 with every triangle and sphere listed twice (each in a material
+    of its own): every hit on one is an exact tie in t, which the lower
+    index, the original, wins, as in hit_world."""
+    scene = _pt_own_materials(dev, si, ties=True)
+    o, d, tm = _cuda(dev, *pt_rays(N, 95 + si, *PT_VIEWS[si]))
+    ref = PT.hit_world(scene, o, d, tm)
+    h = CP.pt_closest_kernel(scene, o, d, tm)
+    torch.cuda.synchronize()
+    assert float(ref.hit.float().mean()) > 0.3
+    assert torch.equal(h.hit, ref.hit) and torch.equal(h.mat, ref.mat)
+    T2, S2 = scene.tri_v0.shape[0], scene.sph_center.shape[0]
+    m = h.mat.long()[h.hit]
+    copy = ((m >= T2 // 2) & (m < T2)) | ((m >= T2 + S2 // 2) & (m < T2 + S2))
+    assert not bool(copy.any())
+
+
 def _bounce_lanes_off(ref, got):
     """K6 states that differ per lane: alive flags, origins beyond 1e-5 of
     their magnitude, any other row beyond atol 2e-3 + rtol 2e-3."""
@@ -558,7 +620,10 @@ from distributionraytracer_tpu_torch.scene.types import (  # noqa: E402
     ACCEL_BVH, ACCEL_GRID,
 )
 
-from torch_scenes import accel_rays, mesh_scene, stacked_scene  # noqa: E402
+from torch_scenes import (  # noqa: E402
+    accel_rays, first_entry_batch, mesh_scene, scattered_shadow_batch,
+    stacked_scene,
+)
 
 MESH_TRI = 20_000  # the card tests' mesh; the smoke run takes 100,000
 SMALL_TRI = 600  # <= 1024 objects without a plane: the cost-brute route
@@ -934,3 +999,85 @@ def test_binned_plus_routes_launch_k10_once(dev, accel, monkeypatch):
     got = _accel_launches()
     assert got["K10"] == 0 and got["K9"] == 1 and got["K7"] > 0
     assert_images_close(img_off, img)
+
+
+# K10 on every lane: the box-ground scene's bins, lanes of several shapes
+K10_CASES = ("ragged", "dead-chains", "scattered", "first-entry")
+
+
+@pytest.fixture(scope="module")
+def k10_frame():
+    """The box-ground BVH renderer with LIGHT_K bins and the inputs of its
+    primary shadow query."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    dev = torch.device("cuda")
+    CBN.SHADOW_BINNING = True
+    try:
+        r = Renderer(_box_mesh(ACCEL_BVH), RenderConfig(spp=0), device=dev)
+    finally:
+        CBN.SHADOW_BINNING = False
+    samples = make_samples(r.scene, r.cfg,
+                           torch.Generator(device=dev).manual_seed(8))
+    bins, first = _first_shadow(r, samples)
+    return r, bins.lights, first
+
+
+def _k10_batch(r, lb, first, case):
+    """(o, d, dist, valid, light ids) on the card for one case."""
+    o, d, dist, valid = first
+    n = o.shape[0]
+    lid = CBN.shadow_light_ids(n, lb.n_lights, o.device)
+    if case == "ragged":  # R not a multiple of 128
+        k = n - 51
+        return o[:k], d[:k], dist[:k], valid[:k], lid[:k]
+    if case == "dead-chains":  # every third chain without a live lane
+        v = valid.clone().reshape(-1, CBN.LANES)
+        v[::3] = False
+        return o, d, dist, v.reshape(-1), lid
+    if case == "scattered":
+        return _cuda(o.device, *scattered_shadow_batch(
+            r.scene.light_pos.cpu().numpy(), 8 * CBN.LANES, seed=2))
+    return first_entry_batch(r.tabs, lb, r.scene.light_pos, 96)
+
+
+@pytest.mark.parametrize("case", K10_CASES)
+@pytest.mark.parametrize("mode", ["bvh", "grid"])
+def test_binned_shadow_kernel_equals_plain_on_every_lane(k10_frame, mode,
+                                                         case):
+    """K10 against binned_shadow_plain on every lane, in both shadow
+    modes: a ragged lane count; chains with no live lane; origins
+    scattered over the scene (a chain's stream spans more than 4 items);
+    lanes all occluded by their chain's first entry.  Its work list (the
+    first two passes) equals shadow_work_plain's."""
+    r, lb, first = k10_frame
+    o, d, dist, valid, lid = _k10_batch(r, lb, first, case)
+    R = o.shape[0]
+    C = -(-R // CBN.LANES)
+    occ = CBN.binned_shadow_kernel(r.tabs, lb, lid, o, d, dist, valid, mode)
+    occ2 = torch.empty_like(occ)
+    args = CBN.shadow_inputs(o, d, dist, valid, lid)
+    work = CBN.launch_binned_shadow(r.tabs, lb, args[4], *args[:4], mode,
+                                    occ2)
+    torch.cuda.synchronize()
+    stats = {}
+    ref = CBN.binned_shadow_plain(r.tabs, lb, lid, o, d, dist, valid, mode,
+                                  stats=stats)
+    assert torch.equal(occ, ref) and torch.equal(occ2, ref)
+    plain = CBN.shadow_work_plain(lb, lid, o, valid)
+    assert torch.equal(work.chains, plain.chains)
+    assert torch.equal(work.item_start, plain.item_start)
+    nrow = (plain.chains[:, 4] - plain.chains[:, 3] + 1).clamp(min=0)
+    upto = torch.arange(lb.k + 1, device=o.device)[None, :] <= nrow[:, None]
+    assert torch.equal(torch.where(upto, work.rows, 0), plain.rows)
+    it, _ = CBN.shadow_item_entries(lb, plain)
+    assert int(torch.bincount(it).max()) <= CBN.ITEM_ENTRIES
+    if case == "scattered":
+        chain = torch.repeat_interleave(
+            torch.arange(C, device=o.device), plain.chains[:, 7].long())
+        assert int(torch.bincount(chain[it]).max()) > 4 * CBN.ITEM_ENTRIES
+        assert 0.05 < float(ref[valid].float().mean()) < 0.95
+    if case == "first-entry":
+        assert bool(ref.all()) and int(stats["chain_entries"].max()) == 1
+    if case == "dead-chains":
+        assert not bool(occ.reshape(-1, CBN.LANES)[::3].any())

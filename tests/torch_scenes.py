@@ -201,6 +201,84 @@ def accel_rays(n, seed=0, box=MESH_BOX):
             dist.astype(np.float32), valid)
 
 
+def scattered_shadow_batch(light_pos, n_per_light, seed=0, box=MESH_BOX):
+    """Shadow rays towards each light in turn (runs of ``n_per_light``
+    lanes) from origins scattered over ``box``: a chain's origins cover
+    much of its light's view, so its stream holds thousands of bin
+    entries.  numpy origins, unit directions, distances, a valid mask
+    (every 5th lane dead) and the lanes' light ids."""
+    rng = np.random.default_rng(seed)
+    lp = np.asarray(light_pos, np.float64)
+    L = lp.shape[0]
+    o = rng.uniform(box[0], box[1], (L * n_per_light, 3))
+    lid = np.repeat(np.arange(L), n_per_light)
+    d = lp[lid] - o
+    dist = np.linalg.norm(d, axis=1)
+    valid = np.ones(o.shape[0], bool)
+    valid[::5] = False
+    f = lambda a: np.asarray(a, np.float32)
+    return (f(o), f(d / dist[:, None]), f(dist), valid,
+            lid.astype(np.int32))
+
+
+def first_entry_batch(tabs, lbins, light_pos, n_chains, seed=0,
+                      box=((-8.0, -3.0, -8.0), (8.0, 3.5, 8.0))):
+    """Shadow rays whose every lane is occluded by the first bin entry its
+    128-lane chain streams.  Chain c takes light c % L; its lanes share one
+    origin, drawn in ``box`` among those whose ray to the light is hit,
+    nearer than the light (the plain slot test), by a slot of the first
+    entry (the nearest the light) of the tile the origin maps to.  Torch
+    tensors on ``tabs``' device: origins, unit directions, distances, a
+    valid mask (all live) and light ids."""
+    import torch
+
+    from distributionraytracer_tpu_torch.accel import cuda_binned as CBN
+    from distributionraytracer_tpu_torch.ops.intersect import hit_packed
+
+    dev = tabs.objs.device
+    lb = lbins.to(dev)
+    K, ts = lb.k, lb.tile_start.long()
+    ints = tabs.objs.view(torch.int32)
+    rng = np.random.default_rng(seed)
+    cand = torch.as_tensor(rng.uniform(box[0], box[1], (8192, 3)),
+                           dtype=torch.float32, device=dev)
+    lp = torch.as_tensor(light_pos, dtype=torch.float32, device=dev)
+    slot8 = torch.arange(CBN.GROUP, device=dev)
+    picks = []
+    for li in range(lp.shape[0]):
+        n = cand.shape[0]
+        lid = torch.full((n, 1), li, dtype=torch.int32, device=dev)
+        ones = torch.ones((n, 1), dtype=torch.bool, device=dev)
+        _, tx, _, ty, _, _ = CBN._chain_rects(lb, lid, cand[:, None], ones)
+        t = (li * K + ty) * K + tx
+        lead = ts[t] < ts[t + 1]
+        slots = lb.group[ts[t]].long()[:, None] * CBN.GROUP + slot8
+        v = lp[li] - cand
+        dist = torch.linalg.norm(v, dim=1)
+        d = v / dist[:, None]
+        rep = lambda x: x.repeat_interleave(CBN.GROUP, 0)
+        th, _ = hit_packed(rep(cand), rep(d), torch.zeros(n * CBN.GROUP,
+                                                          device=dev),
+                           tabs.objs[slots].reshape(-1, 16),
+                           ints[slots, 12].reshape(-1), False, (0, 1, 2, 3))
+        hit = ((th.reshape(n, CBN.GROUP) < dist[:, None])
+               & (ints[slots, 12] >= 0)).any(1)
+        picks.append(torch.nonzero(lead & hit)[:, 0])
+    per = -(-n_chains // lp.shape[0])
+    if min(p.shape[0] for p in picks) < per:
+        raise ValueError("too few origins are hit by their tile's first "
+                         "entry")
+    lid = torch.arange(n_chains, device=dev) % lp.shape[0]
+    org = torch.stack([cand[picks[int(li)][int(k)]] for li, k in zip(
+        lid, torch.arange(n_chains, device=dev) // lp.shape[0])])
+    o = org.repeat_interleave(CBN.LANES, 0)
+    lids = lid.repeat_interleave(CBN.LANES).to(torch.int32)
+    v = lp[lids.long()] - o
+    dist = torch.linalg.norm(v, dim=1)
+    return (o, v / dist[:, None], dist,
+            torch.ones((o.shape[0],), dtype=torch.bool, device=dev), lids)
+
+
 def occlusion_inputs(n_objects, n, seed):
     """Shadow rays: origins, directions, max distances, excluded ids."""
     o, d, _ = random_rays(n, seed=seed)
@@ -270,6 +348,24 @@ def pt_tie_leaves(leaves):
             v = leaves[k]
             copy = (v + 1) % n_mat if k.endswith("_mat") else v
             out[k] = np.concatenate([v, copy.astype(v.dtype)])
+    return out
+
+
+def pt_own_material_leaves(leaves):
+    """A path-tracer scene's numpy leaves with each primitive in a material
+    of its own, a copy of its material: a hit's material is then the
+    winner's index in the packed table (triangles, spheres, moving
+    spheres)."""
+    out = dict(leaves)
+    old = np.concatenate([leaves[k] for k in ("tri_mat", "sph_mat",
+                                              "msph_mat")])
+    for k in [k for k in leaves if k.startswith("mat_")]:
+        out[k] = leaves[k][old]
+    at = 0
+    for k in ("tri_mat", "sph_mat", "msph_mat"):
+        n = leaves[k].shape[0]
+        out[k] = np.arange(at, at + n).astype(leaves[k].dtype)
+        at += n
     return out
 
 
