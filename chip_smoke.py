@@ -6,7 +6,7 @@
 1. Prints the card's name and power limit; exits non-zero without CUDA.
 2. Builds the kernels from ``distributionraytracer_tpu_torch/csrc`` with
    nvcc (``ops/build.py``) and prints the build time and ptxas's register
-   and spill report (K2's to K6's, the four K7/K8 walks' and K10's
+   and spill report (K1's to K6's, the four K7/K8 walks', K9's and K10's
    registers, shared memory and spills on lines of their own).
 3. Holds each Whitted kernel against its plain torch version on the card,
    on 65,536 random rays against a scene with all four primitive types, a
@@ -71,10 +71,15 @@
    path are timed (rays/s by the whitted.py counters, peak memory).
    K9, K7 and K8 (closest at level 1; shadow, both modes, at the primary
    level) are held to their plain versions on the main path's own inputs
-   (ids and occlusion equal, t within 1e-5 relative); K9 and K7 (closest,
-   and shadow in grid mode) also on the grid route's own inputs and
-   emulation tree; K3 grid mode on a 65,536-lane tile of the small grid
-   scene (the K3 budgets).
+   (ids and occlusion equal, t within 1e-5 relative; a lane that is not
+   valid a miss); K9 and K7 (closest, and shadow in grid mode) also on
+   the grid route's own inputs and emulation tree; K3 grid mode on a
+   65,536-lane tile of the small grid scene (the K3 budgets).  K9's chain
+   skew on both routes' batches, from its plain version's per-chain
+   counts: groups streamed and slot tests (median, 90th percentile,
+   maximum, the chain with the most and its share of the whole), beside
+   the candidate lists' lengths; its bare launch held to its plain
+   version too, and its work list to ``closest_work_plain``.
 6c. The same frame with a finite ground (``mesh_scene(..., ground="box")``,
    whose point lights lie outside the scene box) and the light bins built
    (``cuda_binned.SHADOW_BINNING`` set while the renderers are made; the
@@ -120,12 +125,16 @@
    at each bounce (0-9) of the PT frame's middle tile, on the inputs the
    frames give them, each beside its valid or live share, and holds each
    launch to its plain version.
-7c. Records the inputs of every K2 launch of the Whitted staged route
+7c. Records the inputs of every K1 and K2 launch of the Whitted staged route
    (``render_from_samples(..., inter=brute_intersectors(...))``) on its
    middle tile and of every K4 and K5 launch of the PT staged body
    (``render_pt(..., queries=kernel_queries(...))``) on its middle tile,
-   and of every K2 launch of one cost-brute frame of each mode (BVH, grid):
-   K2 at each level 0-4 with its lane count and valid share, K4 at each
+   and of every K1 and K2 launch of one cost-brute frame of each mode
+   (BVH, grid): K1 and K2 at each level 0-4 with its lane count and valid
+   share (K1 held to ``closest_hit_brute`` within the K1 budget and to its
+   run fold ``closest_hit_runs`` on every lane), the cost-brute frames'
+   bare-launch sums, K1's row at the cost-brute shape (a tile's 65,536
+   primary rays against 1,005 objects), K4 at each
    bounce 0-9 with the share of lanes whose ray moved since the last
    bounce, K5 at each
    bounce 0-9 and point light with its lane count and the share of lanes
@@ -134,7 +143,8 @@
    (lanes differing must be 0).  Then two warm frames of each staged
    route and one more under ``torch.profiler``: device-busy time, idle
    share, the frame sums of K1 and K2 (Whitted staged) and K4 and K5 (PT
-   staged), and the copy kernels that K2's and K5's wrappers launch.
+   staged), and the copy kernels that K1's, K2's and K5's wrappers
+   launch.
 8. Profiles one more warm frame of each main path under ``torch.profiler``
    and prints the device-busy time, the idle share and the top device
    kernels, K3's and K6's summed time in their frames beside their
@@ -545,6 +555,8 @@ ACCEL_META = {
             "distributionraytracer_tpu/ops/pallas_whitted.py:320"),
     "K10": ("binned_shadow", "binned.cu",
             "distributionraytracer_tpu/accel/pallas_binned.py:812"),
+    "K1c": ("closest_hit", "intersect.cu",
+            "distributionraytracer_tpu/ops/pallas_intersect.py:331"),
 }
 # K10 per live lane: the origin's offset from the light (3 sub), the three
 # frustum dot products (15), two divides, per axis the tile's divide, mul,
@@ -1044,7 +1056,6 @@ def light_rows(torch, dev, card, st, errs, add_row):
     samples = st["samples"]
     errs["K10"] = 0.0
     row = None
-    split = hasattr(CBN, "shadow_work_plain")  # items spread over the card
     for key, mode in (("bvh", "bvh"), ("grid", "grid")):
         r = st[key]
         sc = r.scene
@@ -1088,33 +1099,29 @@ def light_rows(torch, dev, card, st, errs, add_row):
               f"{int(ce.max())}), {stats['obj_tests']} object tests; plain "
               f"{plain_s:.2f} s  PASS")
         launch, got, last_work = binned_shadow_launch(
-            torch, CBN, CBV, tabs, lb, lid, o, d, dist, valid, mode)
+            torch, CBN, tabs, lb, lid, o, d, dist, valid, mode)
         launch()
         check(torch.equal(got, occ), f"K10 ({key}): a bare launch differs "
               "from the wrapper's")
-        if split:
-            E, work = CBN.ITEM_ENTRIES, last_work()
-            plain = CBN.shadow_work_plain(lb, lid, o, valid)
-            nrow = (plain.chains[:, 4] - plain.chains[:, 3] + 1).clamp(min=0)
-            upto = (torch.arange(lb.k + 1, device=dev)[None, :]
-                    <= nrow[:, None])
-            same = (torch.equal(work.chains, plain.chains)
-                    and torch.equal(work.item_start, plain.item_start)
-                    and torch.equal(torch.where(upto, work.rows, 0),
-                                    plain.rows))
-            check(same, f"K10 ({key}): the kernel's work list differs from "
-                  "shadow_work_plain's")
-            it, _ = CBN.shadow_item_entries(lb, plain)
-            items, most = int(plain.item_start[-1]), int(
-                torch.bincount(it).max())
-            check(most <= E, f"K10 ({key}): an item streams {most} > E")
-            split_s = (f"E {E}, {items} work items over {nl // 128} chains "
-                       f"({int(plain.chains[:, 6].sum())} stream positions, "
-                       f"{it.numel()} entries), most entries an item streams "
-                       f"{most}, work list equal to shadow_work_plain's")
-        else:
-            split_s = (f"one block a chain, most entries a block streams "
-                       f"{int(ce.max())}")
+        E, work = CBN.ITEM_ENTRIES, last_work()
+        plain = CBN.shadow_work_plain(lb, lid, o, valid)
+        nrow = (plain.chains[:, 4] - plain.chains[:, 3] + 1).clamp(min=0)
+        upto = (torch.arange(lb.k + 1, device=dev)[None, :]
+                <= nrow[:, None])
+        same = (torch.equal(work.chains, plain.chains)
+                and torch.equal(work.item_start, plain.item_start)
+                and torch.equal(torch.where(upto, work.rows, 0),
+                                plain.rows))
+        check(same, f"K10 ({key}): the kernel's work list differs from "
+              "shadow_work_plain's")
+        it, _ = CBN.shadow_item_entries(lb, plain)
+        items, most = int(plain.item_start[-1]), int(
+            torch.bincount(it).max())
+        check(most <= E, f"K10 ({key}): an item streams {most} > E")
+        split_s = (f"E {E}, {items} work items over {nl // 128} chains "
+                   f"({int(plain.chains[:, 6].sum())} stream positions, "
+                   f"{it.numel()} entries), most entries an item streams "
+                   f"{most}, work list equal to shadow_work_plain's")
         ms = timed_ms(torch, launch, 20)
         print(f"K10 binned+ {key} route: {split_s}; bare launch {ms:.4f} ms; "
               f"lanes differing {differing['bvh']} (bvh mode), "
@@ -1172,6 +1179,26 @@ def light_rows(torch, dev, card, st, errs, add_row):
           f"{k10_ms / k7_ms:.3f}) | {card}")
 
 
+def chain_skew(torch, label, stats, pb, card):
+    """Prints how K9's work spreads over its chains on one batch, from the
+    plain version's per-chain counts: groups streamed and slot tests
+    (median, 90th percentile, maximum, the chain with the most, and its
+    share of the whole), beside the candidate lists' lengths."""
+    cnt = (pb.chain_start[1:] - pb.chain_start[:-1]).cpu().long()
+    q = lambda x, p: float(torch.quantile(x.double(), p))
+    parts = []
+    for name, x in (("groups streamed", stats["chain_groups"]),
+                    ("slot tests", stats["chain_tests"]),
+                    ("candidates listed", cnt)):
+        c, top, tot = int(x.argmax()), int(x.max()), int(x.sum())
+        parts.append(f"{name} median {q(x, 0.5):.0f}, p90 {q(x, 0.9):.0f}, "
+                     f"max {top} (chain {c}: {top / max(tot, 1):.5f} of "
+                     f"{tot}, {top * x.numel() / max(tot, 1):.1f}x the "
+                     "mean)")
+    print(f"K9 chain skew, {label}, {cnt.numel()} chains: "
+          + "; ".join(parts) + f" | {card}")
+
+
 def accel_rows(torch, np, dev, card, st, errs, add_row):
     """K7, K8, K9 and K3 grid mode against their plain versions at the
     main path's shapes, and their rows (bare launch, wrapper, plain,
@@ -1204,6 +1231,8 @@ def accel_rows(torch, np, dev, card, st, errs, add_row):
         check(torch.equal(gid[valid], rid[valid]),
               f"{k} ({where}): {int((gid != rid)[valid].sum())} lanes differ "
               "in id")
+        check(bool((gid[~valid] == -1).all()), f"{k} ({where}): a lane "
+              "that is not valid reports a hit")
         hit = valid & (rid >= 0)
         et = float(((t - rt).abs() / rt.abs().clamp(min=1.0))[hit].max())
         check(et <= 1e-5, f"{k} ({where}): t off by {et:.2e} relative")
@@ -1238,17 +1267,27 @@ def accel_rows(torch, np, dev, card, st, errs, add_row):
     ref = CBN.binned_closest_plain(bvh.tabs, pb, o, d, t, valid,
                                    types_present=types, stats=stats)
     check_closest("K9", got, ref, valid)
-    rays = CBV._rays(o, d, t, valid)
+    chain_skew(torch, "BVH main path", stats, pb, card)
+    launch9, got9, work9 = binned_closest_launch(torch, CBN, bvh.tabs, pb, o,
+                                                 d, t, valid)
+    launch9()
+    check_closest("K9", got9(), ref, valid, "main path, bare launch")
+    plain = CBN.closest_work_plain(pb)
+    check(torch.equal(work9().item_start, plain.item_start),
+          "K9: its work list differs from closest_work_plain's")
+    units = CBN.closest_units_plain(pb, plain)
+    print(f"K9 segments of {CBN.SEGMENT_GROUPS} groups: "
+          f"{int(plain.item_start[-1])} tail items over {pb.n_chains} "
+          f"chains, {units[0].numel()} warp units; work list equal to "
+          f"closest_work_plain's | {card}")
     nl = o.shape[0]
-    of = torch.empty((4, nl), device=dev)
-    oi = torch.empty((nl,), dtype=torch.int32, device=dev)
+    # K9 reads o, d, time, valid (a byte) and writes t, normal, object id
     add_row("K9", st["runs"]["bvh"][0]["K9"], "accelerated main path frame",
-            nl, lambda: CBN.launch_binned_closest(bvh.tabs, pb, rays, False,
-                                                  of, oi),
+            nl, launch9,
             lambda: CBN.binned_closest_kernel(bvh.tabs, pb, o, d, t, valid),
             lambda: CBN.binned_closest_plain(bvh.tabs, pb, o, d, t, valid,
                                              types_present=types),
-            nl * f4(8 + 5) + bvh.tabs.objs.numel() * 4
+            nl * (f4(7 + 5) + 1) + bvh.tabs.objs.numel() * 4
             + sum(x.numel() * 4 for x in pb),
             type_ops(torch, stats["type_tests"])
             + winner_normal_ops(torch, bvh.scene, ref[2]),
@@ -1313,11 +1352,14 @@ def accel_rows(torch, np, dev, card, st, errs, add_row):
     gtabs, where = grid.tabs.tabs, "grid route"
     o, d, t, valid = glog["closest1"]
     valid = torch.ones_like(t, dtype=torch.bool) if valid is None else valid
+    gstats = {}
     check_closest("K9", CBN.binned_closest_kernel(gtabs, gbins.primary, o, d,
                                                   t, valid),
                   CBN.binned_closest_plain(gtabs, gbins.primary, o, d, t,
-                                           valid, types_present=types),
+                                           valid, types_present=types,
+                                           stats=gstats),
                   valid, where)
+    chain_skew(torch, "grid route", gstats, gbins.primary, card)
     o, d, t, valid = glog["closest2"]
     check_closest("K7c", CBV.packet_closest_kernel(gtabs, o, d, t, valid),
                   threaded_walk(gtabs, o, d, t, valid, types_present=types),
@@ -1596,69 +1638,69 @@ def record_calls(module, name, run, keep):
 
 def any_hit_launch(torch, CI, a):
     """A bare K2 launch on ``a`` (``any_hit``'s arguments by name) into a
-    fresh output, and that output.  K2 reads the callers' tensors in place;
-    the first version of K2 (its ``launch_any_hit`` takes ``rays``) reads
-    packed (8, R) streams, which are packed here once, outside the launch."""
-    import inspect
+    fresh output, and that output; K2 reads the callers' tensors in
+    place."""
     tb = a["tables"] if a["tables"] is not None else CI.object_tables(
         a["scene"])
-    o, d, dist = a["o"], a["d"], a["max_dist"]
-    R = o.shape[0]
-    occ = torch.empty((R,), dtype=torch.bool, device=o.device)
-    ex, valid = a["exclude_obj"], a["valid"]
-    if "rays" in inspect.signature(CI.launch_any_hit).parameters:
-        v = (torch.ones(R, device=o.device) if valid is None
-             else valid.float())
-        rays = CI.ray_streams(R, o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1],
-                              d[:, 2], dist, v)
-        ex = (torch.full((R,), -1, dtype=torch.int32, device=o.device)
-              if ex is None else ex.to(torch.int32).contiguous())
-        n_obj = a["scene"].static.n_objects
-        return (lambda: CI.launch_any_hit(tb, n_obj, rays, ex, a["mode"],
-                                          a["motion_blur"], occ)), occ
+    o, d, dist, ex = a["o"], a["d"], a["max_dist"], a["exclude_obj"]
+    occ = torch.empty((o.shape[0],), dtype=torch.bool, device=o.device)
     ex = None if ex is None else ex.to(torch.int32).contiguous()
-    return (lambda: CI.launch_any_hit(tb, o, d, dist, ex, valid, a["mode"],
+    return (lambda: CI.launch_any_hit(tb, o, d, dist, ex, a["valid"],
+                                      a["mode"], occ)), occ
+
+
+def pt_any_hit_launch(torch, CP, a):
+    """A bare K5 launch on ``a`` (``pt_any_hit``'s arguments by name) into
+    a fresh output, and that output."""
+    tb = a["tables"] if a["tables"] is not None else CP.pt_tables(a["scene"])
+    o = a["o"]
+    occ = torch.empty((o.shape[0],), dtype=torch.bool, device=o.device)
+    return (lambda: CP.launch_any_hit(tb, o, a["d"], a["time"], a["tmax"],
                                       occ)), occ
 
 
-def pt_any_hit_launch(torch, CI, CP, a):
-    """A bare K5 launch on ``a`` (``pt_any_hit``'s arguments by name) into
-    a fresh output, and that output; the first version of K5 (its
-    ``launch_any_hit`` takes ``rays``) on (8, R) streams packed here once."""
-    import inspect
-    tb = a["tables"] if a["tables"] is not None else CP.pt_tables(a["scene"])
-    o, d, t, tmax = a["o"], a["d"], a["time"], a["tmax"]
-    R = o.shape[0]
-    occ = torch.empty((R,), dtype=torch.bool, device=o.device)
-    if "rays" in inspect.signature(CP.launch_any_hit).parameters:
-        tm = torch.broadcast_to(torch.as_tensor(
-            tmax, dtype=torch.float32, device=o.device), (R,))
-        rays = CI.ray_streams(R, o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1],
-                              d[:, 2], t, tm)
-        return (lambda: CP.launch_any_hit(tb, rays, occ)), occ
-    return (lambda: CP.launch_any_hit(tb, o, d, t, tmax, occ)), occ
-
-
-def pt_closest_launch(torch, CI, CP, a):
+def pt_closest_launch(torch, CP, a):
     """A bare K4 launch on ``a`` (``pt_closest``'s arguments by name) into
     fresh outputs, and a function returning them as (hit, t, normal,
-    material).  K4 reads the callers' tensors in place; its first version
-    (its ``launch_closest`` takes ``rays``) reads (7, R) streams, packed
-    here once, outside the launch."""
-    import inspect
+    material); K4 reads the callers' tensors in place."""
     tb = a["tables"] if a["tables"] is not None else CP.pt_tables(a["scene"])
     o, d, t = a["o"], a["d"], a["time"].to(torch.float32).contiguous()
-    R = o.shape[0]
-    if "rays" in inspect.signature(CP.launch_closest).parameters:
-        rays = CI.ray_streams(R, o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1],
-                              d[:, 2], t)
-        of = torch.empty((4, R), device=o.device)
-        oi = torch.empty((R,), dtype=torch.int32, device=o.device)
-        return ((lambda: CP.launch_closest(tb, rays, of, oi)),
-                lambda: (of[0] < 1e4, of[0], of[1:4].T, oi))
-    out = CP.closest_outputs(R, o.device)
+    out = CP.closest_outputs(o.shape[0], o.device)
     return ((lambda: CP.launch_closest(tb, o, d, t, out)),
             lambda: (out.hit, out.t, out.normal, out.mat))
+
+
+def closest_hit_launch(torch, CI, a):
+    """A bare K1 launch on ``a`` (``closest_hit``'s arguments by name) into
+    fresh outputs, and a function returning them as a HitResult; K1 reads
+    the callers' tensors in place."""
+    tb = a["tables"] if a["tables"] is not None else CI.object_tables(
+        a["scene"])
+    valid, mb = a["valid"], a["motion_blur"]
+    t = a["time"].to(torch.float32).contiguous()
+    valid = None if valid is None else valid.to(torch.bool).contiguous()
+    o, d = CI.ray_inputs("closest_hit", a["o"], a["d"], t, valid)
+    out = CI.closest_outputs(o.shape[0], o.device)
+    return (lambda: CI.launch_closest_hit(tb, o, d, t, valid, mb, out),
+            lambda: out)
+
+
+def binned_closest_launch(torch, CBN, tabs, pb, o, d, t, valid):
+    """A bare K9 launch on these inputs into fresh outputs: (launch, a
+    function returning its (t, normal, object id), a function returning the
+    work list of its last launch)."""
+    R = o.shape[0]
+    o, d, t, valid = CBN.binned_closest_inputs(o, d, t, valid)
+    out = (torch.empty((R,), device=o.device),
+           torch.empty((R, 3), device=o.device),
+           torch.empty((R,), dtype=torch.int32, device=o.device))
+    last = []
+
+    def launch():
+        last[:] = [CBN.launch_binned_closest(tabs, pb, o, d, t, valid, False,
+                                             *out)]
+
+    return launch, lambda: out, lambda: last[0]
 
 
 def pt_closest_differing(torch, PT, a, got):
@@ -1674,21 +1716,11 @@ def pt_closest_differing(torch, PT, a, got):
     return int(bad.sum())
 
 
-def binned_shadow_launch(torch, CBN, CBV, tabs, lb, lid, o, d, dist, valid,
+def binned_shadow_launch(torch, CBN, tabs, lb, lid, o, d, dist, valid,
                          mode):
     """A bare K10 launch on these inputs into a fresh output: (launch, its
-    output, a function returning the work list of its last launch, or
-    None).  K10 reads the callers' tensors in place; its first version
-    (its ``launch_binned_shadow`` takes ``rays``: one block a chain) reads
-    (8, R) streams packed here once."""
-    import inspect
-    R = o.shape[0]
-    occ = torch.empty((R,), dtype=torch.bool, device=o.device)
-    if "rays" in inspect.signature(CBN.launch_binned_shadow).parameters:
-        rays = CBV._rays(o, d, dist, valid)
-        lid32 = lid.to(torch.int32).contiguous()
-        return (lambda: CBN.launch_binned_shadow(tabs, lb, lid32, rays, mode,
-                                                 occ)), occ, None
+    output, a function returning the work list of its last launch)."""
+    occ = torch.empty((o.shape[0],), dtype=torch.bool, device=o.device)
     o, d, dist, valid, lid = CBN.shadow_inputs(o, d, dist, valid, lid)
     last = []
 
@@ -1701,8 +1733,7 @@ def binned_shadow_launch(torch, CBN, CBV, tabs, lb, lid, o, d, dist, valid,
 
 def k2_lanes_differing(torch, CI, a, occ):
     """Lanes where K2's ``occ`` differs from its plain versions, as
-    (against ``any_hit_brute``, against ``any_hit_runs`` or None where the
-    tree has no such fold): valid lanes against the fold (taken
+    (against ``any_hit_brute``, against ``any_hit_runs``): valid lanes against the fold (taken
     PLAIN_CHUNK lanes at a time), invalid lanes against no occluder.
     ``any_hit_runs`` tests in the kernel's operation order, so it must give
     0; ``any_hit_brute``'s triangle test takes torch's cross product, whose
@@ -1715,11 +1746,10 @@ def k2_lanes_differing(torch, CI, a, occ):
         idx = torch.nonzero(valid)[:, 0]
     else:
         idx = torch.arange(occ.shape[0], device=occ.device)
-    runs = getattr(CI, "any_hit_runs", None)
     tb = a["tables"] if a["tables"] is not None else CI.object_tables(
         a["scene"])
     ex = a["exclude_obj"]
-    bad = [dead, dead if runs is not None else None]
+    bad = [dead, dead]
     for s in range(0, idx.shape[0], PLAIN_CHUNK):
         k = idx[s:s + PLAIN_CHUNK]
         dist, exk = a["max_dist"][k], None if ex is None else ex[k]
@@ -1727,20 +1757,18 @@ def k2_lanes_differing(torch, CI, a, occ):
                             torch.zeros_like(dist), dist, exk,
                             a["motion_blur"], mode=a["mode"])
         bad[0] += int((ref != occ[k]).sum())
-        if runs is not None:
-            ref = runs(tb, a["o"][k], a["d"][k], dist, exk, a["mode"])
-            bad[1] += int((ref != occ[k]).sum())
+        ref = CI.any_hit_runs(tb, a["o"][k], a["d"][k], dist, exk, a["mode"])
+        bad[1] += int((ref != occ[k]).sum())
     return tuple(bad)
 
 
 def k2_verdict(lanes, bad, label):
     """Checks and words K2's lanes differing from its plain versions."""
     brute, runs = bad
-    check(brute <= LANE_BUDGET * lanes and runs in (0, None),
+    check(brute <= LANE_BUDGET * lanes and runs == 0,
           f"{label}: lanes differing from any_hit_brute {brute}, from its "
           f"run fold {runs}")
-    return (f"lanes differing {brute} (any_hit_brute)"
-            + ("" if runs is None else f", {runs} (its run fold)"))
+    return f"lanes differing {brute} (any_hit_brute), {runs} (its run fold)"
 
 
 def same_answer(torch, a, occ, ref):
@@ -1811,10 +1839,9 @@ def staged_breakdown(torch, card, scene, cfg, samples, pts, pcfg, paths,
                   "frame's")
             bad = k2_lanes_differing(torch, CI, a, occ)
             ms_sum += timed_ms(torch, launch, 20)
-            tot = [x + (y or 0) for x, y in zip(tot, bad)]
+            tot = [x + y for x, y in zip(tot, bad)]
             lanes += occ.shape[0]
-        verdict = k2_verdict(lanes, (tot[0], None if bad[1] is None
-                                     else tot[1]), f"cost-brute {mode}")
+        verdict = k2_verdict(lanes, tot, f"cost-brute {mode}")
         print(f"K2 cost-brute frame, mode {mode}: {calls} launches, {lanes} "
               f"lanes, bare-launch sum {ms_sum:.4f} ms; vs plain: {verdict} "
               f"| {card}")
@@ -1848,7 +1875,7 @@ def staged_breakdown(torch, card, scene, cfg, samples, pts, pcfg, paths,
             prev = hits[b - 1][0]
             alive = ((a_c["o"] != prev["o"]).any(-1)
                      | (a_c["d"] != prev["d"]).any(-1))
-        launch4, got4 = pt_closest_launch(torch, CI, CP, a_c)
+        launch4, got4 = pt_closest_launch(torch, CP, a_c)
         launch4()
         g4 = got4()
         check(torch.equal(g4[0], h.hit) and torch.equal(g4[3], h.mat),
@@ -1864,7 +1891,7 @@ def staged_breakdown(torch, card, scene, cfg, samples, pts, pcfg, paths,
         live = alive & h.hit
         for j in range(n_pl):
             a, ref = shadow[b * n_pl + j]
-            launch, occ = pt_any_hit_launch(torch, CI, CP, a)
+            launch, occ = pt_any_hit_launch(torch, CP, a)
             launch()
             plain = PT.any_hit(a["scene"], a["o"], a["d"], a["time"], 1e-3,
                                a["tmax"])
@@ -1884,13 +1911,155 @@ def staged_breakdown(torch, card, scene, cfg, samples, pts, pcfg, paths,
     return out
 
 
+def k1_lanes_differing(torch, CI, a, h):
+    """Lanes where K1's HitResult ``h`` differs from its plain versions, as
+    (against ``closest_hit_brute``: hit, object or material id on a valid
+    lane, or t or normal beyond 1e-4 + 1e-4 |x| where the ids agree;
+    against ``closest_hit_runs``: object id or t unequal; a lane that is
+    not valid against a miss).
+    Valid lanes are taken PLAIN_CHUNK at a time.  ``closest_hit_runs``
+    tests in the kernel's operation order, so it must give 0."""
+    from distributionraytracer_tpu_torch.ops.intersect import (
+        closest_hit_brute,
+    )
+    valid = a["valid"]
+    dead = 0
+    if valid is not None:
+        dead = int((h.hit[~valid] | (h.obj_id[~valid] != -1)).sum())
+        idx = torch.nonzero(valid)[:, 0]
+    else:
+        idx = torch.arange(h.t.shape[0], device=h.t.device)
+    tb = a["tables"] if a["tables"] is not None else CI.object_tables(
+        a["scene"])
+    sc, mb = a["scene"], a["motion_blur"]
+    near = lambda x, y: (x - y).abs() <= 1e-4 + 1e-4 * y.abs()
+    bad = [dead, dead]
+    for s in range(0, idx.shape[0], PLAIN_CHUNK):
+        k = idx[s:s + PLAIN_CHUNK]
+        o, d, t = a["o"][k], a["d"][k], a["time"][k]
+        ref = closest_hit_brute(sc, o, d, t, mb)
+        ids = ((ref.hit != h.hit[k]) | (ref.obj_id != h.obj_id[k])
+               | (ref.hit & (ref.mat_id != h.mat_id[k])))
+        off = ref.hit & ~ids & ~(near(h.t[k], ref.t)
+                                 & near(h.normal[k], ref.normal).all(-1))
+        bad[0] += int((ids | off).sum())
+        rt, rid = CI.closest_hit_runs(tb, o, d, t, mb)
+        bad[1] += int(((rid != h.obj_id[k]) | (rt != h.t[k])).sum())
+    return tuple(bad)
+
+
+def k1_held(torch, CI, a, ref, label):
+    """A bare K1 launch on a recorded call's arguments ``a``, held to the
+    object ids the frame got (``ref``) on its valid lanes: (launch, its
+    HitResult, its lanes differing from the plain versions, as
+    :func:`k1_lanes_differing` counts them)."""
+    launch, got = closest_hit_launch(torch, CI, a)
+    launch()
+    h = got()
+    v = a["valid"]
+    same = (torch.equal(h.obj_id, ref.obj_id) if v is None
+            else torch.equal(h.obj_id[v], ref.obj_id[v]))
+    check(same, f"{label}: the bare launch differs from the frame's")
+    return launch, h, k1_lanes_differing(torch, CI, a, h)
+
+
+def k1_verdict(lanes, bad, label):
+    """Checks and words K1's lanes differing from its plain versions."""
+    brute, runs = bad
+    check(brute <= LANE_BUDGET * lanes and runs == 0,
+          f"{label}: lanes differing from closest_hit_brute {brute}, from "
+          f"its run fold {runs}")
+    return (f"lanes differing {brute} (closest_hit_brute), {runs} (its run "
+            "fold)")
+
+
+def k1_breakdown(torch, card, scene, cfg, samples, cost, count, add_row,
+                 errs, w_ops):
+    """K1 at each launch of the Whitted staged route's middle tile and of
+    one cost-brute frame of each mode (``cost`` maps a mode to its
+    cost-brute renderer and SampleSet): bare launch times on the recorded
+    inputs, each launch held to its plain versions on every lane.  Then
+    the kernels' row of K1 at the cost-brute shape: the first launch of
+    the BVH mode's frame (a tile's primary rays, 1,005 objects), with
+    ``count`` launches a frame, its bound's operations from ``w_ops``
+    (scene, HitResult, inputs) and its max abs err against
+    ``closest_hit_brute`` into ``errs``.  Returns the per-level rows."""
+    from distributionraytracer_tpu_torch.integrator.render import (
+        render_from_samples,
+    )
+    from distributionraytracer_tpu_torch.integrator.whitted import (
+        brute_intersectors,
+    )
+    from distributionraytracer_tpu_torch.ops import cuda_intersect as CI
+    from distributionraytracer_tpu_torch.ops.intersect import (
+        closest_hit_brute,
+    )
+
+    out = []
+    H, W, S = samples.time.shape
+    tiles = -(-(H * W * S) // cfg.tile_rays)
+    levels = cfg.max_depth + 1
+    k = tiles // 2
+    log, calls = record_calls(
+        CI, "closest_hit", lambda: render_from_samples(
+            scene, cfg, samples, inter=brute_intersectors(scene, cfg)),
+        lambda j: j // levels == k)
+    check(calls == tiles * levels and len(log) == levels,
+          f"K1 breakdown: {calls} calls, {len(log)} on tile {k}")
+    for lv, (a, ref) in enumerate(log):
+        launch, h, bad = k1_held(torch, CI, a, ref, f"K1 level {lv}")
+        n = h.t.shape[0]
+        verdict = k1_verdict(n, bad, f"K1 level {lv}")
+        ms = timed_ms(torch, launch, 20)
+        share = 1.0 if a["valid"] is None else float(a["valid"].float().mean())
+        print(f"K1 level {lv} (Whitted staged route, tile {k}): {n} lanes, "
+              f"valid {share:.4f}: {ms:.4f} ms; vs plain: {verdict} | {card}")
+        out.append((n, share, ms))
+    print(f"K1, one tile's levels: {sum(x[-1] for x in out):.4f} ms | {card}")
+    first = None
+    for mode, (r, smp) in cost.items():
+        log, calls = record_calls(
+            CI, "closest_hit", lambda r=r, smp=smp: r.render_with_samples(smp),
+            lambda j: True)
+        tot, ms_sum, lanes = [0, 0], 0.0, 0
+        for j, (a, ref) in enumerate(log):
+            launch, h, bad = k1_held(torch, CI, a, ref,
+                                     f"K1 cost-brute {mode} launch {j}")
+            ms_sum += timed_ms(torch, launch, 20)
+            tot = [x + y for x, y in zip(tot, bad)]
+            lanes += h.t.shape[0]
+            if first is None:
+                first = (a, launch, h)
+        verdict = k1_verdict(lanes, tot, f"K1 cost-brute {mode}")
+        print(f"K1 cost-brute frame, mode {mode}: {calls} launches, {lanes} "
+              f"lanes, bare-launch sum {ms_sum:.4f} ms; vs plain: {verdict} "
+              f"| {card}")
+    a, launch, h = first
+    sc, o, d, t, mb = a["scene"], a["o"], a["d"], a["time"], a["motion_blur"]
+    tb = a["tables"] if a["tables"] is not None else CI.object_tables(sc)
+    n, n_obj = o.shape[0], sc.static.n_objects
+    check(a["valid"] is None or bool(a["valid"].all()),
+          "K1 cost-brute row: the first launch has invalid lanes")
+    ref = closest_hit_brute(sc, o, d, t, mb)
+    same = ref.hit & (ref.obj_id == h.obj_id)
+    errs["K1c"] = max(float((h.t - ref.t)[same].abs().max()),
+                      float((h.normal - ref.normal)[same].abs().max()))
+    add_row("K1c", count, "cost-brute route frame", n, launch,
+            lambda: CI.closest_hit_kernel(sc, o, d, t, mb, tables=tb),
+            lambda: closest_hit_brute(sc, o, d, t, mb),
+            n * (4 * (7 + 1 + 3 + 2) + 1) + 4 * tb.runs.numel()
+            + n_obj * 4 * 16, w_ops(sc, h, o, d, t, mb),
+            f"{n} primary rays of a tile, {n_obj} objects")
+    return out
+
+
 def staged_profiles(torch, card, scene, cfg, samples, pt_frame, pts,
                     frames=2):
     """Warm frames of the two staged routes, then one more of each under
-    torch.profiler with K2's and K5's wrappers in record_function ranges:
-    device-busy ms, idle share, the frame sums of K1 and K2 (Whitted
-    staged) and K4 and K5 (PT staged), and the copies the wrappers
-    launch."""
+    torch.profiler with K1's, K2's and K5's wrappers in record_function
+    ranges: device-busy ms, idle share, the frame sums of K1 and K2
+    (Whitted staged) and K4 and K5 (PT staged), and the copies the
+    wrappers launch."""
     from torch.profiler import record_function
 
     from distributionraytracer_tpu_torch.integrator import pathtracer as PT
@@ -1906,13 +2075,14 @@ def staged_profiles(torch, card, scene, cfg, samples, pt_frame, pts,
     routes = (
         ("Whitted staged route", lambda: render_from_samples(
             scene, cfg, samples, inter=brute_intersectors(scene, cfg)),
-         CI, "any_hit_kernel", "K2 wrapper",
+         CI, (("closest_hit_kernel", "K1 wrapper"),
+              ("any_hit_kernel", "K2 wrapper")),
          (("K1", "closest_hit_kernel"), ("K2", "any_hit_kernel"))),
         ("PT staged body", lambda: pt_frame(PT.kernel_queries(pts)),
-         CP, "pt_any_hit_kernel", "K5 wrapper",
+         CP, (("pt_any_hit_kernel", "K5 wrapper"),),
          (("K4", "pt_closest_kernel"), ("K5", "pt_any_hit_kernel"))))
     out = {}
-    for label, render, mod, wrapper, scope, kernels in routes:
+    for label, render, mod, wrappers, kernels in routes:
         times = []
         for _ in range(frames):
             t0 = time.perf_counter()
@@ -1923,18 +2093,20 @@ def staged_profiles(torch, card, scene, cfg, samples, pt_frame, pts,
         print(f"{label}: {frames} warm frames "
               f"{' '.join(f'{x:.4f}' for x in times)} s (median {med:.4f}) "
               f"| {card}")
-        orig = getattr(mod, wrapper)
+        origs = {w: getattr(mod, w) for w, _ in wrappers}
+        for wrapper, scope in wrappers:
+            def scoped(*args, orig=origs[wrapper], scope=scope, **kw):
+                with record_function(scope):
+                    return orig(*args, **kw)
 
-        def scoped(*args, orig=orig, scope=scope, **kw):
-            with record_function(scope):
-                return orig(*args, **kw)
-
-        setattr(mod, wrapper, scoped)
+            setattr(mod, wrapper, scoped)
         try:
-            prof, copies, busy = profile_frame(torch, render, med, label,
-                                               scopes=(scope,))
+            prof, copies, busy = profile_frame(
+                torch, render, med, label,
+                scopes=tuple(sc for _, sc in wrappers))
         finally:
-            setattr(mod, wrapper, orig)
+            for wrapper, orig in origs.items():
+                setattr(mod, wrapper, orig)
         sums = {}
         for key, kern in kernels:
             # "any_hit_kernel" is also the tail of "pt_any_hit_kernel"
@@ -1944,12 +2116,15 @@ def staged_profiles(torch, card, scene, cfg, samples, pt_frame, pts,
             print(f"{key} ({kern}) in the profiled {label} frame: "
                   f"{sums[key][0]} launches, {sums[key][1]:.3f} ms summed | "
                   f"{card}")
-        cp = copies.get(scope, {})
-        print(f"{label}: copies launched inside {wrapper}'s wrapper: "
-              f"{sum(n for n, _ in cp.values())} kernels, "
-              f"{sum(ms for _, ms in cp.values()):.3f} ms | {card}")
+        copies_ms = {}
+        for wrapper, scope in wrappers:
+            cp = copies.get(scope, {})
+            copies_ms[scope] = sum(ms for _, ms in cp.values())
+            print(f"{label}: copies launched inside {wrapper}'s wrapper: "
+                  f"{sum(n for n, _ in cp.values())} kernels, "
+                  f"{copies_ms[scope]:.3f} ms | {card}")
         out[label] = {"median": med, "busy_ms": busy, "sums": sums,
-                      "copies_ms": sum(ms for _, ms in cp.values())}
+                      "copies_ms": copies_ms}
     return out
 
 
@@ -2001,7 +2176,6 @@ def main():
           f"{torch.cuda.get_device_name(0)}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-
     # ---- 1. build ----
     phase("1 (build)")
     built = build.load()
@@ -2016,7 +2190,9 @@ def main():
     for line in built.log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"  ptxas: {line.strip()}")
-    for k, lines in ptxas_report(built.log, ("whitted_level_kernel",
+    for k, lines in ptxas_report(built.log, ("closest_hit_kernel",
+                                             "closest_items_kernel",
+                                             "whitted_level_kernel",
                                              "pt_bounce_kernel",
                                              "pt_any_hit_kernel",
                                              "any_hit_kernel",
@@ -2520,15 +2696,15 @@ def main():
     f4 = lambda k: k * 4
     closest_ops = float(w_test_ops(torch, sc, o, d, t, mb).sum())
 
-    rays1 = CI.ray_streams(n, o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1],
-                           d[:, 2], t, ones)
-    of1 = torch.empty((4, n), device=dev)
-    oi1 = torch.empty((2, n), dtype=torch.int32, device=dev)
-    row("K1", n, lambda: CI.launch_closest_hit(tab, n_obj, rays1, mb, of1,
-                                               oi1),
+    # K1 reads o, d, time and writes HitResult: hit (a byte), t, normal,
+    # object and material ids; its tables: the type runs and ids, and the
+    # insertion-order rows, types and materials
+    launch1, _ = closest_hit_launch(torch, CI, dict(
+        scene=sc, o=o, d=d, time=t, motion_blur=mb, valid=None, tables=tab))
+    row("K1", n, launch1,
         lambda: CI.closest_hit_kernel(sc, o, d, t, mb, tables=tab),
         lambda: closest_hit_brute(sc, o, d, t, mb),
-        n * f4(8 + 4 + 2) + n_obj * f4(14),
+        n * (f4(7 + 1 + 3 + 2) + 1) + f4(tab.runs.numel()) + n_obj * f4(16),
         closest_ops + w_normal_ops(sc, h, mb))
 
     launch2, _ = any_hit_launch(torch, CI, dict(
@@ -2598,7 +2774,7 @@ def main():
 
     # K4 reads o, d, time and writes PTHit: hit (a byte), t, pos, normal,
     # material; pos = o + d * s is 6 operations a lane
-    launch4, _ = pt_closest_launch(torch, CI, CP, dict(
+    launch4, _ = pt_closest_launch(torch, CP, dict(
         scene=pts, o=o, d=d, time=t, tables=ptb))
     row("K4", n, launch4,
         lambda: CP.pt_closest_kernel(pts, o, d, t, tables=ptb),
@@ -2614,7 +2790,7 @@ def main():
     d5 = torch.nn.functional.normalize(lu, dim=-1).contiguous()
     t5, tmax5 = torch.zeros(n, device=dev), dist - 1e-3
     _, _ = cmp_pt_any(pts, o5, d5, t5, tmax5)
-    launch5, _ = pt_any_hit_launch(torch, CI, CP, dict(
+    launch5, _ = pt_any_hit_launch(torch, CP, dict(
         scene=pts, o=o5, d=d5, time=t5, tmax=tmax5, tables=ptb))
     row("K5", n, launch5,
         lambda: CP.pt_any_hit_kernel(pts, o5, d5, t5, tmax5, tables=ptb),
@@ -2707,9 +2883,15 @@ def main():
                                pt_frame, cmp_pt_bounce)
     # ---- 7c. K2 and K5 at each launch of the staged frames ----
     phase("7c")
+    cost = {"bvh": (acc["cb"], acc["samples"]),
+            "grid": (acc["cbg"], acc["samples"])}
     staged_breakdown(torch, card, r.scene, cfg, samples, pts, pcfg, paths,
-                     pt_frame, {"bvh": (acc["cb"], acc["samples"]),
-                                "grid": (acc["cbg"], acc["samples"])})
+                     pt_frame, cost)
+    k1_breakdown(torch, card, r.scene, cfg, samples, cost,
+                 acc["runs"]["cost-brute"][0]["K1"], add_row, errs,
+                 lambda sc, h, o, d, t, mb: float(
+                     w_test_ops(torch, sc, o, d, t, mb).sum())
+                 + w_normal_ops(sc, h, mb))
     staged_profiles(torch, card, r.scene, cfg, samples, pt_frame, pts)
 
     # ---- 7. profiles of one warm frame of each main path ----

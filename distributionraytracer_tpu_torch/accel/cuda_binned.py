@@ -11,6 +11,12 @@ list and stops once every live lane's best hit is nearer than the next
 group; its plain version, :func:`binned_closest_plain`, streams the same
 lists in torch.  The result is the strict-< closest hit over a superset of
 the objects a primary ray can hit, ties going to the earlier candidate.
+K9 splits each chain's list into segments of at most ``SEGMENT_GROUPS``
+groups that warps all over the card stream, each stopping against the best
+hit found so far, and merges their winners by (t, list position);
+:func:`closest_work_plain` and :func:`closest_units_plain` are the plain
+versions of its work list, :func:`binned_closest_segments_plain` of its
+segmented stream.
 
 Shadow rays all point at a light.  :func:`build_light_bins` tiles each
 point light's view of the scene box K x K (a shadow-map parametrization)
@@ -52,7 +58,6 @@ import numpy as np
 import torch
 
 from distributionraytracer_tpu_torch.accel.bvh import PacketTables, hit_result
-from distributionraytracer_tpu_torch.accel.cuda_bvh import _rays
 from distributionraytracer_tpu_torch.accel.grid import object_bboxes
 from distributionraytracer_tpu_torch.integrator.render import _block_perm
 from distributionraytracer_tpu_torch.integrator.whitted import Intersectors
@@ -74,6 +79,9 @@ MAX_CANDIDATES = 1 << 24  # (chain, group) pairs kept at most
 P_BUCKET = 16384  # candidate arrays are padded to a multiple of this
 LIGHT_K = 128  # light-frustum tiles per axis
 SHADOW_PAIRS = 1 << 17  # (lane, entry) pairs a step of binned_shadow_plain
+# K9: candidate groups a segment at most; csrc/binned.cu's kSegGroups,
+# which the kernel uses (chosen by measurement, PERF.md)
+SEGMENT_GROUPS = 32
 # K10: stream positions (bin entries) a work item at most; csrc/binned.cu's
 # kItemEntries, which the kernel uses (chosen by measurement, PERF.md)
 ITEM_ENTRIES = 128
@@ -463,7 +471,9 @@ def binned_closest_plain(tabs: PacketTables, bins: PrimaryBins, o, d, time,
     ``(t, normal, object id)``; ``stats`` receives the groups streamed and
     the object tests made (the kernel's work on these inputs): ``groups``,
     ``obj_tests`` and ``type_tests`` (by type + 1, as
-    :func:`accel.bvh.threaded_walk`)."""
+    :func:`accel.bvh.threaded_walk`), and per chain (C,) int64 tensors
+    ``chain_groups`` (groups streamed) and ``chain_tests`` (slot tests:
+    each live lane against each live slot of each group streamed)."""
     if types_present is None:
         types_present = (OBJ_SPHERE, OBJ_TRIANGLE, OBJ_PLANE, OBJ_BOX)
     R, dev = o.shape[0], o.device
@@ -487,6 +497,8 @@ def binned_closest_plain(tabs: PacketTables, bins: PrimaryBins, o, d, time,
     slot8 = torch.arange(GROUP, device=dev)
     groups = tests = 0
     type_tests = torch.zeros((5,), dtype=torch.int64, device=dev)
+    chain_groups = torch.zeros((C,), dtype=torch.int64, device=dev)
+    chain_tests = torch.zeros((C,), dtype=torch.int64, device=dev)
     act = torch.nonzero(cnt > 0).squeeze(1)
     k = 0
     while act.numel():
@@ -528,27 +540,187 @@ def binned_closest_plain(tabs: PacketTables, bins: PrimaryBins, o, d, time,
             live = oints[slots, 12].long()
             type_tests.index_add_(0, (live + 1).reshape(-1),
                                   per_slot.reshape(-1).long())
-            tests += int((per_slot * (live >= 0)).sum())
+            per_chain = (per_slot * (live >= 0)).sum(1)
+            tests += int(per_chain.sum())
+            chain_groups[act] += 1
+            chain_tests[act] += per_chain
         k += 1
     if stats is not None:
         stats["groups"] = stats.get("groups", 0) + groups
         stats["obj_tests"] = stats.get("obj_tests", 0) + tests
         stats["type_tests"] = stats.get("type_tests", 0) + type_tests.cpu()
+        stats["chain_groups"] = chain_groups.cpu()
+        stats["chain_tests"] = chain_tests.cpu()
     return bt.reshape(n)[:R], bn.reshape(n, 3)[:R], bid.reshape(n)[:R]
 
 
-def launch_binned_closest(tabs: PacketTables, bins: PrimaryBins, rays,
-                          motion_blur: bool, out_f, out_i):
-    """K9 on packed (8, R) rays into (4, R) f32 and (R,) i32 outputs;
-    counts nothing."""
-    with torch.cuda.device(rays.device):
+class ClosestWork(NamedTuple):
+    """K9's work list: ``item_start`` (C+1,) i32, the exclusive scan of
+    each chain's segments past its first (the total at C); ``counter``
+    (1,) i32, the units taken (the kernel's scratch)."""
+
+    item_start: torch.Tensor
+    counter: torch.Tensor
+
+
+def closest_work_plain(bins: PrimaryBins,
+                       segment_groups: int = SEGMENT_GROUPS) -> ClosestWork:
+    """Plain version of K9's first pass: chain c's list of n groups makes
+    ceil(n / segment_groups) segments, and its tail items are the
+    segments past its first."""
+    cs = bins.chain_start.long()
+    cnt = cs[1:] - cs[:-1]
+    tail = torch.clamp(-(-cnt // segment_groups) - 1, min=0)
+    item_start = torch.zeros((cnt.numel() + 1,), dtype=torch.int64,
+                             device=cs.device)
+    item_start[1:] = torch.cumsum(tail, 0)
+    return ClosestWork(item_start.to(torch.int32),
+                       torch.zeros((1,), dtype=torch.int32, device=cs.device))
+
+
+def closest_units_plain(bins: PrimaryBins, work: ClosestWork,
+                        segment_groups: int = SEGMENT_GROUPS):
+    """K9's units in the order its warps take them: (chain, quarter, first,
+    end) (U,) int64 tensors, a quarter being 32 of the chain's lanes and
+    [first, end) the positions of its segment in ``bins.cand``.  Every
+    chain's first segment comes first, chain by chain, then the tail
+    items, each item's chain the last whose item_start is at or below
+    it."""
+    cs = bins.chain_start.long()
+    ist = work.item_start.long()
+    C, dev = cs.numel() - 1, cs.device
+    q = LANES // 32
+    item = torch.arange(int(ist[-1]), device=dev)
+    ic = torch.searchsorted(ist, item, right=True) - 1
+    chain = torch.cat([torch.arange(C, device=dev), ic])
+    seg = torch.cat([torch.zeros((C,), dtype=torch.int64, device=dev),
+                     1 + item - ist[ic]])
+    chain = torch.repeat_interleave(chain, q)
+    seg = torch.repeat_interleave(seg, q)
+    quarter = torch.arange(chain.numel(), device=dev) % q
+    first = cs[chain] + seg * segment_groups
+    end = torch.minimum(first + segment_groups, cs[chain + 1])
+    return chain, quarter, first, end
+
+
+def binned_closest_segments_plain(tabs: PacketTables, bins: PrimaryBins, o,
+                                  d, time, valid=None,
+                                  motion_blur: bool = False,
+                                  types_present=None,
+                                  segment_groups: int = SEGMENT_GROUPS):
+    """K9's segmented stream in plain torch, one schedule of it: the
+    segments' rounds in turn (every chain's first segment, then every
+    second one, ...), each unit a quarter of a chain that stops before
+    the first group whose ``cand_dist`` its every live lane's best (the
+    best of the rounds before, or its own) beats, every slot hit merged
+    by the least (t, position * 8 + slot).  Returns ``(t, normal, object
+    id)``: :func:`binned_closest_plain`'s on every lane, whatever the
+    order of the segments, since a stop skips only groups that cannot
+    win."""
+    if types_present is None:
+        types_present = (OBJ_SPHERE, OBJ_TRIANGLE, OBJ_PLANE, OBJ_BOX)
+    R, dev = o.shape[0], o.device
+    C = bins.n_chains
+    if -(-R // LANES) != C:
+        raise ValueError(f"{R} rays do not fill the bins' {C} chains")
+    n, Q = C * LANES, LANES // 32
+    v = (torch.ones((R,), dtype=torch.bool, device=dev) if valid is None
+         else valid.to(torch.bool))
+    O = _pad_lanes(o, n).reshape(C * Q, 32, 3)
+    D = _pad_lanes(d, n).reshape(C * Q, 32, 3)
+    T = _pad_lanes(time, n).reshape(C * Q, 32)
+    V = _pad_lanes(v, n).reshape(C * Q, 32)
+    cand, cdist = bins.cand.to(dev).long(), bins.cand_dist.to(dev)
+    oints = tabs.objs.view(torch.int32)
+    slot8 = torch.arange(GROUP, device=dev)
+    bt = torch.full((C * Q, 32), FLT_MAX, dtype=torch.float32, device=dev)
+    code = torch.full((C * Q, 32), -1, dtype=torch.int64, device=dev)
+    work = closest_work_plain(bins.to(dev), segment_groups)
+    chain, quarter, first, end = closest_units_plain(bins.to(dev), work,
+                                                     segment_groups)
+    seg = (first - bins.chain_start.to(dev).long()[chain]) // segment_groups
+    for s in range(int(seg.max()) + 1 if seg.numel() else 0):
+        unit = chain[seg == s] * Q + quarter[seg == s]
+        ufirst, uend = first[seg == s], end[seg == s]
+        known = bt[unit].clone()  # the rounds before this one
+        own = torch.full_like(known, FLT_MAX)
+        act = torch.ones_like(ufirst, dtype=torch.bool)
+        for k in range(segment_groups):
+            pos = ufirst + k
+            act &= pos < uend
+            if not act.any():
+                break
+            pk = torch.where(act, pos, 0)
+            best = torch.minimum(known, own)
+            stop = (~V[unit] | (best < cdist[pk][:, None])).all(1)
+            act &= ~stop
+            if not act.any():
+                break
+            u, pa = unit[act], pk[act]
+            slots = cand[pa][:, None] * GROUP + slot8  # (Ua, 8)
+            na = u.numel()
+            rows = tabs.objs[slots][:, None].expand(na, 32, GROUP, 16)
+            typ = oints[slots, 12][:, None].expand(na, 32, GROUP)
+            lane3 = lambda x: x[u][:, :, None].expand(na, 32, GROUP,
+                                                      3).reshape(-1, 3)
+            t, _ = hit_packed(lane3(O), lane3(D),
+                              T[u][:, :, None].expand(na, 32,
+                                                      GROUP).reshape(-1),
+                              rows.reshape(-1, 16), typ.reshape(-1),
+                              motion_blur, types_present)
+            t = t.reshape(na, 32, GROUP)
+            tmin, j = torch.min(t, dim=2)  # strict < in slot order
+            c = pa[:, None] * GROUP + j
+            ok = V[u] & (tmin < FLT_MAX)
+            better = ok & ((tmin < bt[u]) | ((tmin == bt[u])
+                                             & (c < code[u])))
+            bt[u] = torch.where(better, tmin, bt[u])
+            code[u] = torch.where(better, c, code[u])
+            own[act] = torch.where(ok, torch.minimum(own[act], tmin),
+                                   own[act])
+    bt, code = bt.reshape(n)[:R], code.reshape(n)[:R]
+    hit = code >= 0
+    sl = torch.where(hit, cand[torch.clamp(code, min=0) // GROUP] * GROUP
+                     + torch.clamp(code, min=0) % GROUP, 0)
+    gid = torch.where(hit, oints[sl, 13], -1).to(torch.int32)
+    _, nrm = hit_packed(o, d, time, tabs.objs[sl], torch.where(
+        hit, oints[sl, 12], -1), motion_blur, types_present)
+    nrm = torch.where(hit[:, None], nrm, 0.0)
+    return bt, nrm, gid
+
+
+def launch_binned_closest(tabs: PacketTables, bins: PrimaryBins, o, d,
+                          time, valid, motion_blur: bool, t, normal,
+                          obj) -> ClosestWork:
+    """K9 on (R,3) o and d, (R,) f32 time and (R,) bool valid or None
+    (every lane), read in place, into (R,) f32 t, (R,3) f32 normal and
+    (R,) i32 object ids; counts nothing.  Returns the work list it wrote
+    into its scratch (one allocation: the lanes' keys, then the work
+    list)."""
+    R, C = o.shape[0], bins.n_chains
+    scratch = torch.empty((2 * R + C + 2,), dtype=torch.int32,
+                          device=o.device)
+    keys, ist, counter = scratch.split([2 * R, C + 1, 1])
+    with torch.cuda.device(o.device):
         err = build.load().lib.drt_binned_closest(
-            tabs.objs.data_ptr(), bins.chain_start.data_ptr(),
-            bins.n_chains, bins.cand.data_ptr(), bins.cand_dist.data_ptr(),
-            rays.data_ptr(), rays.shape[1], int(motion_blur),
-            out_f.data_ptr(), out_i.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+            tabs.objs.data_ptr(), bins.chain_start.data_ptr(), C,
+            bins.cand.data_ptr(), bins.cand_dist.data_ptr(), o.data_ptr(),
+            d.data_ptr(), time.data_ptr(),
+            None if valid is None else valid.data_ptr(), R,
+            int(motion_blur), keys.data_ptr(), ist.data_ptr(),
+            counter.data_ptr(), t.data_ptr(), normal.data_ptr(),
+            obj.data_ptr(), torch.cuda.current_stream().cuda_stream)
     build.check(err, "drt_binned_closest")
+    return ClosestWork(ist, counter)
+
+
+def binned_closest_inputs(o, d, time, valid):
+    """K9's inputs as it reads them in place: (o, d, time, valid or
+    None), checked for shape and device."""
+    time = time.to(torch.float32).contiguous()
+    valid = None if valid is None else valid.to(torch.bool).contiguous()
+    o, d = ray_inputs("binned_closest", o, d, time, valid)
+    return o, d, time, valid
 
 
 def binned_closest_kernel(tabs: PacketTables, bins: PrimaryBins, o, d, time,
@@ -558,13 +730,18 @@ def binned_closest_kernel(tabs: PacketTables, bins: PrimaryBins, o, d, time,
     if -(-R // LANES) != bins.n_chains:
         raise ValueError(f"{R} rays do not fill the bins' "
                          f"{bins.n_chains} chains")
-    rays = _rays(o, d, time, valid)
-    require_cuda("binned_closest", rays, tabs.objs, *bins)
-    out_f = torch.empty((4, R), dtype=torch.float32, device=rays.device)
-    out_i = torch.empty((R,), dtype=torch.int32, device=rays.device)
-    launch_binned_closest(tabs, bins, rays, motion_blur, out_f, out_i)
+    o, d, time, valid = binned_closest_inputs(o, d, time, valid)
+    require_cuda("binned_closest", o, tabs.objs, *bins)
+    if tabs.objs.data_ptr() % 16:
+        raise ValueError("binned_closest: the slot records must be 16-byte "
+                         "aligned")
+    t = torch.empty((R,), dtype=torch.float32, device=o.device)
+    nrm = torch.empty((R, 3), dtype=torch.float32, device=o.device)
+    gid = torch.empty((R,), dtype=torch.int32, device=o.device)
+    launch_binned_closest(tabs, bins, o, d, time, valid, motion_blur, t, nrm,
+                          gid)
     LAUNCHES["binned_closest"] += 1
-    return out_f[0], out_f[1:4].T, out_i
+    return t, nrm, gid
 
 
 # ------------------------------------------------------------------ K10

@@ -11,16 +11,38 @@
 // unit, so t is a distance).  Per lane the result is the strict-< closest hit
 // over the chain's candidates in list order, the first winning a tie; the
 // list is a superset of every object a primary ray of the chain can hit.
-// Bound: the object tests of the groups each chain streams before it stops
-// (FP32 ALU); candidate lists and group records are read once per chain.
-// Design: one 128-thread block per chain (lane = thread).  Before each
-// candidate group a block vote (__syncthreads_and) stops the chain once
-// every live lane's best t is below that group's cand_dist: no later group
-// can then win.  The block stages the group's 8 slot records (8 x 16 f32)
-// in shared memory; each thread tests them in slot order.  Dead lanes
-// (valid == 0, or past the end of the batch) vote to stop and test nothing.
-// The JAX kernel's slab/blk_owner/blk_dist/tile_start streaming layout is a
-// DMA artifact this design does not need.
+// Once a lane's best t is below a group's cand_dist, no group from there on
+// can beat it, so a lane may stop testing there and the result does not
+// change: where the stream stops decides which tests run, never the hit.
+// Bound: the object tests of the groups streamed before the stops (FP32
+// ALU); the rays, candidate lists and group records read once.
+// What held the first version back: one 128-thread block a chain, with two
+// block barriers a candidate group (a stop vote, and the group's records
+// staged in shared memory), its slots tested one after another; the
+// launch was one wave of 2,048 blocks, so it lasted as long as its longest
+// chain, and a chain's vote waited for its slowest warp.  The design, in
+// three launches with no host synchronisation:
+//   1. closest_scan (one block): each chain's list is split into segments
+//      of kSegGroups groups; item_start is the exclusive scan of each
+//      chain's segments past its first, and the unit counter is zeroed;
+//   2. closest_items: a persistent grid of warps takes units from an
+//      atomic counter: first (chain, quarter) for every chain's first
+//      segment, then (tail segment, quarter), a quarter being 32 of the
+//      chain's 128 lanes.  A warp streams its segment's groups in order,
+//      each group's 8 slot records (512 bytes) staged in the warp's own
+//      shared memory while the next group's load is in flight, 8 slots
+//      tested kU side by side; it leaves when every live lane's best
+//      (its own, or the best another unit has published for it) is below
+//      the next group's cand_dist (__all_sync: no block barrier).  A lane
+//      publishes each improvement with a 64-bit atomicMin of (t bits << 32
+//      | position * 8 + slot): t >= 0, so its bits order as integers, and
+//      the least key is the least t, of equal t the first in list order,
+//      which is the serial fold's winner whichever unit finds it and in
+//      whatever order the units run;
+//   3. closest_finish: each lane decodes its key and computes the winner's
+//      normal once.
+// o, d, time and valid are read in place; the keys (memset to all ones, a
+// miss), item_start and the counter are the wrapper's scratch.
 //
 // K10 replaces pallas_binned.py::binned_shadow (_make_binned_shadow_kernel).
 // accel/cuda_binned.py::build_light_bins tiles each point light's view of
@@ -71,8 +93,9 @@
 // Layouts (all contiguous):
 //   objs (G*8,16) f32 slot records of the grouped tables (type -1: inert);
 //   chain_start (C+1,) i32, cand (P,) i32 group ids, cand_dist (P,) f32;
-//   rays (8,R) f32 rows ox oy oz dx dy dz time valid, R <= C*128;
-//   out_f (4,R) f32 rows t nx ny nz, out_i (R,) i32 object id;
+//   K9: o, d (R,3) f32, time (R,) f32, valid (R,) u8 or null (every
+//   lane), R <= C*128; out t (R,) f32, normal (R,3) f32, obj (R,) i32;
+//   scratch keys (R,) u64, item_start (C+1,) i32, counter (1,) i32;
 //   K10: tile_start (L*K*K+1,) i32, frames (L,16) f32, group (Q,) i32
 //   group ids, gdist (Q,) f32; o, d (R,3) f32, dist (R,) f32, valid (R,)
 //   u8 or null (every lane), light_id (R,) i32, occ (R,) u8; scratch
@@ -86,62 +109,6 @@ namespace {
 constexpr int kChain = 128;  // rays per chain = threads per block
 constexpr int kGroup = 8;    // object slots per group
 constexpr int kSlotWidth = 16;
-
-__global__ void binned_closest_kernel(const float* __restrict__ objs,
-                                      const int* __restrict__ chain_start,
-                                      const int* __restrict__ cand,
-                                      const float* __restrict__ cand_dist,
-                                      const float* __restrict__ rays, int n,
-                                      int motion_blur,
-                                      float* __restrict__ out_f,
-                                      int* __restrict__ out_i) {
-  __shared__ float group[kGroup * kSlotWidth];
-  const int c = blockIdx.x;
-  const int i = c * kChain + threadIdx.x;
-  const size_t N = n;
-  drt::Ray r{};
-  float time = 0.0f;
-  bool valid = false;
-  if (i < n) {
-    r = drt::Ray{rays[i], rays[N + i], rays[2 * N + i], rays[3 * N + i],
-                 rays[4 * N + i], rays[5 * N + i]};
-    time = rays[6 * N + i];
-    valid = rays[7 * N + i] != 0.0f;
-  }
-  float bt = drt::kFltMax, nrm[3] = {0.0f, 0.0f, 0.0f};
-  int gid = -1;
-  const int s = chain_start[c], e = chain_start[c + 1];
-  for (int k = s; k < e; ++k) {
-    // front-to-back stop: every live lane already beats this group
-    if (__syncthreads_and(!valid || bt < __ldg(cand_dist + k))) break;
-    const float* src = objs + (size_t)__ldg(cand + k) * kGroup * kSlotWidth;
-    group[threadIdx.x] = __ldg(src + threadIdx.x);  // 128 floats, one each
-    __syncthreads();
-    if (valid) {
-#pragma unroll 1
-      for (int j = 0; j < kGroup; ++j) {
-        const float* row = group + j * kSlotWidth;
-        const int typ = __float_as_int(row[12]);
-        if (typ < 0) continue;  // inert padding slot
-        const float t = drt::prim_t<false>(typ, r, row, time,
-                                           motion_blur != 0);
-        if (t < bt) {
-          bt = t;
-          gid = __float_as_int(row[13]);
-          drt::prim_normal<false>(typ, r, row, t, time, motion_blur != 0,
-                                  nrm);
-        }
-      }
-    }
-  }
-  if (i < n) {
-    out_f[i] = bt;
-    out_f[N + i] = nrm[0];
-    out_f[2 * N + i] = nrm[1];
-    out_f[3 * N + i] = nrm[2];
-    out_i[i] = gid;
-  }
-}
 
 // ---------------------------------------------------------------- K10
 constexpr int kWarps = kChain / 32;
@@ -456,38 +423,244 @@ __global__ void __launch_bounds__(kChain) shadow_items_kernel(
   }
 }
 
-// Persistent blocks for shadow_items: as many as fit on the current card
-// at once, found once for each device.
-constexpr int kMaxDevices = 64;
+// ---------------------------------------------------------------- K9
+// Candidate groups a segment at most, chosen by measurement (PERF.md;
+// accel/cuda_binned.py::SEGMENT_GROUPS mirrors it)
+constexpr int kSegGroups = 32;
+
+// Pass 1: item_start = the exclusive scan of each chain's segments past
+// its first (ceil(groups / kSegGroups) - 1, and 0 for an empty list), the
+// total at C; the unit counter starts at 0.
+__global__ void __launch_bounds__(kScanThreads) closest_scan_kernel(
+    const int* __restrict__ chain_start, int C, int* __restrict__ item_start,
+    int* __restrict__ counter) {
+  const int per = (C + kScanThreads - 1) / kScanThreads;
+  const int a = min((int)threadIdx.x * per, C), b = min(a + per, C);
+  auto tail = [&](int c) {
+    const int len = chain_start[c + 1] - chain_start[c];
+    return len > kSegGroups ? (len - 1) / kSegGroups : 0;
+  };
+  int s = 0;
+  for (int c = a; c < b; ++c) s += tail(c);
+  int total;
+  int at = block_excl_scan<kScanThreads>(s, &total);
+  for (int c = a; c < b; ++c) {
+    item_start[c] = at;
+    at += tail(c);
+  }
+  if (threadIdx.x == 0) {
+    item_start[C] = total;
+    *counter = 0;
+  }
+}
+
+// A lane's best as the 64-bit key that orders it: t's bits over the code
+// position * 8 + slot (t >= 0, so its bits order as integers).
+__device__ __forceinline__ unsigned long long hit_key(float t, unsigned code) {
+  return (static_cast<unsigned long long>(__float_as_uint(t)) << 32) | code;
+}
+
+// Folds a staged group's 8 slot records (shared memory) into the lane's
+// best (bt, code): kU slots side by side (their arithmetic interleaves),
+// strict < in slot order.  Inert slots (type -1) take the round's real
+// type and their results are dropped.  Returns whether the best improved.
+__device__ __forceinline__ bool group_closest(const float* stage,
+                                              const drt::Ray& r, float time,
+                                              bool mb, unsigned code0,
+                                              float& bt, unsigned& code) {
+  bool better = false;
+#pragma unroll 1
+  for (int s = 0; s < kGroup; s += drt::kUnroll) {
+    int typ[drt::kUnroll], eff[drt::kUnroll];
+    const float* row[drt::kUnroll];
+    int real = -1;
+#pragma unroll
+    for (int u = 0; u < drt::kUnroll; ++u) {
+      row[u] = stage + (s + u) * kSlotWidth;
+      typ[u] = __float_as_int(row[u][12]);
+      real = max(real, typ[u]);
+    }
+    if (real < 0) continue;  // four inert padding slots
+#pragma unroll
+    for (int u = 0; u < drt::kUnroll; ++u) eff[u] = typ[u] < 0 ? real : typ[u];
+    float t[drt::kUnroll];
+    drt::prim_t_n<false, drt::kUnroll>(eff, row, r, time, mb, t);
+#pragma unroll
+    for (int u = 0; u < drt::kUnroll; ++u) {
+      if (typ[u] >= 0 && t[u] < bt) {
+        bt = t[u];
+        code = code0 + s + u;
+        better = true;
+      }
+    }
+  }
+  return better;
+}
+
+// Pass 2: a persistent grid of warps.  Units [0, C * kUnits) are (chain,
+// quarter) on the chain's first segment; unit C * kUnits + k * kUnits + q
+// is quarter q on tail item k: segment 1 + k - item_start[c] of the chain
+// c that holds item k.  A quarter is 32 of the chain's lanes.
+__global__ void __launch_bounds__(kChain) closest_items_kernel(
+    const float* __restrict__ objs, const int* __restrict__ chain_start,
+    const int* __restrict__ cand, const float* __restrict__ cand_dist,
+    const float* __restrict__ o, const float* __restrict__ d,
+    const float* __restrict__ time, const unsigned char* __restrict__ valid,
+    int n, int C, int motion_blur, const int* __restrict__ item_start,
+    int* __restrict__ counter, unsigned long long* keys) {
+  __shared__ float4 stage[kWarps][kGroupVecs];  // a group a warp
+  const float4* objs4 = reinterpret_cast<const float4*>(objs);
+  // the high words of the keys: the t a lane's best has so far
+  const unsigned* key_t = reinterpret_cast<const unsigned*>(keys) + 1;
+  float4* buf = stage[threadIdx.x >> 5];
+  const float* fbuf = reinterpret_cast<const float*>(buf);
+  const int lane = threadIdx.x & 31;
+  const bool mb = motion_blur != 0;
+  const int head = C * kUnits;
+  const int units = head + item_start[C] * kUnits;
+  for (;;) {
+    int u = 0;
+    if (lane == 0) u = atomicAdd(counter, 1);
+    u = __shfl_sync(kFull, u, 0);
+    if (u >= units) return;
+    int c = u / kUnits, seg = 0;
+    if (u >= head) {
+      const int item = (u - head) / kUnits;
+      c = warp_search(item_start, 0, C - 1, item);
+      seg = 1 + item - item_start[c];
+    }
+    const int i = c * kChain + (u % kUnits) * 32 + lane;
+    bool live = false;
+    drt::Ray r{};
+    float tm = 0.0f;
+    // the best another unit has published (a NaN before any: no best)
+    float known = drt::kFltMax;
+    if (i < n && (valid == nullptr || valid[i] != 0)) {
+      live = true;
+      r = drt::Ray{o[3 * i], o[3 * i + 1], o[3 * i + 2],
+                   d[3 * i], d[3 * i + 1], d[3 * i + 2]};
+      tm = time[i];
+      known = __uint_as_float(__ldcg(key_t + 2 * (size_t)i));
+    }
+    if (!__any_sync(kFull, live)) continue;
+    const int first = __ldg(chain_start + c) + seg * kSegGroups;
+    const int end = min(first + kSegGroups, __ldg(chain_start + c + 1));
+    float bt = drt::kFltMax;
+    unsigned code = 0;
+    bool stop = false;
+    for (int base = first; base < end && !stop; base += 32) {
+      const int take = min(32, end - base);
+      float cd = 0.0f;
+      int grp = 0;
+      if (lane < take) {
+        cd = __ldg(cand_dist + base + lane);
+        grp = __ldg(cand + base + lane);
+      }
+      // group j's 8 slot records are 32 float4s: a lane loads one, the
+      // next group's while the warp tests this one
+      float4 next = __ldg(objs4 + (size_t)__shfl_sync(kFull, grp, 0) *
+                                      kGroupVecs + lane);
+      for (int j = 0; j < take; ++j) {
+        // front-to-back stop: every live lane's best beats this group
+        const float dj = __shfl_sync(kFull, cd, j);
+        if (__all_sync(kFull, !live || fminf(bt, known) < dj)) {
+          stop = true;
+          break;
+        }
+        buf[lane] = next;
+        __syncwarp();
+        const int gn = __shfl_sync(kFull, grp, min(j + 1, take - 1));
+        if (j + 1 < take)
+          next = __ldg(objs4 + (size_t)gn * kGroupVecs + lane);
+        if (live) {
+          const float kn = __uint_as_float(__ldcg(key_t + 2 * (size_t)i));
+          if (group_closest(fbuf, r, tm, mb, (unsigned)(base + j) * kGroup,
+                            bt, code))
+            atomicMin(keys + i, hit_key(bt, code));
+          known = kn;
+        }
+        __syncwarp();  // every lane is past its reads: the stage is free
+      }
+    }
+  }
+}
+
+// Pass 3: each lane's winner from its key (all ones: no hit), its normal
+// computed once.
+__global__ void closest_finish_kernel(
+    const float* __restrict__ objs, const int* __restrict__ cand,
+    const float* __restrict__ o, const float* __restrict__ d,
+    const float* __restrict__ time, int n, int motion_blur,
+    const unsigned long long* __restrict__ keys, float* __restrict__ t,
+    float* __restrict__ nrm, int* __restrict__ obj) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const unsigned long long key = keys[i];
+  float bt = drt::kFltMax, n3[3] = {0.0f, 0.0f, 0.0f};
+  int gid = -1;
+  if (key != ~0ull) {
+    const unsigned code = static_cast<unsigned>(key);
+    const float* slot =
+        objs + ((size_t)__ldg(cand + (code / kGroup)) * kGroup +
+                code % kGroup) * kSlotWidth;
+    bt = __uint_as_float(static_cast<unsigned>(key >> 32));
+    gid = __float_as_int(__ldg(slot + 13));
+    const drt::Ray r{o[3 * i], o[3 * i + 1], o[3 * i + 2],
+                     d[3 * i], d[3 * i + 1], d[3 * i + 2]};
+    drt::prim_normal(__float_as_int(__ldg(slot + 12)), r, slot, bt, time[i],
+                     motion_blur != 0, n3);
+  }
+  t[i] = bt;
+  nrm[3 * i] = n3[0];
+  nrm[3 * i + 1] = n3[1];
+  nrm[3 * i + 2] = n3[2];
+  obj[i] = gid;
+}
+
+// Persistent blocks of the kChain-thread kernels: as many as fit on the
+// current card at once.
 int items_grid() {
-  static int blocks[kMaxDevices] = {};
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev >= 0 && dev < kMaxDevices && blocks[dev] > 0) return blocks[dev];
-  int sms = 0, per = 0;
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, shadow_items_kernel,
-                                                kChain, 0);
-  const int b = sms * per > 0 ? sms * per : 1;
-  if (dev >= 0 && dev < kMaxDevices) blocks[dev] = b;
-  return b;
+  static int blocks[drt::kMaxDevices] = {};
+  return drt::persistent_grid<kChain>(shadow_items_kernel, blocks);
+}
+
+int closest_grid() {
+  static int blocks[drt::kMaxDevices] = {};
+  return drt::persistent_grid<kChain>(closest_items_kernel, blocks);
 }
 
 }  // namespace
 
+// valid: (R,) u8, or null for every lane live.  A memset of the keys and
+// three launches (scan, items, finish); the scratch is the caller's.
 extern "C" int drt_binned_closest(const void* objs, const void* chain_start,
                                   int n_chains, const void* cand,
-                                  const void* cand_dist, const void* rays,
-                                  int n, int motion_blur, void* out_f,
-                                  void* out_i, void* stream) {
+                                  const void* cand_dist, const void* o,
+                                  const void* d, const void* time,
+                                  const void* valid, int n, int motion_blur,
+                                  void* keys, void* item_start, void* counter,
+                                  void* t, void* normal, void* obj,
+                                  void* stream) {
   if (n > 0 && n_chains > 0) {
-    binned_closest_kernel<<<n_chains, kChain, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(objs),
-        static_cast<const int*>(chain_start), static_cast<const int*>(cand),
-        static_cast<const float*>(cand_dist),
-        static_cast<const float*>(rays), n, motion_blur,
-        static_cast<float*>(out_f), static_cast<int*>(out_i));
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    auto* k = static_cast<unsigned long long*>(keys);
+    const auto* cs = static_cast<const int*>(chain_start);
+    const auto* fo = static_cast<const float*>(o);
+    const auto* fd = static_cast<const float*>(d);
+    const auto* ft = static_cast<const float*>(time);
+    cudaMemsetAsync(k, 0xff, sizeof(unsigned long long) * (size_t)n, st);
+    closest_scan_kernel<<<1, kScanThreads, 0, st>>>(
+        cs, n_chains, static_cast<int*>(item_start),
+        static_cast<int*>(counter));
+    closest_items_kernel<<<closest_grid(), kChain, 0, st>>>(
+        static_cast<const float*>(objs), cs, static_cast<const int*>(cand),
+        static_cast<const float*>(cand_dist), fo, fd, ft,
+        static_cast<const unsigned char*>(valid), n, n_chains, motion_blur,
+        static_cast<const int*>(item_start), static_cast<int*>(counter), k);
+    closest_finish_kernel<<<(n + 255) / 256, 256, 0, st>>>(
+        static_cast<const float*>(objs), static_cast<const int*>(cand), fo,
+        fd, ft, n, motion_blur, k, static_cast<float*>(t),
+        static_cast<float*>(normal), static_cast<int*>(obj));
   }
   return static_cast<int>(cudaGetLastError());
 }

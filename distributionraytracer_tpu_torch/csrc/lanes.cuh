@@ -1,6 +1,8 @@
-// Block-level lane work shared by K2 (intersect.cu), K3 (whitted_level.cu)
-// and K6 (pt.cu): compaction of a block's live lanes, and thread groups
-// that split one lane's object folds.
+// Block-level lane work shared by K1 and K2 (intersect.cu), K3
+// (whitted_level.cu) and K6 (pt.cu): compaction of a block's live lanes,
+// and thread groups that split one lane's object folds; and, for K1's
+// grouping and K9's and K10's persistent grids (binned.cu), the number of
+// a kernel's blocks that the card holds at once.
 //
 // A block covers as many lanes as it has threads.  Each thread brings one
 // lane's live flag; the live lanes are listed in lane order in shared
@@ -93,6 +95,23 @@ __device__ __forceinline__ void group_min(const Group& grp, float& t,
       extra = oe;
     }
   }
+}
+
+// Blocks of a kThreads-thread kernel that the current card holds at once
+// (at least 1), found once for each device; `blocks` is the kernel's own
+// cache, zeroed.
+constexpr int kMaxDevices = 64;
+template <int kThreads, class Kernel>
+int persistent_grid(Kernel kernel, int (&blocks)[kMaxDevices]) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= 0 && dev < kMaxDevices && blocks[dev] > 0) return blocks[dev];
+  int sms = 0, per = 0;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel, kThreads, 0);
+  const int b = sms * per > 0 ? sms * per : 1;
+  if (dev >= 0 && dev < kMaxDevices) blocks[dev] = b;
+  return b;
 }
 
 }  // namespace drt

@@ -22,11 +22,13 @@
 // the same.  The <false> instances read rows a caller holds in registers
 // (K2's type runs, loaded 16 bytes at a time).
 //
-// The end of this file holds the group folds that K2 and K3 share: the
-// any-hit fold split over a group of threads (lanes.cuh), in rounds of
-// kUnroll objects (round_occludes), over the insertion-order table
-// (MixedRows) or over one type run (TypedRows); K3 votes by group
-// (any_group), K2 keeps the warp together (any_warp).
+// The end of this file holds the group folds that K1, K2 and K3 share:
+// the closest-hit and any-hit folds split over a group of threads
+// (lanes.cuh), in rounds of kUnroll objects, over the insertion-order
+// table (MixedRows) or over type runs (TypedRows).  The closest hit
+// (closest_group, K1 and K3) reduces the group's winners by (t, object
+// id); the any-hit rounds (round_occludes) stop at an occluder: K3 votes
+// by group (any_group), K2 keeps the warp together (any_warp).
 #pragma once
 
 #include <cfloat>
@@ -401,6 +403,53 @@ struct TypedRows {
   }
   __device__ __forceinline__ int id(int k) const { return __ldg(ids + k); }
 };
+
+// Folds rows sub, sub + G, ... of `rows` into (bt, best), kUnroll rows a
+// round: the least t, and of equal t the least object id, so rows may come
+// in any order (K1's type runs) and still give the serial fold's winner
+// (strict <, the first in insertion order winning a tie).  The rounds'
+// bounds are the same for every thread of the group, and of every group
+// of a block, so the warp's groups run them in step with no vote.
+template <class Rows>
+__device__ __forceinline__ void closest_rounds(const Rows& rows,
+                                               const Group& grp,
+                                               const Ray& r, float time,
+                                               bool mb, float& bt,
+                                               int& best) {
+  const int G = grp.size;
+  for (int b = 0; b < rows.n; b += G * kUnroll) {
+    const int g = b + grp.sub;
+    float t[kUnroll];
+    rows.round(g, G, r, time, mb, t);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int k = g + u * G;
+      // a miss (FLT_MAX) never wins: best is -1 while bt is FLT_MAX
+      if (k < rows.n && (t[u] < bt || (t[u] == bt && rows.id(k) < best))) {
+        bt = t[u];
+        best = rows.id(k);
+      }
+    }
+  }
+}
+
+// The closest hit over one or more tables of rows, each lane's fold split
+// over its group (every thread of the group must call it): each thread
+// folds its share of every table (closest_rounds), then the group reduces
+// to the least (t, object id) (group_min), the serial fold's winner.
+// Returns its object id or -1, and its t in *t_out.
+template <class... Rows>
+__device__ __forceinline__ int closest_group(const Group& grp, const Ray& r,
+                                             float time, bool mb,
+                                             float* t_out,
+                                             const Rows&... rows) {
+  float bt = kFltMax;
+  int best = -1, unused = 0;
+  (closest_rounds(rows, grp, r, time, mb, bt, best), ...);
+  group_min(grp, bt, best, unused);
+  *t_out = bt;
+  return best;
+}
 
 // Whether one of the rows g + u * G (u < kUnroll) of `rows` occludes the
 // shadow ray (time 0).

@@ -30,11 +30,12 @@
 //   - a block whose valid lanes fill its threads (G = 1) runs the serial
 //     folds (primitives.cuh); a block with fewer splits each valid lane's
 //     folds over a group of G = 2..32 threads, each testing every G-th
-//     object, kU at a time written so that their arithmetic interleaves;
-//     the closest hit is a shuffle reduction (least t, then least index:
-//     the serial fold's winner), the shadow folds vote after each round
-//     and stop at the first occluder's round (primitives.cuh::any_group,
-//     which K2 shares);
+//     object, drt::kUnroll at a time written so that their arithmetic
+//     interleaves; the closest hit is a shuffle reduction (least t, then
+//     least index: the serial fold's winner; primitives.cuh::
+//     closest_group, which K1 shares), the shadow folds vote after each
+//     round and stop at the first occluder's round (primitives.cuh::
+//     any_group, which K2 shares);
 //   - the IEEE root of every missed sphere: sphere_t returns on a negative
 //     (or NaN) discriminant before its sqrt and divisions;
 //   - the winner's normal (a sqrt and three divisions) is computed once,
@@ -56,7 +57,6 @@
 namespace {
 
 constexpr int kThreads = drt::kLaneBlock;  // threads, and lanes, a block
-constexpr int kU = drt::kUnroll;  // objects a thread tests side by side
 constexpr int kMatWidth = 13;
 constexpr float kOffset = 1e-4f;  // secondary/shadow ray offset (main.cpp:378)
 
@@ -83,34 +83,6 @@ __device__ __forceinline__ bool grid_slab(const float* gbox,
   }
   *t1 = te;
   return !(t0 > te || te < 0.0f);
-}
-
-// The closest hit split over the group: each thread folds objects sub,
-// sub + G, ... in order, kU at a time (strict <), then the group reduces
-// to the serial fold's winner.  Returns its id or -1, and its t.
-__device__ __forceinline__ int closest_group(const float* __restrict__ table,
-                                             const int* __restrict__ types,
-                                             int n_obj, const drt::Group& grp,
-                                             const drt::Ray& r, float time,
-                                             bool mb, float* t_out) {
-  float bt = drt::kFltMax;
-  int best = -1, unused = 0;
-  const int G = grp.size;
-  const drt::MixedRows rows{table, types, n_obj};
-  for (int g = grp.sub; g < n_obj; g += G * kU) {
-    float t[kU];
-    rows.round(g, G, r, time, mb, t);
-#pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      if (g + u * G < n_obj && t[u] < bt) {
-        bt = t[u];
-        best = g + u * G;
-      }
-    }
-  }
-  drt::group_min(grp, bt, best, unused);
-  *t_out = bt;
-  return best;
 }
 
 // Two blocks an SM: ptxas then has up to 128 registers a thread and
@@ -161,7 +133,8 @@ __global__ void __launch_bounds__(kThreads, 2) whitted_level_kernel(
   if (serial) {
     gid = drt::closest_fold(table, types, n_obj, r, time, mb, &t_hit, nrm);
   } else {
-    gid = closest_group(table, types, n_obj, grp, r, time, mb, &t_hit);
+    gid = drt::closest_group(grp, r, time, mb, &t_hit,
+                             drt::MixedRows{table, types, n_obj});
     if (gid >= 0)
       drt::prim_normal(__ldg(types + gid), r,
                        table + (size_t)gid * drt::kRowWidth, t_hit, time, mb,

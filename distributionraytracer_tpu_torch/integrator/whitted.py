@@ -248,7 +248,10 @@ def _shade_node(scene: SceneData, cfg: RenderConfig, inter: Intersectors,
     hit_mask = hit.hit & valid
     t_hit = torch.where(hit.hit, hit.t, torch.ones_like(hit.t))
     hit_p = o + d * t_hit[:, None]
-    N = safe_normalize(hit.normal)
+    # contiguous: the packet walks return the normal as a transposed (3, R)
+    # view, and a sum over a strided axis rounds in another order, so the
+    # shading would depend on which intersector found the hit
+    N = safe_normalize(hit.normal.contiguous())
     outside = dot(d, N) < 0.0
     N = torch.where(outside[:, None], N, -N)
     V = -normalize(d)

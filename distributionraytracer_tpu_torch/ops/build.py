@@ -41,8 +41,10 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures of the launch functions; every one returns cudaError_t.
 SIGNATURES = {
-    # table, types, mats, n_obj, rays, n, motion_blur, out_f, out_i, stream
-    "drt_closest_hit": [_P, _P, _P, _I, _P, _I, _I, _P, _P, _P],
+    # runs, ids, n_sph, n_tri, n_pln, n_box, table, types, mats, o, d,
+    # time, valid, n, motion_blur, hit, t, normal, obj, mat, stream
+    "drt_closest_hit": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _P, _P, _P, _P, _P, _P],
     # runs, ids, n_sph, n_tri, n_pln, n_box, o, d, dist, excl, valid, n,
     # mode, occ, stream
     "drt_any_hit": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P,
@@ -56,9 +58,10 @@ SIGNATURES = {
     # nodes, n_nodes, objs, rays, n, motion_blur, walk, grid_mode, occ,
     # stream
     "drt_packet_shadow": [_P, _I, _P, _P, _I, _I, _I, _I, _P, _P],
-    # objs, chain_start, n_chains, cand, cand_dist, rays, n, motion_blur,
-    # out_f, out_i, stream
-    "drt_binned_closest": [_P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P],
+    # objs, chain_start, n_chains, cand, cand_dist, o, d, time, valid, n,
+    # motion_blur, keys, item_start, counter, t, normal, obj, stream
+    "drt_binned_closest": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P,
+                           _P, _P, _P, _P, _P, _P],
     # objs, tile_start, frames, K, group, gdist, light_id, o, d, dist,
     # valid, n, grid_mode, chains, rows, item_start, counter, occ, stream
     "drt_binned_shadow": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I,

@@ -1,14 +1,16 @@
 """Brute-force closest hit (K1) and any hit (K2) as CUDA kernels.
 
-Counterpart of ``distributionraytracer_tpu.ops.pallas_intersect``.  K1
-(``csrc/intersect.cu`` over ``csrc/primitives.cuh``) walks the packed
-``(O, 12)`` object table in insertion order with the strict-``<`` first-wins
-update, one thread per ray.  K2 tests the same objects in type runs
-(:func:`type_runs`), a lane's fold split over a group of threads where its
-block holds few valid lanes, and reads the callers' tensors in place.
-Their plain versions are :func:`ops.intersect.closest_hit_brute` and
-:func:`ops.intersect.any_hit_brute`; :func:`any_hit_runs` is K2's fold over
-its type runs in plain torch.
+Counterpart of ``distributionraytracer_tpu.ops.pallas_intersect``.  K1 and
+K2 (``csrc/intersect.cu`` over ``csrc/primitives.cuh``) test the objects in
+type runs (:func:`type_runs`), each lane's fold split over a group of
+threads (K1: always, so that a launch fills the card; K2: where its block
+holds few valid lanes), and read the callers' tensors in place.  K1 keeps
+the strict-``<`` first-wins winner of the insertion-order scan: a tie in t
+goes to the lower object id.  Their plain versions are
+:func:`ops.intersect.closest_hit_brute` and
+:func:`ops.intersect.any_hit_brute`; :func:`closest_hit_runs` and
+:func:`any_hit_runs` are the kernels' folds over the type runs in plain
+torch, in their operation order.
 
 Dispatch is by the tensors' device: CPU tensors take the plain version,
 CUDA tensors launch the kernel (a failed build or launch raises).  Each
@@ -47,16 +49,16 @@ RUN_WIDTHS = (4, 12, 12, 12)
 
 
 class ObjectTables(NamedTuple):
-    data: torch.Tensor  # (O,12) f32, insertion order (K1)
+    data: torch.Tensor  # (O,12) f32, insertion order (K1's normals)
     types: torch.Tensor  # (O,) i32
     mats: torch.Tensor  # (O,) i32
-    runs: torch.Tensor  # f32 rows in type runs (K2), see type_runs
+    runs: torch.Tensor  # f32 rows in type runs (K1, K2), see type_runs
     ids: torch.Tensor  # (O,) i32 each run row's object id
     counts: tuple  # objects of each type of RUN_TYPES
 
 
 def type_runs(data, types, n_obj: int):
-    """K2's tables: ``(runs, ids, counts)``.
+    """K1's and K2's tables: ``(runs, ids, counts)``.
 
     ``runs`` is one flat f32 tensor: the spheres' ``[cx, cy, cz, r]`` rows
     (16 bytes), then the triangles', planes' and boxes' 12-float rows of
@@ -94,17 +96,18 @@ def run_rows(tb: ObjectTables):
     return out
 
 
-def _run_tmat(typ: int, o, d, rows):
+def _run_tmat(typ: int, o, d, rows, time=None, motion_blur: bool = False):
     """(R, N) t matrix of rays (R, 3) against run rows (N, width), a miss
     FLT_MAX: every sum and product its own rounded operation, left to
     right, in the kernels' order (as :func:`ops.intersect.hit_packed`),
-    so the plain fold decides every hit as K2 does."""
+    so the plain folds decide every hit as K1 and K2 do.  Motion blur
+    moves a sphere's centre by (0, 1, 0) * the ray's ``time``."""
     c = lambda a, k: a[:, k][:, None]  # (R,) component -> (R, 1)
     r = lambda k: rows[:, k][None, :]  # (N,) field -> (1, N)
     dx, dy, dz, ox, oy, oz = (c(d, 0), c(d, 1), c(d, 2), c(o, 0), c(o, 1),
                               c(o, 2))
     if typ == OBJ_SPHERE:
-        return sphere_t(o, d, None, rows[:, 0:3], rows[:, 3], False)
+        return sphere_t(o, d, time, rows[:, 0:3], rows[:, 3], motion_blur)
     if typ == OBJ_TRIANGLE:
         hx = dy * r(8) - dz * r(7)
         hy = dz * r(6) - dx * r(8)
@@ -147,6 +150,30 @@ def any_hit_runs(tb: ObjectTables, o, d, max_dist, exclude_obj,
     return occ
 
 
+def closest_hit_runs(tb: ObjectTables, o, d, time, motion_blur: bool):
+    """K1's fold over its type runs in plain torch: ``(t, object id)``,
+    (R,) f32 (FLT_MAX on a miss) and (R,) i32 (-1).  Each test in the
+    kernels' operation order (:func:`_run_tmat`), and of equal t the lower
+    object id wins, whatever run it is in: the winner of the
+    insertion-order scan, and K1's on every lane.
+    :func:`ops.intersect.closest_hit_brute` gives the same winners up to
+    the rounding of torch's cross product at a triangle's edges."""
+    R = o.shape[0]
+    best_t = torch.full((R,), FLT_MAX, dtype=torch.float32, device=o.device)
+    best = torch.full((R,), -1, dtype=torch.int32, device=o.device)
+    for typ, rows, ids in run_rows(tb):
+        if not rows.shape[0]:
+            continue
+        # a run's first minimum is its lowest id (a run ascends in id)
+        t, k = torch.min(_run_tmat(typ, o, d, rows, time, motion_blur), 1)
+        gid = ids[k]
+        better = (t < best_t) | ((t == best_t) & (t < FLT_MAX)
+                                 & (gid < best))
+        best_t = torch.where(better, t, best_t)
+        best = torch.where(better, gid, best)
+    return best_t, best
+
+
 def require_cuda(name: str, *tensors):
     """Raise unless every tensor is a contiguous CUDA tensor on one device."""
     dev = tensors[0].device
@@ -168,22 +195,28 @@ def ray_streams(n: int, *cols) -> torch.Tensor:
     return torch.stack([c.to(torch.float32) for c in cols]).contiguous()
 
 
-def _valid_stream(valid, like):
-    if valid is None:
-        return torch.ones_like(like)
-    return valid.to(torch.float32)
+def closest_outputs(R: int, device) -> HitResult:
+    """Uninitialised outputs of K1, which writes every field."""
+    e = lambda *shape, dtype=torch.float32: torch.empty(
+        shape, dtype=dtype, device=device)
+    return HitResult(hit=e(R, dtype=torch.bool), t=e(R), normal=e(R, 3),
+                     obj_id=e(R, dtype=torch.int32),
+                     mat_id=e(R, dtype=torch.int32))
 
 
-# The launch_* functions run a kernel on streams that are already packed;
-# they count nothing.  The *_kernel wrappers pack, launch and count.
-def launch_closest_hit(tb: ObjectTables, n_obj: int, rays, motion_blur: bool,
-                       out_f, out_i):
-    """K1 on packed (8, R) rays into (4, R) f32 and (2, R) i32 outputs."""
-    with torch.cuda.device(rays.device):
+# The launch_* functions run a kernel on inputs that are already in its
+# layout; they count nothing.  The *_kernel wrappers check, launch and
+# count.
+def launch_closest_hit(tb: ObjectTables, o, d, time, valid,
+                       motion_blur: bool, out: HitResult):
+    """K1 on (R,3) o and d, (R,) f32 time and (R,) bool valid or None
+    (every lane), read in place, into ``out`` (:func:`closest_outputs`)."""
+    with torch.cuda.device(o.device):
         err = build.load().lib.drt_closest_hit(
+            tb.runs.data_ptr(), tb.ids.data_ptr(), *tb.counts,
             tb.data.data_ptr(), tb.types.data_ptr(), tb.mats.data_ptr(),
-            n_obj, rays.data_ptr(), rays.shape[1],
-            int(motion_blur), out_f.data_ptr(), out_i.data_ptr(),
+            o.data_ptr(), d.data_ptr(), time.data_ptr(), _ptr(valid),
+            o.shape[0], int(motion_blur), *(x.data_ptr() for x in out),
             torch.cuda.current_stream().cuda_stream)
     build.check(err, "drt_closest_hit")
 
@@ -209,19 +242,19 @@ def closest_hit_kernel(scene: SceneData, o, d, time, motion_blur: bool,
                        valid=None, tables: Optional[ObjectTables] = None
                        ) -> HitResult:
     """K1 on CUDA tensors.  Lanes with ``valid`` false report a miss."""
-    R = o.shape[0]
     tb = tables if tables is not None else object_tables(scene)
-    rays = ray_streams(R, o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1],
-                       d[:, 2], time, _valid_stream(valid, time))
-    require_cuda("closest_hit", rays, tb.data, tb.types, tb.mats)
-    out_f = torch.empty((4, R), dtype=torch.float32, device=rays.device)
-    out_i = torch.empty((2, R), dtype=torch.int32, device=rays.device)
-    launch_closest_hit(tb, scene.static.n_objects, rays, motion_blur, out_f,
-                       out_i)
+    time = time.to(torch.float32).contiguous()
+    valid = None if valid is None else valid.to(torch.bool).contiguous()
+    o, d = ray_inputs("closest_hit", o, d, time, valid)
+    require_cuda("closest_hit", o, tb.runs, tb.ids, tb.data, tb.types,
+                 tb.mats)
+    if tb.runs.data_ptr() % 16:
+        raise ValueError("closest_hit: the type runs must be 16-byte "
+                         "aligned")
+    out = closest_outputs(o.shape[0], o.device)
+    launch_closest_hit(tb, o, d, time, valid, motion_blur, out)
     LAUNCHES["closest_hit"] += 1
-    t = out_f[0]
-    return HitResult(hit=t < FLT_MAX, t=t, normal=out_f[1:4].T,
-                     obj_id=out_i[0], mat_id=out_i[1])
+    return out
 
 
 def ray_inputs(name: str, o, d, *cols):

@@ -38,7 +38,8 @@ from distributionraytracer_tpu_torch.scene import pt_scenes as PS
 from torch_scenes import (
     compare_levels, crowd_scene, level_inputs, occlusion_inputs, prim_scene,
     PT_PRIM_LEAVES, PT_VIEWS, pt_crowd_leaves, pt_own_material_leaves,
-    pt_rays, pt_tie_leaves, random_rays, synthetic_faces,
+    pt_rays, pt_tie_leaves, random_rays, synthetic_faces, tie_rays,
+    tie_scene,
 )
 
 torch.set_num_threads(1)
@@ -89,6 +90,126 @@ def test_closest_hit_kernel_matches_plain(dev, mb):
     off = same & ~(near(h.t, ref.t) & near(h.normal, ref.normal).all(-1))
     # hit/miss edges and tangent sphere hits (ill-conditioned t) may move
     assert float((ids | off).float().mean()) <= BUDGET
+
+
+# K1 cases: the scene, motion blur, the share of valid lanes (None: no
+# valid input) and the lane count
+K1_CASES = {
+    "spheres-102": ("random", False, None, N),
+    "spheres-102-sparse": ("random", False, 0.03, N),
+    "spheres-102-deep": ("random", False, 0.05, 8 * N),
+    "spheres-102-motion": ("random", True, None, N),
+    "cost-brute-1005": ("mesh", False, None, N),
+    "cost-brute-1005-sparse": ("mesh", False, 0.05, N),
+    "cost-brute-1005-motion": ("mesh", True, 0.05, N),
+    "cost-brute-1005-ragged": ("mesh", False, 0.9, N - 37),
+    "ties-motion": ("ties", True, 0.9, N),
+    "ties-across-runs": ("tie-runs", False, None, N),
+    "ties-across-runs-motion": ("tie-runs", True, 0.5, N - 5),
+}
+
+
+def _k1_inputs(dev, case):
+    """(scene, o, d, time, motion blur, valid or None) on the card."""
+    kind, mb, share, n = K1_CASES[case]
+    if kind == "random":
+        scene = create_random_scene(0)
+        o, d, t = random_rays(n, seed=61, spread=5.0)
+    elif kind == "mesh":  # 1,000 triangles, four spheres and the ground
+        scene = mesh_scene(SceneBuilder, n_tri=1000, accel=ACCEL_BVH,
+                           res=(64, 64))
+        o, d, _, _ = accel_rays(n, seed=62)
+        t = np.random.default_rng(62).random(n).astype(np.float32)
+    elif kind == "ties":
+        scene = prim_scene(SceneBuilder, ties=True)
+        o, d, t = random_rays(n, seed=63)
+    else:
+        scene = tie_scene(SceneBuilder)
+        o, d, t = tie_rays(n, seed=64)
+    o, d, t = _cuda(dev, o, d, t)
+    valid = None
+    if share is not None:
+        g = torch.Generator(device=dev).manual_seed(65)
+        valid = torch.rand(n, generator=g, device=dev) < share
+    return scene.to(dev), o, d, t, mb, valid
+
+
+@pytest.mark.parametrize("case", sorted(K1_CASES))
+def test_closest_hit_kernel_equals_plain_on_every_lane(dev, case):
+    """K1 against its fold over the type runs in plain torch
+    (closest_hit_runs, the kernels' operation order) on every valid lane:
+    object ids and t equal; against closest_hit_brute: hit, object and
+    material ids equal on every valid lane but at most BUDGET of them (the
+    rounding of torch's cross product at a triangle's edge; none with
+    spheres alone or axis-aligned ties), t and normals within 1e-4 +
+    1e-4 |x| where the ids
+    agree.  A lane that is not valid reports a miss.  The cases: 102
+    spheres (the Whitted frame's table) and 1,005 objects (the cost-brute
+    route's, mostly triangles), all valid or sparse, each also under motion
+    blur, more lanes than the card holds threads (a deep level of the
+    staged tree), a ragged count, every sphere and triangle twice under
+    motion blur, and exact ties whose lower id lies in a later type
+    run."""
+    scene, o, d, t, mb, valid = _k1_inputs(dev, case)
+    tb = CI.object_tables(scene)
+    _reset_launches()
+    h = CI.closest_hit_kernel(scene, o, d, t, mb, valid=valid, tables=tb)
+    torch.cuda.synchronize()
+    assert _launches()[0] == 1
+    v = torch.ones_like(h.hit) if valid is None else valid
+    rt, rid = CI.closest_hit_runs(tb, o, d, t, mb)
+    assert torch.equal(h.obj_id[v], rid[v])
+    assert torch.equal(h.t[v], rt[v])
+    assert torch.equal(h.hit[v], rid[v] >= 0)
+    hit = v & (rid >= 0)
+    assert 0.05 < float(hit.float().sum() / v.float().sum()) < 0.999
+    assert torch.equal(h.mat_id[hit], tb.mats[rid[hit].long()])
+    assert not h.hit[~v].any() and bool((h.obj_id[~v] == -1).all())
+    assert bool((h.t[~v] == torch.finfo(torch.float32).max).all())
+    assert not h.normal[~v].any() and not h.mat_id[~v].any()
+    assert h.normal.is_contiguous() and h.normal.shape == (o.shape[0], 3)
+    ref = closest_hit_brute(scene, o, d, t, mb)
+    ids = v & ((ref.hit != h.hit) | (ref.obj_id != h.obj_id)
+               | (ref.hit & (ref.mat_id != h.mat_id)))
+    if case.startswith(("spheres", "ties-across")):
+        assert not ids.any()
+    assert float(ids.float().mean()) <= BUDGET
+    same = v & ~ids & ref.hit
+    near = lambda a, b: (a - b).abs() <= 1e-4 + 1e-4 * b.abs()
+    assert bool(near(h.t, ref.t)[same].all())
+    assert bool(near(h.normal, ref.normal).all(-1)[same].all())
+    if case.startswith("ties-across-runs"):
+        # the box (id 0) beats the triangle and the plane at t = 5, the
+        # lower sphere (id 1) its copy (id 4)
+        assert not bool((h.obj_id[v] == 4).any())
+        assert bool((h.obj_id[v] == 0).any()) and bool(
+            (h.obj_id[v] == 1).any())
+
+
+def test_shading_does_not_depend_on_the_normal_layout(dev):
+    """A tree level's shading gives the same outputs whether the hit's
+    normal is contiguous (K1, K9, the plain versions) or the transposed
+    (3, R) view the packet walks return: a sum over a strided axis rounds
+    in another order on the card, and the ray trees of two routes that
+    found the same hits then parted."""
+    from distributionraytracer_tpu_torch.integrator.whitted import (
+        _shade_node,
+    )
+    scene = prim_scene(SceneBuilder).to(dev)
+    cfg = RenderConfig()
+    o, d, t = _cuda(dev, *random_rays(N, seed=66))
+    h = closest_hit_brute(scene, o, d, t, False)
+    strided = h._replace(normal=h.normal.T.contiguous().T)
+    assert not strided.normal.is_contiguous()
+    inter = brute_intersectors(scene, cfg)
+    args = (o, d, t, torch.ones(N, device=dev),
+            torch.rand(N, 2, device=dev), torch.ones_like(h.hit))
+    a = _shade_node(scene, cfg, inter, *args, h, spawn_children=True)
+    b = _shade_node(scene, cfg, inter, *args, strided, spawn_children=True)
+    torch.cuda.synchronize()
+    assert a.keys() == b.keys()
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
 
 
 # K2 cases: the share of valid lanes (None: no valid input), a lane count
@@ -1081,3 +1202,98 @@ def test_binned_shadow_kernel_equals_plain_on_every_lane(k10_frame, mode,
         assert bool(ref.all()) and int(stats["chain_entries"].max()) == 1
     if case == "dead-chains":
         assert not bool(occ.reshape(-1, CBN.LANES)[::3].any())
+
+
+# K9 on every lane: the mesh's primary bins, lanes of several shapes
+K9_CASES = ("primary", "ragged", "dead-chains", "sparse", "long-chain")
+
+
+@pytest.fixture(scope="module")
+def k9_frame():
+    """The BVH and grid renderers of the card tests' mesh, their primary
+    bins and the block-permuted primary rays of one SampleSet."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    dev = torch.device("cuda")
+    out = {}
+    for name, accel in (("bvh", ACCEL_BVH), ("grid", ACCEL_GRID)):
+        r = Renderer(_mesh(accel), RenderConfig(spp=0), device=dev)
+        H, W = r.scene.static.res_y, r.scene.static.res_x
+        bins = r._bins_for(H, W, 1)
+        samples = make_samples(r.scene, r.cfg,
+                               torch.Generator(device=dev).manual_seed(9))
+        o, d, t, _ = _rays_from_samples(r.scene, r.cfg, samples)
+        perm = torch.as_tensor(_block_perm(H, W, 1), device=dev).long()
+        tabs = r.tabs if accel == ACCEL_BVH else r.tabs.tabs
+        out[name] = (tabs, bins.primary, o[perm], d[perm], t[perm])
+    return out
+
+
+def _k9_batch(pb, o, d, t, case):
+    """(o, d, time, valid or None) of one case."""
+    n = o.shape[0]
+    if case == "ragged":  # the last chain 51 lanes short
+        v = torch.ones(n - 51, dtype=torch.bool, device=o.device)
+        v[::7] = False
+        return o[:n - 51], d[:n - 51], t[:n - 51], v
+    if case == "dead-chains":  # every third chain without a valid lane
+        v = torch.ones((n // CBN.LANES, CBN.LANES), dtype=torch.bool,
+                       device=o.device)
+        v[::3] = False
+        return o, d, t, v.reshape(-1)
+    if case == "sparse":
+        g = torch.Generator(device=o.device).manual_seed(91)
+        return o, d, t, torch.rand(n, generator=g, device=o.device) < 0.05
+    if case == "long-chain":  # the longest list's lanes look straight up,
+        cs = pb.chain_start.long()  # away from every object: no hit
+        c = int(torch.argmax(cs[1:] - cs[:-1]))
+        d = d.clone()
+        d[c * CBN.LANES:(c + 1) * CBN.LANES] = torch.tensor(
+            [0.0, 1.0, 0.0], device=d.device)
+        return o, d, t, None
+    return o, d, t, None
+
+
+@pytest.mark.parametrize("case", K9_CASES)
+@pytest.mark.parametrize("mode", ["bvh", "grid"])
+def test_binned_closest_kernel_equals_plain_on_every_lane(k9_frame, mode,
+                                                          case):
+    """K9 against binned_closest_plain on every lane of both routes'
+    tables: object ids equal, t within 1e-5 relative, normals within
+    1e-5; a lane that is not valid reports a miss.  Its work list (the
+    first pass) equals closest_work_plain's.  The cases: the frame's
+    primary rays, a ragged last chain, chains with no valid lane, 5% of
+    the lanes valid, and the longest list's chain looking away from the
+    scene, so that it streams every segment of its list."""
+    tabs, pb, o, d, t = k9_frame[mode]
+    o, d, t, valid = _k9_batch(pb, o, d, t, case)
+    _accel_reset()
+    kt, kn, kid = CBN.binned_closest_kernel(tabs, pb, o, d, t, valid)
+    args = CBN.binned_closest_inputs(o, d, t, valid)
+    out = (torch.empty_like(kt), torch.empty_like(kn), torch.empty_like(kid))
+    work = CBN.launch_binned_closest(tabs, pb, *args, False, *out)
+    torch.cuda.synchronize()
+    assert _accel_launches()["K9"] == 1
+    stats = {}
+    pt, pn, pid = CBN.binned_closest_plain(tabs, pb, o, d, t, valid,
+                                           stats=stats)
+    v = torch.ones_like(pid, dtype=torch.bool) if valid is None else valid
+    for gt, gn, gid in ((kt, kn, kid), out):
+        assert torch.equal(gid[v], pid[v])
+        assert bool((gid[~v] == -1).all())
+        hit = v & (pid >= 0)
+        torch.testing.assert_close(gt[hit], pt[hit], rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(gn[hit], pn[hit], rtol=1e-5, atol=1e-5)
+    assert torch.equal(work.item_start, CBN.closest_work_plain(pb).item_start)
+    share = float((pid >= 0)[v].float().mean())
+    if case == "long-chain":
+        cs = pb.chain_start.long()
+        c = int(torch.argmax(cs[1:] - cs[:-1]))
+        assert not bool((pid[c * CBN.LANES:(c + 1) * CBN.LANES] >= 0).any())
+        listed = int(cs[c + 1] - cs[c])
+        assert int(stats["chain_groups"][c]) == listed
+        assert listed > 2 * CBN.SEGMENT_GROUPS
+    else:
+        assert 0.2 < share
+    if case == "dead-chains":
+        assert not bool((kid.reshape(-1, CBN.LANES)[::3] >= 0).any())

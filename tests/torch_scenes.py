@@ -56,6 +56,46 @@ def prim_scene(builder_cls, ties=False, twice=False):
     return b.build()
 
 
+def tie_scene(builder_cls):
+    """Objects of every type whose hits tie exactly in t, listed so that
+    the lower object id lies in a later type run (K1's runs go sphere,
+    triangle, plane, box): a box (id 0) whose top face, a triangle (id 2)
+    and a plane (id 3) all lie in y = 0, and two copies of one sphere (ids
+    1 and 4) whose tops touch y = 0.  A ray straight down from y = 5
+    (:func:`tie_rays`) meets the box, the triangle and the plane at t = 5
+    exactly, so the box must win; one through the sphere's centre meets
+    both copies and the plane at t = 5 too (the box at 5 as well where its
+    footprint covers it), and under motion blur the spheres rise by the
+    ray's time, so the copy with the lower id wins.  Each object has its
+    own material."""
+    b = builder_cls()
+    b.set_camera([0, 6, 6], [0, 0, 0], [0, 1, 0], 45, 0.01, 16, 12, 0, 1)
+    mats = [b.add_material([0.2 * k, 0.5, 0.5], 0.8, [0.2, 0.2, 0.2], 0.0,
+                           10, 0, 1) for k in range(5)]
+    b.add_box([-1, -1, -1], [1, 0, 1], mats[0])
+    b.add_sphere([0.5, -1, 0.5], 1.0, mats[1])
+    b.add_triangle([-1, 0, -1], [1, 0, -1], [-1, 0, 1], mats[2])
+    b.add_plane_hessian([0, 1, 0], 0.0, mats[3])
+    b.add_sphere([0.5, -1, 0.5], 1.0, mats[4])
+    b.add_point_light([2, 4, 2], [1, 1, 1])
+    return b.build()
+
+
+def tie_rays(n, seed=0):
+    """Rays for :func:`tie_scene`: a third straight down from y = 5 on a
+    grid of x, z in eighths inside (-1.5, 1.5) (never on a box face), a
+    third straight down through the spheres' centre, the rest from
+    :func:`random_rays` about the scene; times in [0, 1)."""
+    rng = np.random.default_rng(seed)
+    o, d, t = random_rays(n, seed)
+    k = n // 3
+    xz = (rng.integers(-11, 12, (k, 2)) + 0.5) / 8.0
+    o[:k] = np.stack([xz[:, 0], np.full(k, 5.0), xz[:, 1]], 1)
+    o[k:2 * k] = (0.5, 5.0, 0.5)
+    d[:2 * k] = (0.0, -1.0, 0.0)
+    return o.astype(np.float32), d.astype(np.float32), t
+
+
 def crowd_scene(builder_cls, n=1100, seed=5):
     """``n`` small spheres on a plane under one point light: more objects
     than the TPU kernels' 1024-row table holds."""
