@@ -151,6 +151,23 @@
    single-launch and per-tile times, and K7's (accelerated frame) and
    K8's (one legacy-route frame) beside theirs; one frame of the binned+
    and the switched-off box-ground routes, with K10's frame sum.
+9. Gradients: three inverse-rendering steps on the Whitted frame's scene
+   (a 32-row band of the 800x600 spp16 frame, rows 284:316, 409,600
+   samples, which bounds the autograd graph every tile of a loss keeps
+   alive until its backward).
+   The target is the band's K3 render under no_grad; the start has every
+   material colour 0.1 brighter; each step takes the L2 loss and its
+   gradient in ``mat_cd`` through ``accel_intersectors(...,
+   differentiable=True)``, between a reset and a read of the launch
+   counters (K1 and K2 only, never K3), and a projected SGD step follows.
+   Checks: the default route refuses a leaf that requires a gradient (the
+   kernels' guard), every gradient is finite and not all zero, the loss
+   after the third step is below the first.  Prints each step's seconds
+   (forward + backward; the median after the first), its forward's rays/s,
+   the peak device memory and K1's and K2's sums in one profiled step.
+   Then holds the K1/K2 route to plain autodiff (``kernels='off'``) on
+   rows 284:288 (51,200 samples): loss within rel 1e-4, the ``mat_cd`` and
+   ``sph_center`` gradients within 1e-3 of their largest element.
 
 Prints the kernels' JSON line, then the result line last.  Any failure
 raises, so the exit code is non-zero and no result line is printed.
@@ -2128,6 +2145,133 @@ def staged_profiles(torch, card, scene, cfg, samples, pt_frame, pts,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Slice C1: gradients (the differentiable K1/K2 route)
+GRAD_STEPS = 3  # SGD steps of the gradient phase
+GRAD_STEP = 0.05  # the first step's largest change of a colour channel
+GRAD_CHECK_ROWS = 4  # rows of the sub-band held against plain autodiff
+
+
+def grad_phase(torch, card, counted, scene, cfg, samples):
+    """Phase 9: inverse-rendering steps on the main path's scene.
+
+    The band of SLAB rows (32 rows of 800 at 16 spp, 409,600 samples):
+    the target is its render under no_grad on the default K3 route; the
+    start is every material colour 0.1 brighter (clamped to [0, 1]); each
+    step takes ``l2_render_loss`` through ``accel_intersectors(...,
+    differentiable=True)`` (K1 and K2 under no_grad, the hits recomputed in
+    torch) and its gradient in ``mat_cd``, and a projected SGD step of a
+    fixed rate (GRAD_STEP over the first gradient's largest element)
+    follows.  The band bounds the autograd graph, which every tile of the
+    loss keeps alive until the backward."""
+    import dataclasses
+
+    from distributionraytracer_tpu_torch.integrator.render import (
+        render_from_samples,
+    )
+    from distributionraytracer_tpu_torch.parallel.mesh import (
+        accel_intersectors, l2_render_loss,
+    )
+
+    a, b = SLAB
+    band = samples.rows(a, b)
+    with torch.no_grad():
+        target, nrays = render_from_samples(scene, cfg, band, row_offset=a,
+                                            return_rays=True)
+    start = torch.clamp(scene.mat_cd + 0.1, 0.0, 1.0)
+
+    def loss_of(leaves, rows, route_cfg, diff):
+        sc = dataclasses.replace(scene, **leaves)
+        inter = (accel_intersectors(sc, route_cfg, None, differentiable=True)
+                 if diff else None)
+        return l2_render_loss(sc, route_cfg, samples.rows(a, a + rows),
+                              target[:rows], row_offset=a, inter=inter)
+
+    # the default route refuses a leaf that requires a gradient
+    refused = None
+    try:
+        loss_of({"mat_cd": start.clone().requires_grad_(True)}, 1, cfg, False)
+    except RuntimeError as e:
+        refused = str(e)
+    check(refused is not None and "forward-only" in refused,
+          f"the K3 route took a leaf that requires a gradient ({refused})")
+    print(f"gradient through the default route (K3) refused: {refused}")
+
+    x, rate, losses, step_s, fwd_s, peak = start, None, [], [], [], 0.0
+    for i in range(GRAD_STEPS + 1):
+        x = x.detach().requires_grad_(True)
+
+        def step(x=x):
+            t0 = time.perf_counter()
+            loss = loss_of({"mat_cd": x}, b - a, cfg, True)
+            torch.cuda.synchronize()
+            fwd = time.perf_counter() - t0
+            (g,) = torch.autograd.grad(loss, x)
+            return float(loss.detach()), g, fwd
+
+        torch.cuda.reset_peak_memory_stats()
+        (loss, g, fwd), _, secs = counted(
+            f"gradient step {i} (loss and its gradient in mat_cd, "
+            "accel_intersectors(differentiable=True))", step,
+            {"K1": True, "K2": True})
+        peak = max(peak, torch.cuda.max_memory_allocated() / 2**30)
+        check(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0,
+              f"step {i}: gradient not finite or all zero")
+        losses.append(loss)
+        step_s.append(secs)
+        fwd_s.append(fwd)
+        if i < GRAD_STEPS:
+            if rate is None:
+                rate = GRAD_STEP / float(g.abs().max())
+            x = torch.clamp(x.detach() - rate * g, 0.0, 1.0)
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    med, fmed = statistics.median(step_s[1:]), statistics.median(fwd_s[1:])
+    print(f"gradient steps on rows {a}:{b} of 800x600 spp16 depth 4 "
+          f"({b - a} rows, {band.time.numel()} samples): loss "
+          + " -> ".join(f"{v:.6e}" for v in losses)
+          + f" (rate {rate:.4e}); seconds a step (forward + backward) "
+          + " ".join(f"{s:.4f}" for s in step_s)
+          + f", median after the first {med:.4f} (forward {fmed:.4f}); "
+          f"{int(nrays)} rays a forward (the K3 render's count of the "
+          f"band), {int(nrays) / fmed:.4e} rays/s; peak "
+          f"{peak:.2f} GiB | {card}")
+
+    prof = profile_frame(torch, lambda: loss_of(
+        {"mat_cd": x.detach().requires_grad_(True)}, b - a, cfg,
+        True).backward(), med, "gradient step")
+    for name in ("closest_hit_kernel", "any_hit_kernel"):
+        n, ms = kernel_sum(prof, name)
+        print(f"{name} in the profiled gradient step: {n} launches, "
+              f"{ms:.3f} ms summed | {card}")
+
+    # the K1/K2 route held against plain autodiff on a sub-band
+    got = {}
+    for route, route_cfg, diff, expect in (
+            ("K1/K2", cfg, True, {"K1": True, "K2": True}),
+            ("plain", cfg.replace(kernels="off"), False, {})):
+        leaves = {"mat_cd": start.clone().requires_grad_(True),
+                  "sph_center": scene.sph_center.clone().requires_grad_(True)}
+
+        def run(leaves=leaves, route_cfg=route_cfg, diff=diff):
+            loss = loss_of(leaves, GRAD_CHECK_ROWS, route_cfg, diff)
+            return (float(loss.detach()),
+                    torch.autograd.grad(loss, list(leaves.values())))
+        got[route], _, _ = counted(
+            f"gradient of rows {a}:{a + GRAD_CHECK_ROWS}, {route} route",
+            run, expect)
+    (lk, gk), (lp, gp) = got["K1/K2"], got["plain"]
+    rel = abs(lk - lp) / lp
+    errs = [float((u - v).abs().max() / v.abs().max())
+            for u, v in zip(gk, gp)]
+    check(rel <= 1e-4 and max(errs) <= 1e-3,
+          f"K1/K2 gradient route vs plain: loss rel {rel:.3e}, gradient "
+          f"errors {errs}")
+    print(f"gradient rows {a}:{a + GRAD_CHECK_ROWS} K1/K2 route vs plain "
+          f"autodiff: loss {lk:.6e} vs {lp:.6e} (rel {rel:.3e}); largest "
+          f"gradient difference over the largest |element|: mat_cd "
+          f"{errs[0]:.3e}, sph_center {errs[1]:.3e}  PASS")
+
+
 def main():
     import numpy as np
     import torch
@@ -2917,6 +3061,10 @@ def main():
             print(f"K10 in the profiled binned+ frame: "
                   f"{sum(n for n, _ in got)} device kernels, "
                   f"{sum(ms for _, ms in got):.3f} ms summed | {card}")
+
+    # ---- 9. gradients: inverse-rendering steps on the K1/K2 route ----
+    phase("9 (gradients)")
+    grad_phase(torch, card, counted, r.scene, cfg, samples)
 
     phase("end")
     print(json.dumps({"kernels": rows}))

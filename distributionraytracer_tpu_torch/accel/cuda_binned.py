@@ -64,7 +64,7 @@ from distributionraytracer_tpu_torch.integrator.whitted import Intersectors
 from distributionraytracer_tpu_torch.ops import build
 from distributionraytracer_tpu_torch.ops.common import EPSILON, FLT_MAX
 from distributionraytracer_tpu_torch.ops.cuda_intersect import (
-    ray_inputs, require_cuda,
+    geometry_leaves, ray_inputs, refuse_grad, require_cuda,
 )
 from distributionraytracer_tpu_torch.ops.intersect import hit_packed
 from distributionraytracer_tpu_torch.scene.types import (
@@ -1064,9 +1064,11 @@ def leveled_binned_intersectors(scene: SceneData, tabs: PacketTables,
     exist and every chain holds one light's lanes (:func:`shadow_light_ids`).
     Deeper levels scatter sparse live lanes over every chain, whose tile
     rectangles then grow towards the whole frustum: the packet walk takes
-    them."""
+    them.  The kernels refuse a scene whose geometry requires a gradient,
+    as the packet walk's do."""
     mats = scene.packed_objects()[2]
     types_present = tuple(sorted(set(scene.static.obj_types)))
+    geometry = geometry_leaves(scene)
     state = {"calls": 0, "shadow_calls": 0}
     pb, lb = bins.primary, bins.lights
 
@@ -1078,6 +1080,7 @@ def leveled_binned_intersectors(scene: SceneData, tabs: PacketTables,
                 t, n, gid = binned_closest_plain(tabs, pb, o, d, time, valid,
                                                  motion_blur, types_present)
             else:
+                refuse_grad("binned_closest", *geometry)
                 t, n, gid = binned_closest_kernel(tabs, pb, o, d, time, valid,
                                                   motion_blur)
             return hit_result(t, n, gid, mats)
@@ -1093,6 +1096,7 @@ def leveled_binned_intersectors(scene: SceneData, tabs: PacketTables,
         if plain or o.device.type == "cpu":
             return binned_shadow_plain(tabs, lb, lid, o, d, dist, valid,
                                        shadow_mode, types_present)
+        refuse_grad("binned_shadow", *geometry)
         return binned_shadow_kernel(tabs, lb, lid, o, d, dist, valid,
                                     shadow_mode)
 

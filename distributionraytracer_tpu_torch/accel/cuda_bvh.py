@@ -34,7 +34,7 @@ from distributionraytracer_tpu_torch.accel.bvh import (
 from distributionraytracer_tpu_torch.integrator.whitted import Intersectors
 from distributionraytracer_tpu_torch.ops import build
 from distributionraytracer_tpu_torch.ops.cuda_intersect import (
-    ray_streams, require_cuda,
+    geometry_leaves, ray_streams, refuse_grad, require_cuda,
 )
 from distributionraytracer_tpu_torch.scene.types import SceneData
 
@@ -145,9 +145,12 @@ def packet_intersectors(scene: SceneData, tabs: PacketTables,
                         motion_blur: bool = False, shadow_mode: str = "bvh",
                         plain: bool = False):
     """Closest and shadow over ``tabs``: the kernel of its kind (K7 or K8)
-    for CUDA tensors, the plain walk for CPU tensors or with ``plain``."""
+    for CUDA tensors, the plain walk for CPU tensors or with ``plain``.
+    The kernels refuse a scene whose geometry requires a gradient: the
+    host-built tables would not carry it (``refuse_grad``)."""
     mats = scene.packed_objects()[2]
     types_present = tuple(sorted(set(scene.static.obj_types)))
+    geometry = geometry_leaves(scene)
 
     def use_plain(o):
         return plain or o.device.type == "cpu"
@@ -158,6 +161,7 @@ def packet_intersectors(scene: SceneData, tabs: PacketTables,
                                       motion_blur=motion_blur,
                                       types_present=types_present)
         else:
+            refuse_grad("packet_closest", *geometry)
             t, n, gid = packet_closest_kernel(tabs, o, d, time, valid,
                                               motion_blur)
         return hit_result(t, n, gid, mats)
@@ -169,6 +173,7 @@ def packet_intersectors(scene: SceneData, tabs: PacketTables,
                                  shadow_mode=shadow_mode,
                                  motion_blur=motion_blur,
                                  types_present=types_present)
+        refuse_grad("packet_shadow", *geometry)
         return packet_shadow_kernel(tabs, o, d, dist, valid, motion_blur,
                                     shadow_mode)
 

@@ -3,8 +3,9 @@
 The reference drives these knobs from compile-time flags and the P3F scene
 file (main.cpp:29-39, scene.cpp:489-693).  Here they live in one frozen
 dataclass: the knobs of the Whitted/distribution path (accel NONE, grid
-and BVH) and of the GLSL path tracer.  ``accel_backend`` (the JAX package's
-choice of its differentiable XLA traversals) arrives with those traversals.
+and BVH) and of the GLSL path tracer, and the two gradient estimators'
+relaxation widths.  ``accel_backend`` (the JAX package's choice of its
+differentiable XLA traversals) arrives with those traversals.
 """
 
 from __future__ import annotations
@@ -52,6 +53,23 @@ class RenderConfig:
                        objects (and no plane, no moving sphere) take the
                        brute kernels with the accel's gates ('cost-brute');
                        0 disables it.
+    - ``soft_shadow``: 0 keeps the reference's hard boolean shadow gate
+                       (main.cpp:383-451); > 0 replaces it with a
+                       sigmoid-relaxed visibility of that width (world
+                       units), so that expected pixel gradients at shadow
+                       edges match finite differences
+                       (:func:`ops.intersect.soft_visibility`).  Opt-in,
+                       training-time only: the image softens within ~tau
+                       of shadow boundaries, and every tree level takes
+                       the staged route (K3 has no soft shadows).
+    - ``soft_silhouette``: 0 keeps hard primary silhouettes; > 0 blends
+                       each pixel with its "winner removed" counterfactual
+                       by the winner's smooth coverage of that width
+                       (world units, :func:`integrator.whitted.
+                       trace_whitted_soft`), so that expected gradients at
+                       hit-vs-miss edges match finite differences.
+                       Training-time opt-in, ~2x a forward, plain torch on
+                       the renderer's brute route only.
     - ``max_bounces``: path-tracer ``MAX_BOUNCES`` (P3D_RT.glsl:581).
     - ``russian_roulette``: path termination on the max throughput channel
                        with 1/p boost (P3D_RT.glsl:651-656).
@@ -69,6 +87,8 @@ class RenderConfig:
     motion_blur: bool = False
     max_samples: int = 10000
     shadow_mode: str = "reference"  # 'reference' | 'correct'
+    soft_shadow: float = 0.0
+    soft_silhouette: float = 0.0
     tile_rays: int = 65536
     max_bounces: int = 10
     russian_roulette: bool = True
@@ -81,6 +101,10 @@ class RenderConfig:
             raise ValueError(f"bad kernels mode: {self.kernels}")
         if self.packet_kernel not in ("grouped", "legacy"):
             raise ValueError(f"bad packet_kernel: {self.packet_kernel}")
+        for name in ("soft_shadow", "soft_silhouette"):
+            if not getattr(self, name) >= 0.0:
+                raise ValueError(f"bad {name}: {getattr(self, name)} "
+                                 "(a width, >= 0)")
         if self.tile_rays <= 0:
             raise ValueError(f"bad tile_rays: {self.tile_rays}")
         if self.pt_tile_rays < 0:

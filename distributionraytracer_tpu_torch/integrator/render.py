@@ -27,7 +27,7 @@ import torch
 
 from distributionraytracer_tpu_torch.config import RenderConfig
 from distributionraytracer_tpu_torch.integrator.whitted import (
-    Intersectors, trace_whitted,
+    Intersectors, trace_whitted, trace_whitted_soft,
 )
 from distributionraytracer_tpu_torch.ops import sampling
 from distributionraytracer_tpu_torch.ops.camera import (
@@ -176,7 +176,8 @@ def render_from_samples(scene: SceneData, cfg: RenderConfig,
     ``accel_tile`` (the renderer's grid and BVH routes) groups the rays
     into pixel blocks (:func:`_block_perm`) and traces them in tiles of
     that many.  ``fused_grid`` (the grid's ``(bbox_min, bbox_max)``) runs
-    every level on K3 in grid mode.
+    every level on K3 in grid mode.  With ``cfg.soft_silhouette > 0`` and
+    no ``inter``, each tile goes through :func:`trace_whitted_soft`.
 
     ``return_rays=True`` also returns the exact traced-ray count (tree
     nodes + shadow rays, the whitted.py counters) as an int64 tensor.  The
@@ -196,9 +197,13 @@ def render_from_samples(scene: SceneData, cfg: RenderConfig,
     nrays = torch.zeros((), dtype=torch.int64, device=o.device)
     for a in range(0, n, tile):
         b = min(a + tile, n)
-        color, stats = trace_whitted(scene, cfg, o[a:b], d[a:b], t[a:b],
-                                     ls[a:b], inter=inter,
-                                     fused_grid=fused_grid)
+        if cfg.soft_silhouette > 0.0 and inter is None:
+            color, stats = trace_whitted_soft(scene, cfg, o[a:b], d[a:b],
+                                              t[a:b], ls[a:b])
+        else:
+            color, stats = trace_whitted(scene, cfg, o[a:b], d[a:b], t[a:b],
+                                         ls[a:b], inter=inter,
+                                         fused_grid=fused_grid)
         colors.append(color)
         nrays += stats["rays_traced"] + stats["shadow_rays"]
     colors = torch.cat(colors)

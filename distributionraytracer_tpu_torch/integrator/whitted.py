@@ -20,6 +20,15 @@ the fused level kernel K3, the staged brute kernels K1/K2 with
 level runs on K3 in grid mode.  On CPU tensors every kernel wrapper runs
 its plain version.
 
+Gradients: the kernels are forward-only and refuse tensors that require a
+gradient (``ops.cuda_intersect.refuse_grad``).  On CPU tensors every route
+differentiates by plain autodiff; on the card, gradients go through
+:func:`differentiable_intersectors` (``parallel.mesh.accel_intersectors(...,
+differentiable=True)``).  The two discontinuity estimators, soft shadows
+(``cfg.soft_shadow``, in :func:`_shade_node`) and soft silhouettes
+(:func:`trace_whitted_soft`), are plain torch on every device, as they are
+jnp outside any Pallas kernel in the JAX package.
+
 Reference quirks kept: normal flip when hit from inside; Blinn-Phong
 ignoring the light colour; the accel-NONE shadow distance 1.0 in
 'reference' shadow mode; Schlick cos selection; Beer on exit; TIR forcing
@@ -37,13 +46,17 @@ from distributionraytracer_tpu_torch.config import RenderConfig
 from distributionraytracer_tpu_torch.ops import cuda_intersect as CI
 from distributionraytracer_tpu_torch.ops import cuda_whitted as CW
 from distributionraytracer_tpu_torch.ops.common import (
-    OFFSET, clamp_color, dot, normalize, safe_div, safe_normalize, safe_sqrt,
+    EPSILON, FLT_MAX, OFFSET, clamp_color, dot, normalize, safe_div,
+    safe_normalize, safe_sqrt,
 )
 from distributionraytracer_tpu_torch.ops.cubemap import skybox_color
 from distributionraytracer_tpu_torch.ops.intersect import (
-    HitResult, any_hit_brute, closest_hit_brute,
+    HitResult, _moved, _type_gids, any_hit_brute, closest_hit_brute,
+    hit_packed, slab_interval, soft_visibility, triangle_edge_margin,
 )
-from distributionraytracer_tpu_torch.scene.types import ACCEL_BVH, SceneData
+from distributionraytracer_tpu_torch.scene.types import (
+    ACCEL_BVH, OBJ_BOX, OBJ_PLANE, OBJ_SPHERE, OBJ_TRIANGLE, SceneData,
+)
 
 class Intersectors(NamedTuple):
     """Closest-hit / shadow functions for one accel structure.
@@ -62,7 +75,8 @@ def level_route(scene: SceneData, cfg: RenderConfig) -> str:
 
     - ``fused-level``: one K3 launch per level;
     - ``brute-kernel``: K1 closest hit, ``_shade_node``, K2 shadows
-      (scenes without lights, so no shadow rays);
+      (scenes without lights, so no shadow rays, and soft shadows, whose
+      visibility ``_shade_node`` computes in plain torch);
     - ``plain``: the staged path in plain torch (``kernels='off'``).
 
     Passing ``inter=brute_intersectors(scene, cfg)`` to ``trace_whitted``
@@ -99,6 +113,48 @@ def brute_intersectors(scene: SceneData, cfg: RenderConfig,
     def shadow(o, d, dist, exclude_obj, valid=None):
         return CI.any_hit(scene, o, d, dist, exclude_obj, mb, "none",
                           valid=valid, tables=tb)
+
+    return Intersectors(closest, shadow)
+
+
+def differentiable_intersectors(scene: SceneData, cfg: RenderConfig,
+                                base: Intersectors) -> Intersectors:
+    """Make forward-only intersectors differentiable.
+
+    The kernels (and the accel walks' discrete decisions: visit order,
+    early exits) carry no gradient.  ``base`` runs under
+    ``torch.no_grad()`` on detached rays to select each lane's winning
+    object; that object's hit (t, normal) is then recomputed in plain torch
+    from ``scene``'s gradient-carrying packed rows (:func:`hit_packed`, the
+    kernels' operation order), so gradients reach geometry and camera as
+    on the plain brute route.  Shadow occlusion stays the base's hard
+    boolean (``cfg.soft_shadow`` is the relaxed estimator).  ``base`` must
+    be built from detached tables (``parallel.mesh.accel_intersectors(...,
+    differentiable=True)`` builds it so).
+    """
+    data, types, _ = scene.packed_objects()
+    types_present = tuple(sorted(set(scene.static.obj_types)))
+    mb = cfg.motion_blur
+
+    def closest(o, d, time, valid=None):
+        with torch.no_grad():
+            h = base.closest(o.detach(), d.detach(), time.detach(),
+                             valid=valid)
+        gid = torch.clamp(h.obj_id, min=0).long()
+        t, nrm = hit_packed(o, d, time, torch.index_select(data, 0, gid),
+                            types[gid], mb, types_present=types_present)
+        # a lane the base hits keeps its hit: where the recomputation
+        # rounds to a miss (an edge, in the last bit), the base's t, which
+        # carries no gradient, stands in for FLT_MAX
+        return HitResult(
+            hit=h.hit, t=torch.where(h.hit & (t < FLT_MAX), t, h.t),
+            normal=torch.where(h.hit[:, None], nrm, 0.0),
+            obj_id=h.obj_id, mat_id=h.mat_id)
+
+    def shadow(o, d, dist, exclude_obj, valid=None):
+        with torch.no_grad():
+            return base.shadow(o.detach(), d.detach(), dist.detach(),
+                               exclude_obj, valid=valid)
 
     return Intersectors(closest, shadow)
 
@@ -257,11 +313,15 @@ def _shade_node(scene: SceneData, cfg: RenderConfig, inter: Intersectors,
     V = -normalize(d)
 
     # material fetch: an index gather (miss lanes read material 0; every
-    # consumer is gated by hit_mask)
+    # consumer is gated by hit_mask).  index_select, not x[m]: on the card
+    # the backward of x[m] sorts the lanes' few distinct indices and sums
+    # each run serially, where index_select's scatters with atomics (on an
+    # H100, 68 against 0.63 ms a tree level of a 65,536-sample tile)
     m = torch.clamp(hit.mat_id, min=0).long()
-    cd, cs = scene.mat_cd[m], scene.mat_cs[m]
-    kd, ks, kr = scene.mat_kd[m], scene.mat_ks[m], scene.mat_kr[m]
-    shine, trans, mat_ior = scene.mat_shine[m], scene.mat_T[m], scene.mat_ior[m]
+    cd, cs, kd, ks, kr, shine, trans, mat_ior = (
+        torch.index_select(x, 0, m) for x in (
+            scene.mat_cd, scene.mat_cs, scene.mat_kd, scene.mat_ks,
+            scene.mat_kr, scene.mat_shine, scene.mat_T, scene.mat_ior))
 
     # ---------------- direct lighting (main.cpp:383-451) ----------------
     direct = torch.zeros((Rn, 3), **f32)
@@ -283,6 +343,16 @@ def _shade_node(scene: SceneData, cfg: RenderConfig, inter: Intersectors,
         NdotH = torch.clamp(dot(N, H), min=0.0)
         spec = torch.pow(torch.clamp(NdotH, min=1e-12), shine)
         contrib = cd * (kd * NdotL)[:, None] + cs * (ks * spec)[:, None]
+        if cfg.soft_shadow > 0.0:
+            # relaxed visibility, smooth in the occluders' geometry so that
+            # shadow edges have gradients (RenderConfig.soft_shadow); shadow
+            # rays carry time 0
+            vis = soft_visibility(
+                scene, hit_p + N * OFFSET, Lb, torch.zeros((Rn,), **f32),
+                torch.linalg.norm(L_un, dim=-1), hit.obj_id,
+                cfg.soft_shadow, False) * hit_mask.to(torch.float32)
+            direct = direct + contrib * vis[:, None]
+            continue
         sdir, sdist = _shadow_terms(scene, cfg, st.accel, hit_p, N,
                                     light_pos, inter)
         pending.append((contrib, sdir, sdist))
@@ -358,3 +428,159 @@ def _shade_node(scene: SceneData, cfg: RenderConfig, inter: Intersectors,
         "child_ls": last_light_pos,
     })
     return out
+
+
+# -------------------------------------------------- soft primary silhouettes
+def _object_table(scene: SceneData, field: str, gid):
+    """The static per-object ``obj_types`` / ``obj_tidx`` entry of each
+    object id in ``gid`` (a miss, -1, reads object 0's)."""
+    vals = getattr(scene.static, field) or (0,)
+    tab = torch.as_tensor(vals, dtype=torch.int64, device=gid.device)
+    return tab[torch.clamp(gid, min=0).long()]
+
+
+def primary_coverage(scene: SceneData, o, d, time, hit: HitResult,
+                     tau: float, motion_blur: bool):
+    """Smooth coverage in [0, 1] of each ray's winning primitive.
+
+    The counterpart of ``ops.intersect.soft_visibility`` for primary hits:
+    hit-vs-miss of the closest primitive is a step in geometry and camera;
+    its silhouette becomes a sigmoid of a signed world margin (sphere:
+    r - closest approach; triangle: distance to the nearest edge; box: slab
+    overlap).  Planes have no silhouette; misses return 1.
+    """
+    st = scene.static
+    sub = _object_table(scene, "obj_tidx", hit.obj_id)
+    wtype = _object_table(scene, "obj_types", hit.obj_id)
+    alpha = torch.ones(o.shape[0], dtype=torch.float32, device=o.device)
+    if st.n_spheres:
+        i = torch.clamp(sub, 0, st.n_spheres - 1)
+        c = scene.sph_center[i]
+        if motion_blur:
+            c = _moved(c, time)
+        oc = c - o
+        proj = dot(oc, d)
+        b = torch.sqrt(torch.clamp(dot(oc, oc) - proj * proj, min=1e-12))
+        a_s = torch.sigmoid((torch.abs(scene.sph_radius[i]) - b) / tau)
+        alpha = torch.where(wtype == OBJ_SPHERE, a_s, alpha)
+    if st.n_triangles:
+        i = torch.clamp(sub, 0, st.n_triangles - 1)
+        m, _ = triangle_edge_margin(o, d, scene.tri_v0[i], scene.tri_e1[i],
+                                    scene.tri_e2[i])
+        alpha = torch.where(wtype == OBJ_TRIANGLE, torch.sigmoid(m / tau),
+                            alpha)
+    if st.n_boxes:
+        i = torch.clamp(sub, 0, st.n_boxes - 1)
+        tmin, tmax = slab_interval(scene.box_min[i], scene.box_max[i], o, d)
+        alpha = torch.where(wtype == OBJ_BOX,
+                            torch.sigmoid((tmax - tmin) / tau), alpha)
+    return torch.where(hit.hit, alpha, 1.0)
+
+
+def _near_sphere(scene: SceneData, o, d, time, motion_blur: bool):
+    """Per ray, the sphere in front of the origin with the smallest
+    closest-approach distance ``b``: the silhouette candidate of rays that
+    do not already hit a solid.  None when the scene has no sphere."""
+    st = scene.static
+    if not st.n_spheres:
+        return None
+    c = scene.sph_center[None, :, :]
+    if motion_blur:
+        c = _moved(c, time[:, None])
+    oc = c - o[:, None, :]  # (R,N,3)
+    proj = torch.einsum("rnk,rk->rn", oc, d)
+    b = torch.sqrt(torch.clamp(dot(oc, oc) - proj * proj, min=1e-12))
+    front = proj > 1e-3
+    j = torch.argmin(torch.where(front, b, 3.4e38), dim=1)  # first minimum
+    take = lambda m: torch.gather(m, 1, j[:, None])[:, 0]
+    center = scene.sph_center[j]
+    if motion_blur:
+        center = _moved(center, time)
+    return dict(b=take(b), proj=take(proj), has=take(front), center=center,
+                radius=scene.sph_radius[j],
+                gid=_type_gids(scene, OBJ_SPHERE, o.device)[j],
+                mat=scene.sph_mat[j])
+
+
+def trace_whitted_soft(scene: SceneData, cfg: RenderConfig, o, d, time,
+                       light_sample):
+    """Silhouette-aware trace: per ray, pick a silhouette candidate (the
+    winning primitive, or, when the winner is a plane or a miss, the
+    nearest in-front sphere closer than the winner, so that a sphere behind
+    a wall never bleeds through) and blend
+
+        c = alpha * c_with + (1 - alpha) * c_without
+
+    ``alpha`` is the candidate's smooth coverage (:func:`primary_coverage`,
+    or the sphere sigmoid), ``c_with`` forces near-miss rays onto the
+    candidate sphere (shaded at the closest-approach point, whose limit at
+    the edge is the grazing hit) and ``c_without`` excludes the candidate.
+    The ramp spans both sides of the silhouette, so d(pixel)/d(geometry,
+    camera) matches finite differences at sphere hit-vs-miss edges; away
+    from edges alpha saturates and c is the hard image.
+
+    A training estimator in plain torch on any device (``kernels='off'``,
+    as the JAX package forces ``pallas='off'``), ~2x a hard forward.
+    Winner triangles and boxes get the inside half of the ramp only.  The
+    candidate is forced and excluded on the primary level only: child rays
+    trace the full scene.  The statistics are ``c_with``'s trace's.
+    """
+    cfg = cfg.replace(kernels="off")
+    mb, tau = cfg.motion_blur, cfg.soft_silhouette
+    R = o.shape[0]
+    h1 = closest_hit_brute(scene, o, d, time, mb)
+    ns = _near_sphere(scene, o, d, time, mb)
+    wtype = _object_table(scene, "obj_types", h1.obj_id)
+    winner_solid = h1.hit & (wtype != OBJ_PLANE)
+    if ns is not None:
+        sph_ok = ns["has"] & (ns["proj"] < h1.t) & ~winner_solid
+        cand = torch.where(winner_solid, h1.obj_id,
+                           torch.where(sph_ok, ns["gid"], -1))
+        a_f = torch.sigmoid((torch.abs(ns["radius"]) - ns["b"]) / tau)
+    else:
+        sph_ok = torch.zeros((R,), dtype=torch.bool, device=o.device)
+        cand, a_f = torch.where(winner_solid, h1.obj_id, -1), 1.0
+    alpha = torch.where(sph_ok, a_f, torch.where(
+        winner_solid, primary_coverage(scene, o, d, time, h1, tau, mb), 1.0))
+
+    plain = brute_intersectors(scene, cfg)
+
+    def primary_first(query):
+        """Intersectors whose first closest call, the primary level's,
+        is ``query``; every later level and every shadow ray take the
+        plain scans."""
+        calls = []
+
+        def closest(o2, d2, t2, valid=None):
+            calls.append(None)
+            if len(calls) > 1:
+                return plain.closest(o2, d2, t2)
+            return query(o2, d2, t2)
+        return Intersectors(closest, plain.shadow)
+
+    def closest_with(o2, d2, t2):
+        h = closest_hit_brute(scene, o2, d2, t2, mb)
+        if ns is None:
+            return h
+        f = sph_ok  # the candidate sphere as a grazing pseudo-hit
+        # EPSILON toward the camera: at the exact closest approach the
+        # normal is perpendicular to the ray, and the shader's facing test
+        # dot(d, N) < 0 becomes a coin flip that flips the shading; just
+        # before it the classification is stably "outside", the
+        # grazing-hit limit, and the colour stays continuous
+        t_f = ns["proj"] - EPSILON
+        n_f = safe_normalize(o2 + d2 * t_f[:, None] - ns["center"])
+        return HitResult(
+            hit=h.hit | f, t=torch.where(f, t_f, h.t),
+            normal=torch.where(f[:, None], n_f, h.normal),
+            obj_id=torch.where(f, ns["gid"], h.obj_id),
+            mat_id=torch.where(f, ns["mat"], h.mat_id))
+
+    def closest_without(o2, d2, t2):
+        return closest_hit_brute(scene, o2, d2, t2, mb, exclude_obj=cand)
+
+    c1, stats = trace_whitted(scene, cfg, o, d, time, light_sample,
+                              inter=primary_first(closest_with))
+    c2, _ = trace_whitted(scene, cfg, o, d, time, light_sample,
+                          inter=primary_first(closest_without))
+    return alpha[:, None] * c1 + (1.0 - alpha[:, None]) * c2, stats

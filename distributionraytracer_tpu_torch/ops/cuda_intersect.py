@@ -174,8 +174,39 @@ def closest_hit_runs(tb: ObjectTables, o, d, time, motion_blur: bool):
     return best_t, best
 
 
+def refuse_grad(name: str, *tensors):
+    """Raise where a gradient is being recorded and a tensor requires one.
+
+    The kernels write their outputs through raw pointers into tensors that
+    carry no autograd graph, so a gradient through them would be silently
+    wrong: every geometry and camera term would be missing.  Gradients go
+    through ``parallel.mesh.accel_intersectors(..., differentiable=True)``,
+    which runs the kernels under ``torch.no_grad()`` on detached tensors
+    and recomputes the winning hits in plain torch."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel is forward-only, and a tensor it was "
+            "given requires a gradient; take gradients through "
+            "accel_intersectors(scene, cfg, accel, differentiable=True) "
+            "(distributionraytracer_tpu_torch.parallel.mesh), or run under "
+            "torch.no_grad()")
+
+
+def geometry_leaves(scene: SceneData):
+    """The scene leaves that ``packed_objects`` (every kernel's object
+    table) is built from.  The packet and binned tables are built on the
+    host from their values, so their wrappers hand these to
+    :func:`refuse_grad` beside the rays."""
+    return (scene.sph_center, scene.sph_radius, scene.tri_v0, scene.tri_e1,
+            scene.tri_e2, scene.pln_n, scene.pln_d, scene.box_min,
+            scene.box_max)
+
+
 def require_cuda(name: str, *tensors):
-    """Raise unless every tensor is a contiguous CUDA tensor on one device."""
+    """Raise unless every tensor is a contiguous CUDA tensor on one device
+    that needs no gradient (:func:`refuse_grad`); each wrapper hands it its
+    rays and every table it passes the kernel."""
+    refuse_grad(name, *tensors)
     dev = tensors[0].device
     for t in tensors:
         if t.device.type != "cuda":

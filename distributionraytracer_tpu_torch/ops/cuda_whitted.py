@@ -47,8 +47,9 @@ def reset_launches():
 
 def fused_supported(scene: SceneData, cfg) -> bool:
     """The fused level kernel takes every accel-NONE scene with lights (the
-    tables are read from global memory, so the object count is unbounded)."""
-    return scene.static.n_lights > 0
+    tables are read from global memory, so the object count is unbounded)
+    and hard shadows: it has no soft-shadow visibility."""
+    return scene.static.n_lights > 0 and cfg.soft_shadow == 0.0
 
 
 def pack_whitted_mats(scene: SceneData) -> torch.Tensor:

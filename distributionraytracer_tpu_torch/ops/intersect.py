@@ -59,6 +59,15 @@ def _dot3(a, b):
     return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
 
 
+def _unit(v):
+    """``v / |v|`` in the kernels' order; a zero vector stays zero instead
+    of 0/0, so that its backward gives no NaN (:func:`hit_packed` evaluates
+    each type's formula on every lane, where the triangle normal of a
+    sphere's, plane's or box's row is the zero vector)."""
+    vv = _dot3(v, v)
+    return v / torch.sqrt(torch.where(vv > 0.0, vv, 1.0))[..., None]
+
+
 def sphere_t(o, d, time, center, radius, motion_blur: bool):
     """t matrix for rays (R,3) x spheres (N,3): returns (R,N) f32.
 
@@ -121,13 +130,30 @@ def plane_t(o, d, pn, pd):
 
 
 # ---------------------------------------------------------------- aa boxes
+def _slab_t(bound, o, d):
+    """``(bound - o) * (1 / d)``, an infinity (or NaN) on a zero component
+    of ``d`` as in IEEE, with no gradient through those components: the
+    backward of an infinite factor is 0 * inf = NaN even where the value is
+    never selected (a dead lane's, or another type's row in
+    :func:`hit_packed`)."""
+    nz = d != 0.0
+    ieee = ((bound - o) * (1.0 / d)).detach()
+    return torch.where(nz, (bound - o) * (1.0 / torch.where(nz, d, 1.0)),
+                       ieee)
+
+
+def slab_interval(bmin, bmax, o, d):
+    """``(t_enter, t_exit)`` of rays through axis-aligned boxes, the slab
+    test of scene.cpp:218-258 (broadcast over the leading axes)."""
+    ta, tb = _slab_t(bmin, o, d), _slab_t(bmax, o, d)
+    return (torch.minimum(ta, tb).amax(dim=-1),
+            torch.maximum(ta, tb).amin(dim=-1))
+
+
 def box_t(o, d, bmin, bmax):
     """Axis-aligned box slab-test t matrix (R,N) (scene.cpp:218-258)."""
-    inv = 1.0 / d  # +-inf for zero components
-    t0 = (bmin[None, :, :] - o[:, None, :]) * inv[:, None, :]
-    t1 = (bmax[None, :, :] - o[:, None, :]) * inv[:, None, :]
-    tmin = torch.minimum(t0, t1).amax(dim=-1)
-    tmax = torch.maximum(t0, t1).amin(dim=-1)
+    tmin, tmax = slab_interval(bmin[None, :, :], bmax[None, :, :],
+                               o[:, None, :], d[:, None, :])
     return _miss((tmin <= tmax) & (tmin > EPSILON), tmin)
 
 
@@ -170,12 +196,17 @@ def _type_tmats(scene: SceneData, o, d, time, motion_blur: bool):
     return [(typ, _type_gids(scene, typ, o.device), tm) for typ, tm in out]
 
 
-def closest_hit_brute(scene: SceneData, o, d, time,
-                      motion_blur: bool) -> HitResult:
+def closest_hit_brute(scene: SceneData, o, d, time, motion_blur: bool,
+                      exclude_obj=None) -> HitResult:
     """Linear scan over every object, returning the reference's winner.
 
     Cross-type ties resolve by smallest global object id, matching the
     insertion-order scan of main.cpp:315-326.  Plain version of K1.
+
+    ``exclude_obj`` (optional (R,) int): a per-ray object id to skip, -1
+    skipping nothing: the "scene without this pixel's winner" query that
+    the soft-silhouette estimator blends against
+    (:func:`integrator.whitted.trace_whitted_soft`).
     """
     st = scene.static
     R, dev = o.shape[0], o.device
@@ -183,6 +214,8 @@ def closest_hit_brute(scene: SceneData, o, d, time,
     best_gid = torch.full((R,), -1, dtype=torch.int32, device=dev)
     best_type = torch.full((R,), -1, dtype=torch.int32, device=dev)
     for typ, gids, tmat in _type_tmats(scene, o, d, time, motion_blur):
+        if exclude_obj is not None:
+            tmat = _miss(gids[None, :] != exclude_obj[:, None], tmat)
         t, idx = torch.min(tmat, dim=1)  # first minimum on ties
         gid = torch.where(t < FLT_MAX, gids[idx], -1)
         # lexicographic (t, gid): ties across types pick smaller object id
@@ -230,6 +263,114 @@ def closest_hit_brute(scene: SceneData, o, d, time,
                      mat_id=mat_id.to(torch.int32))
 
 
+def soft_visibility(scene: SceneData, o, d, time, max_dist, exclude_obj,
+                    tau: float, motion_blur: bool):
+    """Smooth shadow visibility in [0, 1]: the shadow-edge gradient
+    estimator.
+
+    Hard occlusion ``prod_i 1[ray misses i]`` is a step function of the
+    occluders' parameters: its expected derivative at a shadow edge is a
+    boundary term that pointwise autodiff through ``where`` never produces
+    (the reference's shadow gate, main.cpp:383-451, has the same step; it
+    just never differentiates).  Each occluder's indicator becomes a
+    sigmoid of a signed world-space margin that is smooth in every
+    parameter and crosses zero at the silhouette (exact as tau -> 0):
+
+    - sphere: ``r - b``, b the ray's closest approach to the centre;
+    - triangle: the smallest of (barycentric coordinate x its height) at
+      the ray/plane intersection, the world distance to the nearest edge,
+      negative outside;
+    - box: ``t_exit - t_enter`` of the slab test, negative on a miss;
+    - plane: no silhouette, kept hard.
+
+    Uses correct shadow semantics (normalized direction, true light
+    distance) whatever ``shadow_mode`` is: a training estimator, not a
+    reference-fidelity path.  A brute scan in plain torch on any device,
+    as the JAX package's is a jnp scan outside its kernels.
+    """
+    st = scene.static
+    vis = torch.ones(o.shape[0], dtype=torch.float32, device=o.device)
+    excl = exclude_obj[:, None]
+    dist = max_dist[:, None]
+
+    def fold(occ, gate, typ):
+        nonlocal vis
+        gate = gate & (_type_gids(scene, typ, o.device)[None, :] != excl)
+        vis = vis * torch.prod(1.0 - torch.where(gate, occ, 0.0), dim=1)
+
+    if st.n_spheres:
+        c = scene.sph_center[None, :, :]
+        if motion_blur:
+            c = _moved(c, time[:, None])
+        oc = c - o[:, None, :]  # (R,N,3)
+        proj = torch.einsum("rnk,rk->rn", oc, d)
+        b = torch.sqrt(torch.clamp(dot(oc, oc) - proj * proj, min=1e-12))
+        fold(torch.sigmoid((scene.sph_radius[None, :] - b) / tau),
+             (proj > 1e-4) & (proj < dist), OBJ_SPHERE)
+
+    if st.n_triangles:
+        v0, e1, e2 = scene.tri_v0, scene.tri_e1, scene.tri_e2
+        n = cross(e1, e2)  # (T,3), length = 2 * area
+        denom = torch.einsum("rk,nk->rn", d, n)
+        ok = torch.abs(denom) > 1e-12
+        safe = torch.where(ok, denom, 1e-12)
+        tpl = torch.einsum("nk,rnk->rn", n, v0[None] - o[:, None, :]) / safe
+        rel = o[:, None, :] + d[:, None, :] * tpl[..., None] - v0[None]
+        margin = _edge_margin(rel, e1[None], e2[None], n[None])
+        t = _miss(ok, tpl)
+        fold(torch.sigmoid(margin / tau), (t < dist) & (t > 1e-4),
+             OBJ_TRIANGLE)
+
+    if st.n_boxes:
+        tmin, tmax = slab_interval(scene.box_min[None], scene.box_max[None],
+                                   o[:, None, :], d[:, None, :])
+        fold(torch.sigmoid((tmax - tmin) / tau),
+             (tmin < dist) & (tmin > 1e-4), OBJ_BOX)
+
+    if st.n_planes:  # infinite: no silhouette, hard occlusion
+        t = plane_t(o, d, scene.pln_n, scene.pln_d)
+        gids = _type_gids(scene, OBJ_PLANE, o.device)
+        hit = ((t < dist) & (t > 1e-4) & (gids[None, :] != excl)).any(dim=1)
+        vis = vis * (1.0 - hit.to(torch.float32))
+    return vis
+
+
+def _edge_margin(rel, e1, e2, n):
+    """Signed world distance from points ``rel`` (relative to v0, in the
+    triangle's plane) to the triangle's nearest edge, positive inside:
+    barycentrics from the 2x2 metric, each times its triangle height."""
+    d11, d22, d12 = dot(e1, e1), dot(e2, e2), dot(e1, e2)
+    r1, r2 = dot(rel, e1), dot(rel, e2)
+    det = torch.clamp(d11 * d22 - d12 * d12, min=1e-20)
+    u = (d22 * r1 - d12 * r2) / det
+    v = (d11 * r2 - d12 * r1) / det
+    w = 1.0 - u - v
+    a2 = torch.linalg.norm(n, dim=-1)  # 2 * area
+    h = lambda e: a2 / torch.clamp(torch.linalg.norm(e, dim=-1), min=1e-12)
+    return torch.minimum(torch.minimum(u * h(e2), v * h(e1)), w * h(e2 - e1))
+
+
+def triangle_edge_margin(o, d, v0, e1, e2):
+    """Signed world distance from the ray/plane intersection point to the
+    nearest edge of a per-ray triangle (positive inside, negative
+    outside).  Inputs are (R,3): one triangle per ray (the gathered
+    winner's).  Smooth away from degenerate triangles; its zero crossing is
+    the triangle's silhouette along the ray.  Returns ``(margin (R,),
+    t (R,))``, t the ray/plane parameter."""
+    n = cross(e1, e2)
+    denom = dot(d, n)
+    safe = torch.where(torch.abs(denom) > 1e-12, denom, 1e-12)
+    t = dot(n, v0 - o) / safe
+    return _edge_margin(o + d * t[..., None] - v0, e1, e2, n), t
+
+
+def aabb_entry_t(o, d, bmin, bmax):
+    """``AABB::hit`` (boundingBox.cpp:64-124): ``(hit, t)``, t the largest
+    entry, or the exit when the origin is inside (``t = t1 if t0 < 0``)."""
+    t0, t1 = slab_interval(bmin, bmax, o, d)
+    return (t0 < t1) & (t1 > 0), torch.where(t0 < 0, t1, t0)
+
+
 def hit_packed(o, d, time, row, typ, motion_blur: bool,
                types_present=(OBJ_SPHERE, OBJ_TRIANGLE, OBJ_PLANE, OBJ_BOX)):
     """Each ray against its own packed object row (accel leaves).
@@ -269,7 +410,7 @@ def hit_packed(o, d, time, row, typ, motion_blur: bool,
         ts = torch.where(t1 > EPSILON, t1, t2)
         p = o + d * ts[:, None] - center
         take(OBJ_SPHERE, _miss((disc >= 0.0) & (ts > EPSILON), ts),
-             p / torch.sqrt(_dot3(p, p))[:, None])
+             _unit(p))
     if OBJ_TRIANGLE in types_present:
         v0, e1, e2 = row[:, 0:3], row[:, 3:6], row[:, 6:9]
         e = lambda v, k: v[:, k]
@@ -292,7 +433,7 @@ def hit_packed(o, d, time, row, typ, motion_blur: bool,
         gy = e(e1, 2) * e(e2, 0) - e(e1, 0) * e(e2, 2)
         gz = e(e1, 0) * e(e2, 1) - e(e1, 1) * e(e2, 0)
         g = torch.stack([gx, gy, gz], -1)
-        take(OBJ_TRIANGLE, _miss(ok, tt), g / torch.sqrt(_dot3(g, g))[:, None])
+        take(OBJ_TRIANGLE, _miss(ok, tt), _unit(g))
     if OBJ_PLANE in types_present:
         pn = row[:, 0:3]
         denom = _dot3(d, pn)
@@ -302,11 +443,7 @@ def hit_packed(o, d, time, row, typ, motion_blur: bool,
         take(OBJ_PLANE, _miss(par & (tp > 0.0), tp), pn)
     if OBJ_BOX in types_present:
         bmin, bmax = row[:, 0:3], row[:, 3:6]
-        inv = 1.0 / d
-        ta = (bmin - o) * inv
-        tb = (bmax - o) * inv
-        tmin = torch.minimum(ta, tb).amax(dim=-1)
-        tmax = torch.maximum(ta, tb).amin(dim=-1)
+        tmin, tmax = slab_interval(bmin, bmax, o, d)
         take(OBJ_BOX, _miss((tmin <= tmax) & (tmin > EPSILON), tmin),
              box_normal(o, d, tmin, bmin, bmax))
     return t, n

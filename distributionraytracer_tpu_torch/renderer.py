@@ -224,11 +224,13 @@ class Renderer:
         boxes, and the light bins while ``cuda_binned.SHADOW_BINNING`` is
         set and they build (:func:`cuda_binned.shadow_binning_ok`).  Primary
         bins are built per camera and frame shape, lazily
-        (:meth:`_bins_for`)."""
+        (:meth:`_bins_for`).  None with soft shadows, as in the JAX
+        package: a training configuration, whose frames take the packet
+        route."""
         self._gbox = None
         self._light_bins = None
         self._primary_cache = {}
-        if self.accel == ACCEL_NONE:
+        if self.accel == ACCEL_NONE or self.cfg.soft_shadow > 0.0:
             return
         tabs = self.tabs.tabs if self.accel == ACCEL_GRID else self.tabs
         if tabs.kind != "grouped" or not CB.binned_supported(self.scene,

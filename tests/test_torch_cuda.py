@@ -1297,3 +1297,210 @@ def test_binned_closest_kernel_equals_plain_on_every_lane(k9_frame, mode,
         assert 0.2 < share
     if case == "dead-chains":
         assert not bool((kid.reshape(-1, CBN.LANES)[::3] >= 0).any())
+
+
+# ------------------------------------------------ gradients on the card
+from distributionraytracer_tpu_torch.integrator.whitted import (  # noqa: E402
+    differentiable_intersectors,
+)
+from distributionraytracer_tpu_torch.parallel.mesh import (  # noqa: E402
+    accel_intersectors, detached, l2_render_loss,
+)
+from distributionraytracer_tpu_torch.renderer import (  # noqa: E402
+    _brute_bvh_intersectors,
+)
+
+from torch_scenes import shadow_edge_scene, silhouette_scene  # noqa: E402
+
+GRAD_RTOL = 1e-3  # each gradient element within this x the largest |one|
+GRAD_CASES = {
+    # scene, leaves whose gradients are compared
+    "random": (lambda: create_random_scene(0, 64, 48),
+               ("mat_cd", "sph_center", "cam_eye", "light_pos")),
+    "prim": (lambda: prim_scene(SceneBuilder),
+             ("mat_cd", "sph_center", "tri_v0", "box_min", "light_pos")),
+}
+
+
+def _grad_inputs(dev, kind):
+    """A scene on the card, its config, a SampleSet and a target (the K3
+    render of the scene with every colour 0.1 darker)."""
+    make, leaves = GRAD_CASES[kind]
+    scene = make().to(dev)
+    cfg = default_config(scene, spp=4)
+    samples = make_samples(scene, cfg,
+                           torch.Generator(device=dev).manual_seed(5))
+    with torch.no_grad():
+        dark = dataclasses.replace(
+            scene, mat_cd=torch.clamp(scene.mat_cd - 0.1, 0.0, 1.0))
+        target = render_from_samples(dark, cfg, samples)
+    return scene, cfg, samples, target, leaves
+
+
+def _loss_and_grads(scene, cfg, samples, target, leaves, inter_of):
+    xs = [getattr(scene, n).clone().requires_grad_(True) for n in leaves]
+    sc = dataclasses.replace(scene, **dict(zip(leaves, xs)))
+    _accel_reset()
+    loss = l2_render_loss(sc, cfg, samples, target, inter=inter_of(sc))
+    grads = torch.autograd.grad(loss, xs)
+    torch.cuda.synchronize()
+    return float(loss.detach()), grads, _accel_launches()
+
+
+def _grads_close(got, ref):
+    for g, r in zip(got, ref):
+        assert bool(torch.isfinite(g).all())
+        scale = float(r.abs().max())
+        assert scale > 0
+        torch.testing.assert_close(g, r, rtol=0, atol=GRAD_RTOL * scale)
+
+
+@pytest.mark.parametrize("kind", sorted(GRAD_CASES))
+def test_differentiable_brute_route_matches_plain_on_card(dev, kind):
+    """K1/K2 under no_grad pick the winners, the hits are recomputed in
+    torch: the loss and gradients of the plain route (``kernels='off'``,
+    plain autodiff on CUDA tensors)."""
+    scene, cfg, samples, target, leaves = _grad_inputs(dev, kind)
+    loss, grads, runs = _loss_and_grads(
+        scene, cfg, samples, target, leaves,
+        lambda sc: accel_intersectors(sc, cfg, None, differentiable=True))
+    assert runs["K1"] > 0 and runs["K2"] > 0
+    assert sum(runs.values()) == runs["K1"] + runs["K2"], runs
+    off = cfg.replace(kernels="off")
+    ref_loss, ref_grads, ref_runs = _loss_and_grads(
+        scene, off, samples, target, leaves, lambda sc: None)
+    assert sum(ref_runs.values()) == 0, ref_runs
+    assert ref_loss > 0 and abs(loss - ref_loss) <= 1e-4 * ref_loss
+    _grads_close(grads, ref_grads)
+
+
+def _requiring_grad(scene, leaf):
+    return dataclasses.replace(scene, **{
+        leaf: getattr(scene, leaf).clone().requires_grad_(True)})
+
+
+def test_kernel_routes_refuse_a_gradient(dev):
+    """A geometry, camera or light leaf that requires a gradient makes
+    every kernel route raise (the kernels' outputs carry no graph, so the
+    gradient would be silently wrong); under no_grad the same render runs
+    and launches as before.  A material leaf trips K3 (its tables hold the
+    materials); the staged routes shade in torch, where its gradient is
+    exact."""
+    scene, cfg, samples, target, _ = _grad_inputs(dev, "random")
+    routes = {"K3": lambda s: render_from_samples(s, cfg, samples),
+              "K1/K2": lambda s: render_from_samples(
+                  s, cfg, samples, inter=brute_intersectors(s, cfg))}
+    _accel_reset()
+    ref = {k: run(scene) for k, run in routes.items()}
+    ref_runs = _accel_launches()
+    for leaf in ("sph_center", "cam_eye", "light_pos"):
+        for k, run in routes.items():
+            with pytest.raises(RuntimeError, match="forward-only"):
+                run(_requiring_grad(scene, leaf))
+    with pytest.raises(RuntimeError, match="forward-only"):
+        routes["K3"](_requiring_grad(scene, "mat_cd"))
+    sc = _requiring_grad(scene, "sph_center")
+    _accel_reset()
+    with torch.no_grad():
+        for k, run in routes.items():
+            assert torch.equal(run(sc), ref[k]), k
+    assert _accel_launches() == ref_runs
+    mesh = _mesh(ACCEL_BVH, n_tri=2000, res=(32, 32))
+    for kernel in ("grouped", "legacy"):
+        r = Renderer(mesh, RenderConfig(spp=0, packet_kernel=kernel),
+                     device=dev)
+        ms = make_samples(r.scene, r.cfg,
+                          torch.Generator(device=dev).manual_seed(0))
+        ref = r.render_with_samples(ms)
+        plain = r.scene
+        r.scene = _requiring_grad(plain, "sph_center")
+        with pytest.raises(RuntimeError, match="forward-only"):
+            r.render_with_samples(ms)
+        with torch.no_grad():
+            assert torch.equal(r.render_with_samples(ms), ref)
+
+
+def test_packet_route_gradients_match_brute_route(dev):
+    """The K7 variant of the differentiable intersectors against the brute
+    one with the BVH's shadow compare (cost-brute: K1 and K2) on a small
+    mesh scene: equal loss and gradients."""
+    mesh = _mesh(ACCEL_BVH, n_tri=SMALL_TRI, res=(64, 64))
+    r = Renderer(mesh, RenderConfig(spp=1), device=dev)
+    assert r.tabs.kind == "grouped"
+    cfg = r.cfg
+    samples = make_samples(r.scene, cfg,
+                           torch.Generator(device=dev).manual_seed(2))
+    with torch.no_grad():
+        target = render_from_samples(r.scene, cfg, samples) * 0.9
+    leaves = ("mat_cd", "sph_center", "tri_v0")
+    loss, grads, runs = _loss_and_grads(
+        r.scene, cfg, samples, target, leaves,
+        lambda sc: accel_intersectors(sc, cfg, r.tabs, differentiable=True))
+    assert runs["K7"] > 0 and sum(runs.values()) == runs["K7"], runs
+    ref_loss, ref_grads, ref_runs = _loss_and_grads(
+        r.scene, cfg, samples, target, leaves,
+        lambda sc: differentiable_intersectors(
+            sc, cfg, _brute_bvh_intersectors(detached(sc), cfg)))
+    assert ref_runs["K1"] > 0 and ref_runs["K2"] > 0
+    assert ref_loss > 0 and abs(loss - ref_loss) <= 1e-4 * ref_loss
+    _grads_close(grads, ref_grads)
+
+
+def _fd_pairs(f, x0, g, picks, eps=1e-3):
+    flat = x0.detach().cpu().numpy().astype(np.float64).ravel()
+    out = []
+    for i in np.argsort(-np.abs(g.ravel()))[:picks]:
+        e = np.zeros_like(flat)
+        e[i] = eps
+        val = lambda v: float(f(torch.from_numpy(
+            v.reshape(x0.shape).astype(np.float32)).to(x0.device)))
+        out.append(((val(flat + e) - val(flat - e)) / (2 * eps),
+                    g.ravel()[i]))
+    return out
+
+
+FD_CASES = {
+    # scene, config, leaf, loss over the image
+    "soft-shadow-sphere": (lambda: shadow_edge_scene(SceneBuilder, "sphere"),
+                           dict(soft_shadow=0.05), "sph_center",
+                           lambda img: img[:, :19].mean()),
+    "soft-shadow-triangle": (lambda: shadow_edge_scene(SceneBuilder,
+                                                       "triangle"),
+                             dict(soft_shadow=0.05), "tri_v0",
+                             lambda img: img[:, :19].mean()),
+    "soft-silhouette-sphere": (lambda: silhouette_scene(SceneBuilder),
+                               dict(soft_silhouette=0.03), "sph_center",
+                               torch.mean),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FD_CASES))
+def test_soft_estimators_match_finite_differences_on_card(dev, case):
+    """test_grad's shadow-edge and sphere-edge constructions on CUDA
+    tensors, through the differentiable K1/K2 route (soft shadows; the
+    soft silhouettes trace plain torch, as the JAX package's do): autodiff
+    within 5% of central differences, and a real edge gradient."""
+    make, kw, leaf, reduce = FD_CASES[case]
+    scene = make().to(dev)
+    cfg = RenderConfig(spp=1, **kw)
+    samples = make_samples(scene, cfg,
+                           torch.Generator(device=dev).manual_seed(0))
+
+    def f(x):
+        sc = dataclasses.replace(scene, **{leaf: x})
+        inter = (accel_intersectors(sc, cfg, None, differentiable=True)
+                 if cfg.soft_shadow else None)
+        return reduce(render_from_samples(sc, cfg, samples, inter=inter))
+
+    x = getattr(scene, leaf).clone().requires_grad_(True)
+    _accel_reset()
+    (g,) = torch.autograd.grad(f(x), x)
+    runs = _accel_launches()
+    assert runs["K3"] == 0
+    assert (runs["K1"] > 0) == bool(cfg.soft_shadow), runs
+    g = g.cpu().numpy()
+    assert np.isfinite(g).all() and np.abs(g).max() > 1e-3, g
+    with torch.no_grad():
+        for fd, ad in _fd_pairs(f, getattr(scene, leaf), g, 2):
+            assert abs(fd - ad) <= 0.05 * max(abs(fd), abs(ad)) + 1e-4, (
+                fd, ad)

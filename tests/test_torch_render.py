@@ -4,10 +4,12 @@ progressive checkpoints, the CLI, the no-jax import, the card as the
 default device, and the kernels' refusal of CPU tensors."""
 
 import dataclasses
+import functools
 import os
 import subprocess
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,7 +18,7 @@ from PIL import Image
 
 from distributionraytracer_tpu.config import RenderConfig as JaxConfig
 from distributionraytracer_tpu.integrator.render import (
-    SampleSet as JaxSampleSet,
+    SampleSet as JaxSampleSet, make_samples as jax_make_samples,
 )
 from distributionraytracer_tpu.renderer import Renderer as JaxRenderer
 from distributionraytracer_tpu.renderer import _render_none
@@ -89,6 +91,47 @@ def test_render_from_samples_matches_jax(name, kernels):
     assert img.shape == ref.shape and ref.std() > 0.01
     np.testing.assert_allclose(img.numpy(), ref, atol=2e-3)
     assert int(nrays) == int(ref_rays)
+
+
+# Whole-frame configurations: small_scene with a quad light and glass,
+# given a lens (aperture 8 pixels, focus at 0.8 of the image plane) so that
+# depth of field blurs.  name: the configuration's knobs.
+CONFIG_CASES = {
+    "dof": dict(spp=4, dof=True),
+    "shadow-correct": dict(spp=4, shadow_mode="correct"),
+    "spp0": dict(spp=0),
+    "no-static-prune": dict(spp=4, static_prune=False),
+    "max-depth-2": dict(spp=4, max_depth=2),
+    "dof-motion-blur": dict(spp=4, dof=True, motion_blur=True),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _config_case(name):
+    """(scene, JAX SampleSet, JAX image, JAX ray count) of a case; the
+    samples are the JAX package's make_samples draw (spp 0: pixel centres
+    and the quad light's regular grid)."""
+    scene = small_scene(with_quad_light=True, glass=True)
+    scene = dataclasses.replace(scene, static=dataclasses.replace(
+        scene.static, aperture_ratio=8.0, focal_ratio=0.8))
+    js = scene.device_put()
+    cfg = JaxConfig(**CONFIG_CASES[name])
+    samples = jax_make_samples(js, cfg, jax.random.PRNGKey(len(name)))
+    img, rays = _render_none(js, cfg, samples, True)
+    return scene, samples, np.asarray(img), int(rays)
+
+
+@pytest.mark.parametrize("kernels", ["auto", "off"])
+@pytest.mark.parametrize("case", sorted(CONFIG_CASES))
+def test_render_configurations_match_jax(case, kernels):
+    """Port vs JAX on the same SampleSet, per whole-frame configuration."""
+    scene, samples, ref, ref_rays = _config_case(case)
+    cfg = RenderConfig(kernels=kernels, tile_rays=512, **CONFIG_CASES[case])
+    img, nrays = render_from_samples(to_port(scene), cfg,
+                                     torch_samples(samples), return_rays=True)
+    assert img.shape == ref.shape and ref.std() > 0.01
+    np.testing.assert_allclose(img.numpy(), ref, atol=2e-3)
+    assert int(nrays) == ref_rays
 
 
 def test_render_motion_blur_matches_jax():

@@ -461,3 +461,39 @@ def compare_levels(ref, res, valid, atol=2e-4, rtol=1e-5, lane_budget=0.0):
         assert (off & v).mean() <= lane_budget, (k, (off & v).mean())
         bad |= off
     assert (bad & v).mean() <= lane_budget, (bad & v).mean()
+
+
+def shadow_edge_scene(builder_cls, occluder="sphere"):
+    """``test_grad``'s shadow-edge constructions: an overhead camera sees
+    only a floor (y = -1) crossed by the shadow edge of a sphere (r 0.4 at
+    y = 1, edge at floor x = 0.6) or of a triangle hovering at y = 1 (edge
+    at x ~ 0.675) from a point light at (0, 5, 0).  Columns 0..18 of the
+    32x32 frame cover floor x in [1.23, 0.48]: the edge, but not the
+    occluder itself, so no primary silhouette enters a loss over them."""
+    b = builder_cls()
+    b.set_camera([0.6, 8.0, 1e-3], [0.6, -1.0, 0.0], [0, 0, 1],
+                 8.0, 0.01, 32, 32, 0, 1)
+    floor = b.add_material([0.7, 0.7, 0.7], 0.9, [0, 0, 0], 0.0, 10, 0, 1)
+    b.add_plane_hessian([0, 1, 0], 1.0, floor)
+    occ = b.add_material([0.8, 0.2, 0.2], 0.9, [0, 0, 0], 0.0, 10, 0, 1)
+    if occluder == "sphere":
+        b.add_sphere([0.0, 1.0, 0.0], 0.4, occ)
+    else:
+        b.add_triangle([-0.6, 1.0, -2.0], [0.45, 1.0, 0.0],
+                       [-0.6, 1.0, 2.0], occ)
+    b.add_point_light([0.0, 5.0, 0.0], [1, 1, 1])
+    return b.build()
+
+
+def silhouette_scene(builder_cls):
+    """``test_grad``'s sphere-edge construction: a camera looking straight
+    at a floating diffuse sphere against the background, the frame
+    spanning its silhouette."""
+    b = builder_cls()
+    b.set_camera([0.0, 0.0, 6.0], [0.0, 0.0, 0.0], [0, 1, 0],
+                 20.0, 0.01, 32, 32, 0, 1)
+    m = b.add_material([0.8, 0.3, 0.2], 0.9, [0, 0, 0], 0.0, 10, 0, 1)
+    b.add_sphere([0.0, 0.0, 0.0], 0.8, m)
+    b.add_point_light([3.0, 4.0, 6.0], [1, 1, 1])
+    b.bg_color = np.array([0.1, 0.1, 0.6], np.float32)
+    return b.build()
