@@ -168,6 +168,30 @@
    Then holds the K1/K2 route to plain autodiff (``kernels='off'``) on
    rows 284:288 (51,200 samples): loss within rel 1e-4, the ``mat_cd`` and
    ``sph_center`` gradients within 1e-3 of their largest element.
+   The grid half: the same three steps on the accelerated grid frame of
+   5b (100,000 triangles, 512x512, spp 0, depth 4), its band of rows 0:32
+   (16,384 samples; row offset 0, so that phase 10's world-size-1 step
+   renders the same rows), through ``accel_intersectors(CudaGrid,
+   differentiable=True)``: K7 in grid shadow mode under no_grad, never K3.
+   Checks: the loss falls at every step; the K7 route against its plain
+   walk (``kernels='off'``) on rows 0:4, loss within rel 1e-4 and the
+   ``mat_cd`` and ``sph_center`` gradients within 1e-3 of their largest
+   element.  Prints the step seconds (median of steps 1-3), K7's launches
+   a step, one profiled step's busy ms, idle share and K7 sums, the peak
+   memory.  Then one step through the DDA (``accel_intersectors(
+   GridArrays)``, the ``accel_backend='traversal'`` route; no kernel
+   launches), its seconds, and the share of the band's primary object ids
+   where the DDA and the emulation differ (under 2%, the emulation's tie
+   budget).
+10. Row sharding at world size 1 on an NCCL group (made from a ``file://``
+   store in a temporary directory; no fallback to gloo):
+   ``render_image_sharded`` of the Whitted frame (K3 only, the main path's
+   590 launches, equal to ``Renderer.render_with_samples``: max difference
+   0) and of the grid frame on its ``CudaGrid`` tables (K7 only, equal to
+   ``render_from_samples(inter=accel_intersectors(...))``, and within the
+   slab budget of the Renderer's own K9 + K7 route over the whole frame);
+   one ``make_sharded_train_step`` step on the grid band, whose loss must
+   be phase 9's step 0 (rel 1e-6); an ``all_reduce``'s milliseconds.
 
 Prints the kernels' JSON line, then the result line last.  Any failure
 raises, so the exit code is non-zero and no result line is printed.
@@ -916,7 +940,7 @@ def accel_phase(torch, np, dev, card, counted, mesh=MESH, slab=ACCEL_SLAB,
         print(f"accelerated frame, {key} route: {runs[key][2]:.4f} s (one "
               f"frame) | {card}")
     return dict(bvh=bvh, grid=grid, leg=leg, cb=cb, cbg=cbg, samples=samples,
-                gb=gb, runs=runs, median=med, cfg=cfg)
+                gb=gb, runs=runs, median=med, cfg=cfg, img_g=img_g)
 
 
 def light_phase(torch, np, dev, card, counted, mesh=MESH, slab=ACCEL_SLAB,
@@ -2152,6 +2176,62 @@ GRAD_STEP = 0.05  # the first step's largest change of a colour channel
 GRAD_CHECK_ROWS = 4  # rows of the sub-band held against plain autodiff
 
 
+def sgd_steps(torch, counted, loss_of, start, label, expect):
+    """GRAD_STEPS projected SGD steps in ``mat_cd`` from ``start``: each
+    step's loss and gradient (``loss_of({"mat_cd": x})``) between a reset
+    and a read of the launch counters (``expect``), then a step of a fixed
+    rate, GRAD_STEP over the first gradient's largest element.  Returns
+    the losses, step and forward seconds, launch counts, the peak device
+    memory in GiB, the rate and the last iterate."""
+    x, rate, peak = start, None, 0.0
+    losses, step_s, fwd_s, runs = [], [], [], []
+    for i in range(GRAD_STEPS + 1):
+        x = x.detach().requires_grad_(True)
+
+        def step(x=x):
+            t0 = time.perf_counter()
+            loss = loss_of({"mat_cd": x})
+            torch.cuda.synchronize()
+            fwd = time.perf_counter() - t0
+            (g,) = torch.autograd.grad(loss, x)
+            return float(loss.detach()), g, fwd
+
+        torch.cuda.reset_peak_memory_stats()
+        (loss, g, fwd), got, secs = counted(label.format(i=i), step, expect)
+        peak = max(peak, torch.cuda.max_memory_allocated() / 2**30)
+        check(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0,
+              f"step {i}: gradient not finite or all zero")
+        losses.append(loss)
+        step_s.append(secs)
+        fwd_s.append(fwd)
+        runs.append(got)
+        if i < GRAD_STEPS:
+            if rate is None:
+                rate = GRAD_STEP / float(g.abs().max())
+            x = torch.clamp(x.detach() - rate * g, 0.0, 1.0)
+    return losses, step_s, fwd_s, runs, peak, rate, x
+
+
+def held_gradients(torch, counted, loss_of, leaves, routes):
+    """The loss and its gradients in ``leaves`` (name: start value) on each
+    of two ``routes`` (label, route config, expected launches), each
+    between a reset and a read of the launch counters; returns the
+    relative loss difference and each gradient's largest difference over
+    the second route's largest element."""
+    got = []
+    for label, route_cfg, expect in routes:
+        xs = {n: v.clone().requires_grad_(True) for n, v in leaves.items()}
+
+        def run(xs=xs, route_cfg=route_cfg):
+            loss = loss_of(xs, route_cfg)
+            return (float(loss.detach()),
+                    torch.autograd.grad(loss, list(xs.values())))
+        got.append(counted(label, run, expect)[0])
+    (lk, gk), (lp, gp) = got
+    return lk, lp, abs(lk - lp) / lp, [
+        float((u - v).abs().max() / v.abs().max()) for u, v in zip(gk, gp)]
+
+
 def grad_phase(torch, card, counted, scene, cfg, samples):
     """Phase 9: inverse-rendering steps on the main path's scene.
 
@@ -2197,33 +2277,10 @@ def grad_phase(torch, card, counted, scene, cfg, samples):
           f"the K3 route took a leaf that requires a gradient ({refused})")
     print(f"gradient through the default route (K3) refused: {refused}")
 
-    x, rate, losses, step_s, fwd_s, peak = start, None, [], [], [], 0.0
-    for i in range(GRAD_STEPS + 1):
-        x = x.detach().requires_grad_(True)
-
-        def step(x=x):
-            t0 = time.perf_counter()
-            loss = loss_of({"mat_cd": x}, b - a, cfg, True)
-            torch.cuda.synchronize()
-            fwd = time.perf_counter() - t0
-            (g,) = torch.autograd.grad(loss, x)
-            return float(loss.detach()), g, fwd
-
-        torch.cuda.reset_peak_memory_stats()
-        (loss, g, fwd), _, secs = counted(
-            f"gradient step {i} (loss and its gradient in mat_cd, "
-            "accel_intersectors(differentiable=True))", step,
-            {"K1": True, "K2": True})
-        peak = max(peak, torch.cuda.max_memory_allocated() / 2**30)
-        check(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0,
-              f"step {i}: gradient not finite or all zero")
-        losses.append(loss)
-        step_s.append(secs)
-        fwd_s.append(fwd)
-        if i < GRAD_STEPS:
-            if rate is None:
-                rate = GRAD_STEP / float(g.abs().max())
-            x = torch.clamp(x.detach() - rate * g, 0.0, 1.0)
+    losses, step_s, fwd_s, _, peak, rate, x = sgd_steps(
+        torch, counted, lambda lv: loss_of(lv, b - a, cfg, True), start,
+        "gradient step {i} (loss and its gradient in mat_cd, "
+        "accel_intersectors(differentiable=True))", {"K1": True, "K2": True})
     check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
     med, fmed = statistics.median(step_s[1:]), statistics.median(fwd_s[1:])
     print(f"gradient steps on rows {a}:{b} of 800x600 spp16 depth 4 "
@@ -2245,24 +2302,13 @@ def grad_phase(torch, card, counted, scene, cfg, samples):
               f"{ms:.3f} ms summed | {card}")
 
     # the K1/K2 route held against plain autodiff on a sub-band
-    got = {}
-    for route, route_cfg, diff, expect in (
-            ("K1/K2", cfg, True, {"K1": True, "K2": True}),
-            ("plain", cfg.replace(kernels="off"), False, {})):
-        leaves = {"mat_cd": start.clone().requires_grad_(True),
-                  "sph_center": scene.sph_center.clone().requires_grad_(True)}
-
-        def run(leaves=leaves, route_cfg=route_cfg, diff=diff):
-            loss = loss_of(leaves, GRAD_CHECK_ROWS, route_cfg, diff)
-            return (float(loss.detach()),
-                    torch.autograd.grad(loss, list(leaves.values())))
-        got[route], _, _ = counted(
-            f"gradient of rows {a}:{a + GRAD_CHECK_ROWS}, {route} route",
-            run, expect)
-    (lk, gk), (lp, gp) = got["K1/K2"], got["plain"]
-    rel = abs(lk - lp) / lp
-    errs = [float((u - v).abs().max() / v.abs().max())
-            for u, v in zip(gk, gp)]
+    rows = f"gradient of rows {a}:{a + GRAD_CHECK_ROWS}"
+    lk, lp, rel, errs = held_gradients(
+        torch, counted, lambda lv, rc: loss_of(lv, GRAD_CHECK_ROWS, rc,
+                                               rc.kernels != "off"),
+        {"mat_cd": start, "sph_center": scene.sph_center},
+        ((f"{rows}, K1/K2 route", cfg, {"K1": True, "K2": True}),
+         (f"{rows}, plain route", cfg.replace(kernels="off"), {})))
     check(rel <= 1e-4 and max(errs) <= 1e-3,
           f"K1/K2 gradient route vs plain: loss rel {rel:.3e}, gradient "
           f"errors {errs}")
@@ -2270,6 +2316,230 @@ def grad_phase(torch, card, counted, scene, cfg, samples):
           f"autodiff: loss {lk:.6e} vs {lp:.6e} (rel {rel:.3e}); largest "
           f"gradient difference over the largest |element|: mat_cd "
           f"{errs[0]:.3e}, sph_center {errs[1]:.3e}  PASS")
+
+
+# The grid frame's gradient band: rows 0:32, at row offset 0, so that a
+# world-size-1 sharded step (phase 10), which renders its rows from offset
+# 0, takes the same loss as this phase's step 0.
+GRID_BAND = (0, 32)
+# The DDA's objects an iteration on the grid frame.  The K the JAX
+# package's rule picks (_pick_unroll) is 1 there: the radius-1000 ground
+# sphere's box puts every cell in its CSR lists, and the cell around the
+# origin holds all 100,005 objects, so each lane tests all of them one an
+# iteration.  K sets the work an iteration does, not the answer.
+DDA_UNROLL = 256
+ID_BUDGET = 0.02  # the grid emulation's tie budget (accel/cuda_grid.py)
+
+
+def grid_grad_phase(torch, card, counted, acc):
+    """Phase 9, grid half: inverse-rendering steps on the accelerated grid
+    frame (``mesh_scene``, 100,000 triangles, 512x512, spp 0, depth 4),
+    its band of GRID_BAND rows (16,384 samples).  The target is the band's
+    render through the emulation tables under no_grad; the start has every
+    material colour 0.1 brighter; each step takes ``l2_render_loss`` through
+    ``accel_intersectors(CudaGrid, differentiable=True)`` (K7 in grid shadow
+    mode under no_grad, the hits recomputed in torch) and its gradient in
+    ``mat_cd``, then a projected SGD step.  Then the K7 route against its
+    plain walk (``kernels='off'``) on 4 rows, one step through the DDA
+    (``accel_intersectors(GridArrays)``, plain torch, no kernel), and the
+    DDA's primary object ids against the emulation's.  Returns what phase
+    10 holds its sharded step to."""
+    import dataclasses
+
+    from distributionraytracer_tpu_torch.accel.cuda_grid import (
+        make_cuda_grid_intersectors,
+    )
+    from distributionraytracer_tpu_torch.accel.grid import (
+        make_grid_intersectors,
+    )
+    from distributionraytracer_tpu_torch.integrator.render import (
+        _rays_from_samples, render_from_samples,
+    )
+    from distributionraytracer_tpu_torch.parallel.mesh import (
+        accel_intersectors, l2_render_loss,
+    )
+
+    r, cfg, samples = acc["grid"], acc["cfg"], acc["samples"]
+    scene, tabs, host = r.scene, r.tabs, r.accel_build.host
+    a, b = GRID_BAND
+    band = samples.rows(a, b)
+    with torch.no_grad():
+        target = render_from_samples(
+            scene, cfg, band, row_offset=a,
+            inter=accel_intersectors(scene, cfg, tabs))
+    start = torch.clamp(scene.mat_cd + 0.1, 0.0, 1.0)
+
+    def loss_of(leaves, rows, route_cfg, tables, unroll=None):
+        sc = dataclasses.replace(scene, **leaves)
+        inter = accel_intersectors(sc, route_cfg, tables, unroll,
+                                   differentiable=True)
+        return l2_render_loss(sc, route_cfg, samples.rows(a, a + rows),
+                              target[:rows], row_offset=a, inter=inter)
+
+    losses, step_s, fwd_s, runs, peak, rate, x = sgd_steps(
+        torch, counted, lambda lv: loss_of(lv, b - a, cfg, tabs), start,
+        "grid gradient step {i} (loss and its gradient in mat_cd, "
+        "accel_intersectors(CudaGrid, differentiable=True))", {"K7": True})
+    k7 = [got["K7"] for got in runs]
+    check(all(v < u for u, v in zip(losses, losses[1:])),
+          f"the grid loss did not fall at every step: {losses}")
+    med, fmed = statistics.median(step_s[1:]), statistics.median(fwd_s[1:])
+    print(f"grid gradient steps on rows {a}:{b} of the 512x512 100k-triangle "
+          f"grid frame ({band.time.numel()} samples): loss "
+          + " -> ".join(f"{v:.6e}" for v in losses)
+          + f" (rate {rate:.4e}); seconds a step (forward + backward) "
+          + " ".join(f"{s:.4f}" for s in step_s)
+          + f", median after the first {med:.4f} (forward {fmed:.4f}); K7 "
+          f"launches a step {k7}; peak {peak:.2f} GiB | {card}")
+    prof = profile_frame(torch, lambda: loss_of(
+        {"mat_cd": x.detach().requires_grad_(True)}, b - a, cfg,
+        tabs).backward(), med, "grid gradient step")
+    sums = [kernel_sum(prof, k) for k in ("grouped_closest_kernel",
+                                          "grouped_shadow_kernel")]
+    print(f"K7 in the profiled grid gradient step: "
+          f"{sum(n for n, _ in sums)} launches, "
+          f"{sum(ms for _, ms in sums):.3f} ms summed (closest "
+          f"{sums[0][1]:.3f}, shadow {sums[1][1]:.3f}); K3 0 | {card}")
+
+    # the K7 route held against its plain walk on a sub-band
+    rows = f"grid gradient of rows {a}:{a + GRAD_CHECK_ROWS}"
+    lk, lp, rel, errs = held_gradients(
+        torch, counted, lambda lv, rc: loss_of(lv, GRAD_CHECK_ROWS, rc,
+                                               tabs),
+        {"mat_cd": start, "sph_center": scene.sph_center},
+        ((f"{rows}, K7 route", cfg, {"K7": True}),
+         (f"{rows}, plain walk route", cfg.replace(kernels="off"), {})))
+    check(rel <= 1e-4 and max(errs) <= 1e-3,
+          f"K7 grid gradient route vs its plain walk: loss rel {rel:.3e}, "
+          f"gradient errors {errs}")
+    print(f"grid gradient rows {a}:{a + GRAD_CHECK_ROWS} K7 route vs its "
+          f"plain walk: loss {lk:.6e} vs {lp:.6e} (rel {rel:.3e}); largest "
+          f"gradient difference over the largest |element|: mat_cd "
+          f"{errs[0]:.3e}, sph_center {errs[1]:.3e}  PASS")
+
+    # the DDA route: plain torch on the card, no kernel
+    xd = start.clone().requires_grad_(True)
+
+    def dda_step():
+        loss = loss_of({"mat_cd": xd}, b - a, cfg, host, DDA_UNROLL)
+        (g,) = torch.autograd.grad(loss, xd)
+        return float(loss.detach()), g
+    torch.cuda.reset_peak_memory_stats()
+    (dloss, dg), _, dsecs = counted(
+        f"grid gradient step through the DDA (accel_intersectors("
+        f"GridArrays, grid_unroll={DDA_UNROLL}), the accel_backend="
+        f"'traversal' route), rows {a}:{b}", dda_step, {})
+    check(bool(torch.isfinite(dg).all()), "DDA step: gradient not finite")
+    print(f"DDA gradient step on rows {a}:{b}: {dsecs:.4f} s (K7 step 0 "
+          f"{step_s[0]:.4f} s), loss {dloss:.6e} vs the K7 route's "
+          f"{losses[0]:.6e} (rel {abs(dloss - losses[0]) / losses[0]:.3e}), "
+          f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | "
+          f"{card}")
+    o, d, t, _ = _rays_from_samples(scene, cfg, band, row_offset=a)
+    with torch.no_grad():
+        he = make_cuda_grid_intersectors(scene, tabs).closest(o, d, t)
+        hd = make_grid_intersectors(scene, host,
+                                    unroll=DDA_UNROLL).closest(o, d, t)
+    share = float((he.obj_id != hd.obj_id).float().mean())
+    check(share < ID_BUDGET, f"DDA vs emulation: {share:.4%} of primary "
+          "object ids differ")
+    print(f"DDA vs the emulation (K7) on the band's {o.shape[0]} primary "
+          f"rays: {share:.4%} of object ids differ (budget "
+          f"{ID_BUDGET:.0%}), hits {float(hd.hit.float().mean()):.4f}  PASS")
+    return dict(loss0=losses[0], rate=rate, start=start, band=band,
+                target=target, step0_s=step_s[0])
+
+
+def sharded_phase(torch, card, counted, whitted, acc, grid):
+    """Phase 10: the row sharding at world size 1 on NCCL, its group made
+    from a ``file://`` store in a temporary directory (no fallback to
+    gloo).  ``whitted``: (renderer, config, SampleSet, image, K3 launches)
+    of phase 4's main path; ``acc``: phase 5b's; ``grid``: phase 9's grid
+    band."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from distributionraytracer_tpu_torch.integrator.render import (
+        render_from_samples,
+    )
+    from distributionraytracer_tpu_torch.parallel.mesh import (
+        accel_intersectors, init_file_group, make_row_mesh,
+        make_sharded_train_step, render_image_sharded,
+    )
+
+    store = tempfile.mkdtemp(prefix="chip_smoke_group_")
+    t0 = time.perf_counter()
+    init_file_group("cuda", os.path.join(store, "store"))
+    try:
+        mesh = make_row_mesh("cuda")
+        check(mesh.world == 1 and dist.get_backend() == "nccl",
+              f"group {mesh}, backend {dist.get_backend()}")
+        # NCCL makes its communicator at the first collective
+        dist.all_reduce(torch.zeros(1, device=mesh.device))
+        torch.cuda.synchronize()
+        print(f"process group: world size {mesh.world}, backend "
+              f"{dist.get_backend()}, {mesh.device}, "
+              f"{time.perf_counter() - t0:.2f}s to start (its first "
+              "all_reduce included)")
+        r, cfg, samples, ref, k3 = whitted
+        img, runs, secs = counted(
+            "render_image_sharded, Whitted frame 800x600 spp16 (world size "
+            "1, NCCL)", lambda: render_image_sharded(r.scene, cfg, mesh,
+                                                     samples=samples),
+            {"K3": True})
+        diff = float((img - ref).abs().max())
+        check(runs["K3"] == k3 and diff == 0.0,
+              f"sharded Whitted frame: K3 {runs['K3']} (main path {k3}), "
+              f"max difference {diff}")
+        print(f"sharded Whitted frame: {runs['K3']} K3 launches (the main "
+              f"path's {k3}), max difference to Renderer.render_with_samples "
+              f"{diff:.1e}, {secs:.4f} s  PASS")
+
+        g, gcfg, gsamples = acc["grid"], acc["cfg"], acc["samples"]
+        gimg, _, gsecs = counted(
+            "render_image_sharded, grid frame 512x512 on CudaGrid tables "
+            "(world size 1, NCCL)", lambda: render_image_sharded(
+                g.scene, gcfg, mesh, samples=gsamples, accel=g.tabs),
+            {"K7": True})
+        single = render_from_samples(
+            g.scene, gcfg, gsamples,
+            inter=accel_intersectors(g.scene, gcfg, g.tabs))
+        gdiff = float((gimg - single).abs().max())
+        rdiff = (gimg - acc["img_g"]).abs()
+        out = float((rdiff > 3e-3).float().mean())
+        check(gdiff == 0.0 and out <= 0.005 and float(rdiff.max()) <= 0.05,
+              f"sharded grid frame: {gdiff} against the single process, "
+              f"{out:.4%} beyond 3e-3 against the Renderer")
+        print(f"sharded grid frame: max difference {gdiff:.1e} to "
+              f"render_from_samples(inter=accel_intersectors(CudaGrid)); "
+              f"against the Renderer's route (K9 + K7, block-permuted "
+              f"tiles) {out:.4%} of elements beyond 3e-3, max diff "
+              f"{float(rdiff.max()):.4f}; {gsecs:.4f} s  PASS")
+
+        rows = grid["band"].time.shape[0]
+        step = make_sharded_train_step(gcfg, mesh, rows, lr=grid["rate"],
+                                       update_leaves=("mat_cd",),
+                                       accel=g.tabs)
+        (loss, _), _, ssecs = counted(
+            "make_sharded_train_step, the grid band (world size 1, NCCL)",
+            lambda: step(dataclasses.replace(g.scene, mat_cd=grid["start"]),
+                         grid["band"], grid["target"]), {"K7": True})
+        rel = abs(float(loss) - grid["loss0"]) / grid["loss0"]
+        check(rel <= 1e-6, f"sharded step loss {float(loss)} vs phase 9's "
+              f"step 0 {grid['loss0']} (rel {rel:.3e})")
+        buf = torch.zeros(1 + g.scene.mat_cd.numel(), device=mesh.device)
+        ar_ms = timed_ms(torch, lambda: dist.all_reduce(buf), 20)
+        print(f"sharded grid step: loss {float(loss):.6e} vs phase 9's step "
+              f"0 {grid['loss0']:.6e} (rel {rel:.1e}), {ssecs:.4f} s "
+              f"(phase 9's step 0 {grid['step0_s']:.4f} s); all_reduce of "
+              f"its {buf.numel()} floats {ar_ms:.4f} ms (CUDA events, 20 "
+              f"calls) | {card}  PASS")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
 
 
 def main():
@@ -3065,6 +3335,13 @@ def main():
     # ---- 9. gradients: inverse-rendering steps on the K1/K2 route ----
     phase("9 (gradients)")
     grad_phase(torch, card, counted, r.scene, cfg, samples)
+    phase("9 (grid gradients)")
+    grid9 = grid_grad_phase(torch, card, counted, acc)
+
+    # ---- 10. row sharding at world size 1 on NCCL ----
+    phase("10 (sharded)")
+    sharded_phase(torch, card, counted,
+                  (r, cfg, samples, img, main_runs["K3"]), acc, grid9)
 
     phase("end")
     print(json.dumps({"kernels": rows}))

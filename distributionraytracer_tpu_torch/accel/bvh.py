@@ -18,8 +18,18 @@ jump to ``skip``) or one object of its leaf.  Reference semantics kept
 ``t := 0`` fix, shadow any-hit ``t <= dist + EPSILON`` (or the grid's strict
 ``t < dist``) with a per-lane stop, shadow rays at time 0, no shadow
 self-exclusion.  Objects of a leaf are tested in DFS order with a strict
-``<``, so the first object wins a tie.  The stack traversal
-(``make_bvh_intersectors``) is not ported yet.
+``<``, so the first object wins a tie.
+
+The JAX package's XLA traversals, in plain torch on any device (the route
+``RenderConfig(accel_backend='traversal')`` selects, and the differentiable
+base of ``parallel.mesh.accel_intersectors`` on a :class:`ThreadedBVH`):
+
+- :func:`make_threaded_intersectors`: the stackless walk of the *full*
+  (uncollapsed) threaded tree, :func:`threaded_walk` over its K8-layout
+  tables;
+- :func:`make_bvh_intersectors`: the reference's stack walk
+  (bvh.cpp:231-391) with near-child-first order and pruned pops, a
+  cross-check that only tests use.
 """
 
 from __future__ import annotations
@@ -40,6 +50,7 @@ from distributionraytracer_tpu_torch.scene.types import (
     OBJ_BOX, OBJ_PLANE, OBJ_SPHERE, OBJ_TRIANGLE, SceneData,
 )
 
+STACK_SIZE = 64
 LEAF_THRESHOLD = 2
 BUCKETS = 12
 
@@ -460,3 +471,155 @@ def hit_result(t, normal, gid, mats) -> HitResult:
                                                                     FLT_MAX)),
                      normal=normal, obj_id=gid,
                      mat_id=mats[torch.clamp(gid, min=0).long()])
+
+
+# ------------------------------------------------------ XLA-shaped traversals
+def make_threaded_intersectors(scene: SceneData, tb: ThreadedBVH,
+                               motion_blur: bool = False):
+    """The stackless walk of the full threaded tree ``tb`` in plain torch:
+    :func:`threaded_walk` (closest hits pruned by ``entry_t < best_t``,
+    shadows ``t <= dist + EPSILON``, no self-exclusion) over ``tb`` packed
+    in K8's layout with no leaf collapse, on the scene's device."""
+    from distributionraytracer_tpu_torch.accel.cuda_bvh import (
+        pack_threaded, packet_intersectors,
+    )
+    tabs = pack_threaded(scene, tb).to(scene.device)
+    return packet_intersectors(scene, tabs, motion_blur, plain=True)
+
+
+def make_bvh_intersectors(scene: SceneData, bvh: BVHArrays,
+                          motion_blur: bool = False):
+    """The reference's stack traversal (bvh.cpp:231-391), batched over rays
+    with each finished lane frozen, as the JAX package's vmapped
+    ``while_loop`` is: near child first (closest: ``tL < tR``; shadow:
+    ``tL <= tR``), the far child pushed on a 64-entry stack with its entry
+    t, pops pruned by ``t < best_t`` (closest) and a shadow lane stopping
+    at its first ``t <= dist + EPSILON``.  ``valid`` is ignored."""
+    from distributionraytracer_tpu_torch.integrator.whitted import (
+        Intersectors,
+    )
+    dev = scene.device
+    as_t = lambda a, dt: torch.as_tensor(np.asarray(a), dtype=dt,
+                                         device=dev)
+    nmin = as_t(bvh.node_min, torch.float32)
+    nmax = as_t(bvh.node_max, torch.float32)
+    nleaf = as_t(bvh.node_leaf, torch.bool)
+    nindex = as_t(bvh.node_index, torch.int64)
+    nnobjs = as_t(bvh.node_nobjs, torch.int64)
+    oorder = as_t(bvh.obj_order, torch.int64)
+    data, types, mats = scene.packed_objects()
+    n_nodes = nmin.shape[0]
+    max_leaf = int(nnobjs.max()) if n_nodes else 0
+    # each step enters a new node or finishes a leaf and pops: a walk
+    # visits each node at most twice
+    bound = 2 * n_nodes + 64
+
+    def _walk(o, d, time, dist=None):
+        is_shadow = dist is not None
+        R = o.shape[0]
+        inv = 1.0 / d
+        lanes = torch.arange(R, device=o.device)
+        root_ok, _ = _slab(o, inv, nmin[0], nmax[0])
+        zero = torch.zeros((R,), dtype=torch.int64, device=o.device)
+        s = dict(node=zero, sp=zero,
+                 stack_n=torch.zeros((R, STACK_SIZE), dtype=torch.int64,
+                                     device=o.device),
+                 stack_t=torch.zeros((R, STACK_SIZE), dtype=torch.float32,
+                                     device=o.device),
+                 best_t=torch.full((R,), FLT_MAX, dtype=torch.float32,
+                                   device=o.device),
+                 best_n=torch.zeros((R, 3), dtype=torch.float32,
+                                    device=o.device),
+                 best_obj=zero - 1, occluded=torch.zeros_like(root_ok),
+                 active=root_ok)
+        for _ in range(bound):
+            act = s["active"]
+            if not bool(act.any()):
+                break
+            node, sp = s["node"], s["sp"]
+            leaf = nleaf[node]
+            # ---- inner node: both children's boxes ----
+            li = torch.clamp(torch.where(leaf, 1, nindex[node]), 0,
+                             max(n_nodes - 2, 0))
+            ri = torch.clamp(li + 1, max=n_nodes - 1)
+            okL, tL = _slab(o, inv, nmin[li], nmax[li])
+            okR, tR = _slab(o, inv, nmin[ri], nmax[ri])
+            both = okL & okR
+            # closest a strict <, shadow <= (bvh.cpp:261 vs 347)
+            lf = both & ((tL <= tR) if is_shadow else (tL < tR))
+            near = torch.where(lf, li, ri)
+            far = torch.where(lf, ri, li)
+            far_t = torch.where(lf, tR, tL)
+            next_inner = torch.where(both, near, torch.where(okL, li, ri))
+            descend = (both | (okL ^ okR)) & ~leaf
+            push = both & ~leaf & (sp < STACK_SIZE)  # a full stack drops it
+            slot = torch.clamp(sp, max=STACK_SIZE - 1)
+            stack_n, stack_t = s["stack_n"].clone(), s["stack_t"].clone()
+            stack_n[lanes, slot] = torch.where(push, far,
+                                               stack_n[lanes, slot])
+            stack_t[lanes, slot] = torch.where(push, far_t,
+                                               stack_t[lanes, slot])
+            sp2 = torch.where(both & ~leaf, sp + 1, sp)
+            # ---- leaf: its objects in order ----
+            bt, bn, bo, occ = (s["best_t"], s["best_n"], s["best_obj"],
+                               s["occluded"])
+            nobj, first = nnobjs[node], nindex[node]
+            for i in range(max_leaf):
+                m = leaf & (i < nobj)
+                gid = oorder[torch.clamp(first + i, 0, oorder.shape[0] - 1)]
+                t, nrm = hit_packed(o, d, time, data[gid], types[gid],
+                                    motion_blur)
+                if is_shadow:
+                    occ = occ | (m & (t <= dist + EPSILON))
+                    continue
+                better = m & (t < bt)
+                bt = torch.where(better, t, bt)
+                bn = torch.where(better[:, None], nrm, bn)
+                bo = torch.where(better, gid, bo)
+            # ---- pop: after a leaf, or an inner node with no child hit;
+            # closest pops skip entries with t >= best_t (bvh.cpp:299-311)
+            need_pop = leaf | ~descend
+            psp, pnode, found = sp2, node, ~need_pop
+            while True:
+                go = ~found & (psp > 0)
+                if not bool(go.any()):
+                    break
+                top = torch.clamp(psp - 1, 0, STACK_SIZE - 1)
+                cand = stack_n[lanes, top]
+                good = (torch.ones_like(go) if is_shadow
+                        else stack_t[lanes, top] < bt)
+                psp = torch.where(go, psp - 1, psp)
+                pnode = torch.where(go & good, cand, pnode)
+                found = torch.where(go, good, found)
+            new = dict(node=torch.where(need_pop, pnode,
+                                        torch.where(leaf, node, next_inner)),
+                       sp=torch.where(need_pop, psp, sp2),
+                       stack_n=stack_n, stack_t=stack_t, best_t=bt,
+                       best_n=bn, best_obj=bo, occluded=occ)
+            done = need_pop & ~found
+            if is_shadow:
+                done = done | occ
+            new["active"] = act & ~done
+            s = {k: torch.where(act.reshape((-1,) + (1,) * (v.dim() - 1)),
+                                v, s[k]) for k, v in new.items()}
+        else:
+            raise RuntimeError("stack BVH walk did not end")
+        if is_shadow:
+            return s["occluded"]
+        hit = s["best_obj"] >= 0
+        return (hit, torch.where(hit, s["best_t"],
+                                 torch.full_like(s["best_t"], FLT_MAX)),
+                s["best_n"], s["best_obj"])
+
+    def closest(o, d, time, valid=None):
+        del valid  # the per-ray walk answers every lane
+        hit, t, nrm, gid = _walk(o, d, time)
+        return HitResult(hit=hit, t=t, normal=nrm,
+                         obj_id=gid.to(torch.int32),
+                         mat_id=mats[torch.clamp(gid, min=0)])
+
+    def shadow(o, d, dist, exclude_obj, valid=None):
+        del exclude_obj, valid  # no self-exclusion (bvh.cpp:376)
+        return _walk(o, d, torch.zeros_like(dist), dist=dist)
+
+    return Intersectors(closest, shadow)

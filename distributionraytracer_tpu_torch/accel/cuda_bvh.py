@@ -57,9 +57,9 @@ def reset_launches():
 def packed_objects_np(scene: SceneData):
     """NumPy copies of ``scene.packed_objects()``: (O,12) f32 data, (O,)
     i32 types, (O,) i32 materials."""
-    data, types, mats = scene.packed_objects()
-    return (data.cpu().numpy(), types.cpu().numpy().astype(np.int32),
-            mats.cpu().numpy().astype(np.int32))
+    data, types, mats = (x.detach().cpu().numpy()
+                         for x in scene.packed_objects())
+    return data, types.astype(np.int32), mats.astype(np.int32)
 
 
 def pack_threaded(scene: SceneData, tb: ThreadedBVH) -> PacketTables:

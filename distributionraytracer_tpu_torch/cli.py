@@ -10,7 +10,13 @@ prints the wall-clock (main.cpp:968-1111).  Here:
         [--spp N] [--motion-blur] [--progressive N] [--seed S]
 
 A grid or BVH scene prints its accel build (cells or nodes, seconds, which
-builder) before its backend.
+builder) before its backend.  ``render --sharded`` shards the pixel rows
+over a ``torch.distributed`` group, one process a card (``torchrun
+--nproc-per-node N -m distributionraytracer_tpu_torch render ... --sharded``
+with ``DRT_DISTRIBUTED=1``, or ``DRT_COORDINATOR``/``DRT_NUM_PROCESSES``/
+``DRT_PROCESS_ID``); without one it runs at world size 1, on a group it
+makes itself from a ``file://`` store in a temporary directory.  Rank 0
+writes the image.
 
     python -m distributionraytracer_tpu_torch pathtrace --scene 0 \\
         -o PT_Output.png --res 800 600 --spp 16 [--bounces 10]
@@ -21,6 +27,9 @@ Both run on the card (``--device cuda``) unless ``--device cpu`` is given.
 from __future__ import annotations
 
 import argparse
+import os
+import shutil
+import tempfile
 import time
 
 
@@ -63,6 +72,9 @@ def _cmd_render(args):
         cfg = cfg.replace(spp=args.spp)
     if args.motion_blur:
         cfg = cfg.replace(motion_blur=True)
+    if args.sharded:
+        _render_sharded(args, scene, cfg, device)
+        return
     r = Renderer(scene, cfg, device=device, verbose=True)  # grid/BVH build
     print(f"backend: {r.executed_backend()}")
     gen = torch.Generator(device=device).manual_seed(args.seed)
@@ -85,6 +97,47 @@ def _cmd_render(args):
               "call, kernel build included)")
     write_png(args.output, img)
     print(f"Image file created: {args.output}")
+
+
+def _render_sharded(args, scene, cfg, device):
+    """Pixel rows over the process group, the accel tables replicated (the
+    multi-process analogue of main.cpp:603's OpenMP loop)."""
+    import torch
+    import torch.distributed as dist
+
+    from distributionraytracer_tpu_torch.parallel.mesh import (
+        init_file_group, make_row_mesh, render_image_sharded,
+    )
+    from distributionraytracer_tpu_torch.renderer import build_accel
+    from distributionraytracer_tpu_torch.utils.image import write_png
+
+    store = None
+    if not dist.is_initialized():
+        store = tempfile.mkdtemp(prefix="drt_group_")
+        init_file_group(device, os.path.join(store, "store"))
+    try:
+        mesh = make_row_mesh(device)
+        scene = scene.to(mesh.device)
+        tables = None
+        if scene.static.accel:
+            tables = build_accel(scene, verbose=mesh.rank == 0,
+                                 motion_blur=cfg.motion_blur,
+                                 packet_kernel=cfg.packet_kernel
+                                 ).tabs.to(mesh.device)
+        gen = torch.Generator(device=mesh.device).manual_seed(args.seed)
+        t0 = time.perf_counter()
+        img = render_image_sharded(scene, cfg, mesh, generator=gen,
+                                   accel=tables)
+        _sync(mesh.device)
+        if mesh.rank == 0:
+            print(f"sharded render over {mesh.world} process(es), backend "
+                  f"{dist.get_backend()}: {time.perf_counter() - t0:.3f}s")
+            write_png(args.output, img)
+            print(f"Image file created: {args.output}")
+    finally:
+        if store is not None:
+            dist.destroy_process_group()
+            shutil.rmtree(store, ignore_errors=True)
 
 
 # default orbit camera per GLSL scene (P3D_RT.glsl:687-735 defaults)
@@ -149,6 +202,10 @@ def main(argv=None):
     r.add_argument("--seed", type=int, default=0)
     r.add_argument("--motion-blur", action="store_true")
     r.add_argument("--progressive", type=int, default=0, metavar="FRAMES")
+    r.add_argument("--sharded", action="store_true",
+                   help="shard pixel rows over the torch.distributed group "
+                        "(torchrun with DRT_DISTRIBUTED=1, or "
+                        "DRT_COORDINATOR); world size 1 without one")
     r.add_argument("--device", default="cuda",
                    help="torch device, e.g. 'cuda' (default) or 'cpu'")
     r.set_defaults(fn=_cmd_render)
@@ -171,7 +228,19 @@ def main(argv=None):
     t.set_defaults(fn=_cmd_pathtrace)
 
     args = p.parse_args(argv)
-    args.fn(args)
+    # multi-process: before the first device query
+    import torch.distributed as dist
+
+    from distributionraytracer_tpu_torch.parallel.mesh import (
+        maybe_init_distributed,
+    )
+    started = (not dist.is_initialized()
+               and maybe_init_distributed(args.device, verbose=True))
+    try:
+        args.fn(args)
+    finally:
+        if started:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

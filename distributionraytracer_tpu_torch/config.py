@@ -3,9 +3,8 @@
 The reference drives these knobs from compile-time flags and the P3F scene
 file (main.cpp:29-39, scene.cpp:489-693).  Here they live in one frozen
 dataclass: the knobs of the Whitted/distribution path (accel NONE, grid
-and BVH) and of the GLSL path tracer, and the two gradient estimators'
-relaxation widths.  ``accel_backend`` (the JAX package's choice of its
-differentiable XLA traversals) arrives with those traversals.
+and BVH, and which of their routes runs) and of the GLSL path tracer, and
+the two gradient estimators' relaxation widths.
 """
 
 from __future__ import annotations
@@ -49,10 +48,23 @@ class RenderConfig:
                        The renderer traces these scenes in tiles of
                        ``tile_rays`` primary samples, the binned route in
                        one tile of the whole frame.
+    - ``accel_backend``: the route of grid and BVH scenes, the JAX
+                       package's ``'auto' | 'pallas' | 'xla'``:
+                       'auto' and 'kernel' take the packet and binned
+                       kernels on CUDA tensors and their plain versions on
+                       CPU ones (the routes listed in ``renderer.py``);
+                       'traversal' takes the plain torch traversals on any
+                       device, the 3D-DDA over the grid
+                       (``accel.grid.make_grid_intersectors``) and the
+                       stackless walk of the full threaded BVH
+                       (``accel.bvh.make_threaded_intersectors``).  One
+                       divergence, by design: the JAX package's 'auto'
+                       takes its XLA traversals on the CPU, the port's the
+                       kernels' plain versions, whose winners are the same.
     - ``accel_cost_threshold``: grid/BVH scenes with at most this many
                        objects (and no plane, no moving sphere) take the
-                       brute kernels with the accel's gates ('cost-brute');
-                       0 disables it.
+                       brute kernels with the accel's gates ('cost-brute';
+                       not under 'traversal'); 0 disables it.
     - ``soft_shadow``: 0 keeps the reference's hard boolean shadow gate
                        (main.cpp:383-451); > 0 replaces it with a
                        sigmoid-relaxed visibility of that width (world
@@ -82,6 +94,7 @@ class RenderConfig:
     static_prune: bool = True
     kernels: str = "auto"  # 'auto' | 'off'
     packet_kernel: str = "grouped"  # 'grouped' | 'legacy'
+    accel_backend: str = "auto"  # 'auto' | 'kernel' | 'traversal'
     accel_cost_threshold: int = 1024
     dof: bool = False
     motion_blur: bool = False
@@ -101,6 +114,8 @@ class RenderConfig:
             raise ValueError(f"bad kernels mode: {self.kernels}")
         if self.packet_kernel not in ("grouped", "legacy"):
             raise ValueError(f"bad packet_kernel: {self.packet_kernel}")
+        if self.accel_backend not in ("auto", "kernel", "traversal"):
+            raise ValueError(f"bad accel_backend: {self.accel_backend}")
         for name in ("soft_shadow", "soft_silhouette"):
             if not getattr(self, name) >= 0.0:
                 raise ValueError(f"bad {name}: {getattr(self, name)} "

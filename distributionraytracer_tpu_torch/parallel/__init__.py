@@ -1,6 +1,8 @@
-"""Training helpers (counterpart of ``distributionraytracer_tpu.parallel``).
+"""Training and sharding (counterpart of ``distributionraytracer_tpu.parallel``).
 
-Ported so far: the single-card pieces a gradient step needs
-(:mod:`parallel.mesh`: ``accel_intersectors``, ``l2_render_loss``,
-``detached``).  The sharded renders and training steps are not ported yet.
+:mod:`parallel.mesh`: ``accel_intersectors`` over every table type (the
+differentiable route with ``differentiable=True``), ``l2_render_loss``,
+``detached``, and pixel-row sharding over ``torch.distributed``
+(``maybe_init_distributed``, ``RowMesh``, ``render_image_sharded``,
+``make_sharded_train_step``).
 """

@@ -25,7 +25,10 @@ package's label:
   (``bvh-xla``, ``grid-xla``), the port by K8 (``legacy-packet``,
   ``grid-packet``);
 - ``cost-brute``: K1 and K2 with the accel's gates, for scenes of at most
-  ``accel_cost_threshold`` objects without planes or moving spheres.
+  ``accel_cost_threshold`` objects without planes or moving spheres;
+- ``grid-dda`` / ``bvh-threaded`` (``accel_backend='traversal'``, the JAX
+  package's ``grid-xla`` / ``bvh-xla``): the plain torch 3D-DDA over the
+  grid, or the stackless walk of the full threaded BVH, on any device.
 
 ``kernels='off'`` runs the plain versions on the same route.
 
@@ -47,7 +50,8 @@ import torch
 from distributionraytracer_tpu_torch import native
 from distributionraytracer_tpu_torch.accel import cuda_binned as CB
 from distributionraytracer_tpu_torch.accel.bvh import (
-    build_bvh, collapse_leaves, protect_mask, thread_bvh,
+    build_bvh, collapse_leaves, make_threaded_intersectors, protect_mask,
+    thread_bvh,
 )
 from distributionraytracer_tpu_torch.accel.cuda_bvh import (
     PACKET_LEAF, pack_threaded, packet_intersectors,
@@ -58,7 +62,9 @@ from distributionraytracer_tpu_torch.accel.cuda_grid import (
 from distributionraytracer_tpu_torch.accel.cuda_packet import (
     GROUPED_LEAF, pack_grouped,
 )
-from distributionraytracer_tpu_torch.accel.grid import build_grid
+from distributionraytracer_tpu_torch.accel.grid import (
+    build_grid, make_grid_intersectors,
+)
 from distributionraytracer_tpu_torch.config import RenderConfig
 from distributionraytracer_tpu_torch.integrator.render import (
     SampleSet, _sample_count, default_config, make_samples, progressive_init,
@@ -210,6 +216,7 @@ class Renderer:
         self.accel = scene.static.accel
         self.accel_build = None
         self.tabs = None  # PacketTables (BVH) or CudaGrid (grid)
+        self._traversal = None  # the 'traversal' route's intersectors
         if self.accel != ACCEL_NONE:
             ab = build_accel(scene, verbose=verbose,
                              motion_blur=self.cfg.motion_blur,
@@ -230,7 +237,8 @@ class Renderer:
         self._gbox = None
         self._light_bins = None
         self._primary_cache = {}
-        if self.accel == ACCEL_NONE or self.cfg.soft_shadow > 0.0:
+        if (self.accel == ACCEL_NONE or self.cfg.soft_shadow > 0.0
+                or self._traverses()):
             return
         tabs = self.tabs.tabs if self.accel == ACCEL_GRID else self.tabs
         if tabs.kind != "grouped" or not CB.binned_supported(self.scene,
@@ -258,14 +266,23 @@ class Renderer:
         pb = self._primary_cache[key]
         return None if pb is None else CB.BinSet(pb, self._light_bins)
 
+    def _traverses(self) -> bool:
+        """Whether grid/BVH frames take the plain torch traversals."""
+        return (self.accel != ACCEL_NONE
+                and self.cfg.accel_backend == "traversal")
+
     def executed_backend(self) -> str:
         """The route a render of the scene's own frame takes, by the
         routing predicates themselves (the binned prefix only where the
         frame's bins build), labelled as the JAX package labels it; the
-        trees it walks by XLA (``bvh-xla``, ``grid-xla``) take K8 here."""
+        trees it walks by XLA (``bvh-xla``, ``grid-xla``) take K8 here.
+        ``accel_backend='traversal'`` gives ``grid-dda`` / ``bvh-threaded``
+        (the JAX package's ``grid-xla`` / ``bvh-xla``)."""
         cfg, st = self.cfg, self.scene.static
         if self.accel == ACCEL_NONE:
             return level_route(self.scene, cfg)
+        if self._traverses():
+            return "grid-dda" if self.accel == ACCEL_GRID else "bvh-threaded"
         if _use_cost_brute(self.scene, cfg):
             return "cost-brute"
         bins = self._bins_for(st.res_y, st.res_x,
@@ -281,6 +298,14 @@ class Renderer:
         """The frame's intersectors and the tile size they take."""
         sc, cfg = self.scene, self.cfg
         mb, plain = cfg.motion_blur, cfg.kernels == "off"
+        if self._traverses():
+            if self._traversal is None:
+                host = self.accel_build.host
+                self._traversal = (
+                    make_grid_intersectors(sc, host, mb)
+                    if self.accel == ACCEL_GRID
+                    else make_threaded_intersectors(sc, host, mb))
+            return self._traversal, cfg.tile_rays
         if self.accel == ACCEL_GRID:
             if bins is not None:
                 return (make_cuda_grid_intersectors(sc, self.tabs, mb, bins,
@@ -306,7 +331,7 @@ class Renderer:
             return render_from_samples(self.scene, self.cfg, samples,
                                        return_rays=return_rays)
         bins = None
-        if not _use_cost_brute(self.scene, self.cfg):
+        if not (_use_cost_brute(self.scene, self.cfg) or self._traverses()):
             bins = self._bins_for(*samples.time.shape)
         inter, tile = self._intersectors(bins)
         return render_from_samples(self.scene, self.cfg, samples, inter=inter,

@@ -1504,3 +1504,69 @@ def test_soft_estimators_match_finite_differences_on_card(dev, case):
         for fd, ad in _fd_pairs(f, getattr(scene, leaf), g, 2):
             assert abs(fd - ad) <= 0.05 * max(abs(fd), abs(ad)) + 1e-4, (
                 fd, ad)
+
+
+# ------------------------------------- grid gradient route, row sharding
+def test_grid_route_gradients_match_plain_on_card(dev):
+    """``accel_intersectors(CudaGrid, differentiable=True)``: K7 in grid
+    shadow mode under no_grad picks the winners; the loss and gradients of
+    its plain walk (``kernels='off'``, the same wrapper) and of the DDA
+    (``GridArrays``, plain torch on the card)."""
+    r = Renderer(_mesh(ACCEL_GRID, n_tri=2000, res=(64, 64)),
+                 RenderConfig(spp=1), device=dev)
+    cfg = r.cfg
+    samples = make_samples(r.scene, cfg,
+                           torch.Generator(device=dev).manual_seed(4))
+    with torch.no_grad():
+        target = render_from_samples(r.scene, cfg, samples) * 0.9
+    leaves = ("mat_cd", "sph_center", "tri_v0")
+    loss, grads, runs = _loss_and_grads(
+        r.scene, cfg, samples, target, leaves,
+        lambda sc: accel_intersectors(sc, cfg, r.tabs, differentiable=True))
+    assert runs["K7"] > 0 and sum(runs.values()) == runs["K7"], runs
+    for tables, route_cfg in ((r.tabs, cfg.replace(kernels="off")),
+                              (r.accel_build.host, cfg)):
+        ref_loss, ref_grads, ref_runs = _loss_and_grads(
+            r.scene, route_cfg, samples, target, leaves,
+            lambda sc: accel_intersectors(sc, route_cfg, tables,
+                                          differentiable=True))
+        assert sum(ref_runs.values()) == 0, ref_runs
+        assert ref_loss > 0 and abs(loss - ref_loss) <= 1e-4 * ref_loss
+        _grads_close(grads, ref_grads)
+
+
+def test_sharded_render_world_size_one_nccl(dev, tmp_path):
+    """``render_image_sharded`` on a world-size-1 NCCL group equals the
+    Renderer on accel NONE (K3, the same tiles: equal) and the
+    single-process render on a grid scene's CudaGrid tables (K7)."""
+    import torch.distributed as dist
+
+    from distributionraytracer_tpu_torch.parallel.mesh import (
+        init_file_group, make_row_mesh, render_image_sharded,
+    )
+
+    init_file_group(dev, str(tmp_path / "store"))
+    try:
+        mesh = make_row_mesh(dev)
+        assert mesh.world == 1 and dist.get_backend() == "nccl"
+        scene = create_random_scene(0, 64, 48)
+        cfg = default_config(scene, spp=4)
+        r = Renderer(scene, cfg, device=dev)
+        samples = make_samples(r.scene, cfg,
+                               torch.Generator(device=dev).manual_seed(1))
+        assert torch.equal(render_image_sharded(r.scene, cfg, mesh,
+                                                samples=samples),
+                           r.render_with_samples(samples))
+        g = Renderer(_mesh(ACCEL_GRID, n_tri=2000, res=(64, 48)),
+                     RenderConfig(spp=0), device=dev)
+        gs = make_samples(g.scene, g.cfg,
+                          torch.Generator(device=dev).manual_seed(2))
+        _accel_reset()
+        img = render_image_sharded(g.scene, g.cfg, mesh, samples=gs,
+                                   accel=g.tabs)
+        assert _accel_launches()["K7"] > 0
+        ref = render_from_samples(g.scene, g.cfg, gs, inter=accel_intersectors(
+            g.scene, g.cfg, g.tabs))
+        assert torch.equal(img, ref)
+    finally:
+        dist.destroy_process_group()

@@ -182,11 +182,16 @@ def test_accel_intersectors_refusals_and_pass_through():
     assert accel_intersectors(scene, cfg, None) is None
     ab = build_accel(scene)
     assert accel_intersectors(scene, cfg, ab.tabs) is not None
-    for tables in (ab.host, build_accel(dataclasses.replace(
-            scene, static=dataclasses.replace(scene.static,
-                                              accel=ACCEL_GRID))).host):
-        with pytest.raises(NotImplementedError, match="C2"):
-            accel_intersectors(scene, cfg, tables, differentiable=True)
+    gb = build_accel(dataclasses.replace(scene, static=dataclasses.replace(
+        scene.static, accel=ACCEL_GRID)))
+    # every table type of a grid or BVH scene passes: the
+    # threaded walk, the DDA and the grid emulation
+    for tables in (ab.host, gb.host, gb.tabs):
+        for diff in (False, True):
+            assert accel_intersectors(scene, cfg, tables,
+                                      differentiable=diff) is not None
+    with pytest.raises(TypeError, match="unknown accel tables"):
+        accel_intersectors(scene, cfg, object(), differentiable=True)
 
 
 def test_l2_render_loss_and_detached():
