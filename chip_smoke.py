@@ -192,6 +192,27 @@
    slab budget of the Renderer's own K9 + K7 route over the whole frame);
    one ``make_sharded_train_step`` step on the grid band, whose loss must
    be phase 9's step 0 (rel 1e-6); an ``all_reduce``'s milliseconds.
+11. The browser viewer (``viewer.py``), both states served by
+   ``make_server(..., port=0)`` on a thread and fetched with ``urllib`` on
+   127.0.0.1: the Whitted ``ViewerState`` of ``create_random_scene(0)``
+   (800x600, spp 16 for the batch frame) and the ``PTViewerState`` of
+   scene 0 (800x600, 10 bounces, 1 spp a frame).  Each: the page and
+   ``/state``, 409 for a screenshot before any frame, 404 for an unknown
+   route, a warm-up frame at another camera, five progressive
+   ``/frame``s at the state's camera (``X-Samples`` 1 to 5), each between
+   a reset and a read of the launch counters (K3 only, 8 tiles x 5
+   levels; K6 only, 4 tiles x 10 bounces), a camera move (``X-Samples``
+   1), a batch frame, ``/screenshot?path=`` read back by ``read_png`` as
+   (600, 800, 3).  The Whitted accumulator after frame 5 must equal
+   ``Renderer.progressive_step`` at the same eye on the same generators
+   (difference 0), its first frame the same frame with
+   ``kernels='off'``: at most 0.5% of elements beyond 3e-3 and at most
+   ``LANE_BUDGET`` of the pixels (one sample a pixel: a lane that flips
+   keeps its whole difference, which 16-spp slabs average); the PT
+   accumulator must equal five ``render_pt`` calls on the same generators
+   folded by the same rule (difference 0).  Prints each request's
+   launches, the requests' median and spread and frames per second, the
+   render alone (synchronised) and ``png_bytes`` alone.
 
 Prints the kernels' JSON line, then the result line last.  Any failure
 raises, so the exit code is non-zero and no result line is printed.
@@ -2542,6 +2563,257 @@ def sharded_phase(torch, card, counted, whitted, acc, grid):
         shutil.rmtree(store, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# Slice E2: the browser viewer, served on 127.0.0.1 and fetched over HTTP
+VIEWER_FRAMES = 5  # progressive /frame requests at one camera
+
+
+def http_get(port, path):
+    """(status, body, headers, seconds) of one GET on 127.0.0.1; an HTTP
+    error's status is returned, not raised."""
+    import urllib.error
+    import urllib.request
+
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=300) as r:
+            status, body, hdrs = r.status, r.read(), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        status, body, hdrs = e.code, b"", {}
+    return status, body, hdrs, time.perf_counter() - t0
+
+
+def spread(label, secs, card, extra=""):
+    med = statistics.median(secs)
+    print(f"{label}: {' '.join(f'{s * 1e3:.2f}' for s in secs)} ms (median "
+          f"{med * 1e3:.2f}, min {min(secs) * 1e3:.2f}, max "
+          f"{max(secs) * 1e3:.2f}){extra} | {card}")
+    return med
+
+
+def serve_viewer(torch, card, counted, httpd, label, kernel, expect_runs,
+                 sync):
+    """Drive a viewer server through its routes: the page and state, 409
+    before a frame, a warm-up frame at another camera, VIEWER_FRAMES
+    progressive frames at the state's camera (each between a reset and a
+    read of the launch counters: ``kernel`` only, ``expect_runs``
+    launches), a camera move, a batch frame, a screenshot.  Returns the
+    camera, the frames' generator indices and seconds, and the
+    accumulator (mean, count) and u8 frame after the first and the last
+    progressive frame."""
+    import tempfile
+    import threading
+
+    from distributionraytracer_tpu_torch.utils.image import read_png
+
+    state = httpd.state
+    port = httpd.server_address[1]
+
+    def accumulator():
+        if hasattr(state, "prog_state"):
+            return (state.prog_state[0].clone(), float(state.prog_state[1]),
+                    state.last_rgb)
+        return state.mean.copy(), state.count, state.last_rgb
+
+    H, W = (state.renderer.scene.static.res_y,
+            state.renderer.scene.static.res_x) \
+        if hasattr(state, "renderer") else (state.res_y, state.res_x)
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    try:
+        status, page, _, _ = http_get(port, "/")
+        check(status == 200 and b"distributionraytracer_tpu_torch" in page
+              and f'width="{W}" height="{H}"'.encode() in page,
+              f"{label}: page ({status})")
+        st = json.loads(http_get(port, "/state")[1])
+        check(st["progressive"] is True and {"alpha", "beta", "r"} <= set(st),
+              f"{label}: state {st}")
+        check(http_get(port, "/screenshot")[0] == 409,
+              f"{label}: a screenshot before any frame is not a 409")
+        check(http_get(port, "/nothing")[0] == 404,
+              f"{label}: an unknown route is not a 404")
+        cam = f"alpha={st['alpha']}&beta={st['beta']}&r={st['r']}"
+        moved = f"alpha={st['alpha'] + 30.0}&beta={st['beta']}&r={st['r']}"
+        (status, _, hdrs, s_warm), _, _ = counted(
+            f"{label} /frame warm-up at another camera",
+            lambda: http_get(port, f"/frame?{moved}&progressive=1"),
+            {kernel: True})
+        check(status == 200 and float(hdrs["X-Samples"]) == 1.0,
+              f"{label}: warm-up frame {status}, {hdrs}")
+        secs, seeds, acc = [], [], {}
+        for i in range(1, VIEWER_FRAMES + 1):
+            (status, body, hdrs, s), runs, _ = counted(
+                f"{label} /frame {i}",
+                lambda: http_get(port, f"/frame?{cam}&progressive=1"),
+                {kernel: True})
+            check(status == 200 and body[:4] == b"\x89PNG"
+                  and float(hdrs["X-Samples"]) == i
+                  and hdrs["Cache-Control"] == "no-store",
+                  f"{label} /frame {i}: {status}, {hdrs}")
+            check(runs[kernel] == expect_runs, f"{label} /frame {i}: "
+                  f"{runs[kernel]} {kernel} launches, not {expect_runs}")
+            secs.append(s)
+            seeds.append(state.frame_i)
+            acc[i] = accumulator()
+        eye = state._eye()
+        (status, _, hdrs, _), _, _ = counted(
+            f"{label} /frame after a camera move",
+            lambda: http_get(port, f"/frame?{moved}&progressive=1"),
+            {kernel: True})
+        check(status == 200 and float(hdrs["X-Samples"]) == 1.0,
+              f"{label}: a camera move gave {hdrs.get('X-Samples')} samples")
+        (status, _, hdrs, s_batch), _, _ = counted(
+            f"{label} /frame progressive=0",
+            lambda: http_get(port, f"/frame?{moved}&progressive=0"),
+            {kernel: True})
+        check(status == 200, f"{label}: batch frame {status}")
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "shot.png")
+            status, body, _, _ = http_get(port, f"/screenshot?path={path}")
+            check(status == 200 and json.loads(body)["path"] == path,
+                  f"{label}: screenshot {status} {body}")
+            shot = read_png(path)
+        check(shot.shape == (H, W, 3) and shot.std() > 0.02,
+              f"{label}: screenshot {shot.shape}, std {shot.std()}")
+        print(f"{label}: page, state, 409 before a frame, 404, a warm-up "
+              f"frame ({s_warm:.4f} s), {VIEWER_FRAMES} progressive frames "
+              f"(X-Samples 1...{VIEWER_FRAMES}), a camera move (X-Samples "
+              f"1), a batch frame (X-Samples {hdrs['X-Samples']}, "
+              f"{s_batch:.4f} s), a screenshot read back as {shot.shape}  "
+              "PASS")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.join(timeout=60)
+    check(not server.is_alive(), f"{label}: the server thread did not stop")
+    sync()
+    return eye, seeds, secs, acc[1], acc[VIEWER_FRAMES]
+
+
+def viewer_phase(torch, np, card, counted, dev, scene=None,
+                 pt_res=(800, 600), sync=None):
+    """Phase 11: both viewer states served on 127.0.0.1 on ``dev`` (the
+    card; a CPU rehearsal passes its own scene, size and ``sync``)."""
+    from distributionraytracer_tpu_torch import viewer as V
+    from distributionraytracer_tpu_torch.config import RenderConfig
+    from distributionraytracer_tpu_torch.integrator import pathtracer as PT
+    from distributionraytracer_tpu_torch.integrator.render import (
+        default_config,
+    )
+    from distributionraytracer_tpu_torch.renderer import Renderer
+    from distributionraytracer_tpu_torch.scene import create_random_scene
+    from distributionraytracer_tpu_torch.utils.image import png_bytes
+
+    sync = sync or torch.cuda.synchronize
+    scene = create_random_scene(0) if scene is None else scene
+    st = scene.static
+    cfg = default_config(scene, spp=16)
+    k3_runs = -(-st.res_x * st.res_y // cfg.tile_rays) * (cfg.max_depth + 1)
+    httpd = V.make_server(scene, cfg, port=0, device=dev)
+    check(httpd.state.renderer.executed_backend() == "fused-level",
+          f"viewer route {httpd.state.renderer.executed_backend()}")
+    label = f"Whitted viewer {st.res_x}x{st.res_y}"
+    eye, seeds, secs, first, last = serve_viewer(
+        torch, card, counted, httpd, label, "K3", k3_runs, sync)
+
+    def replay(c, frames):
+        """(accumulators after each frame, seconds of each step):
+        ``Renderer.progressive_step`` at the viewer's camera on the
+        generators of ``frames``."""
+        r = Renderer(scene, c, device=dev)
+        r.scene = dataclasses.replace(
+            r.scene, cam_eye=torch.as_tensor(eye, device=r.device))
+        state, outs, steps = r.progressive_init(), [], []
+        for i in frames:
+            gen = V._frame_generator(r.device, 0, i)
+            sync()
+            t0 = time.perf_counter()
+            state = r.progressive_step(state, gen)
+            sync()
+            steps.append(time.perf_counter() - t0)
+            outs.append(state)
+        return outs, steps
+
+    outs, steps = replay(cfg, seeds)
+    plain = replay(cfg.replace(kernels="off"), seeds[:1])[0][0][0]
+    mean, count = outs[-1]
+    d5 = float((last[0] - mean).abs().max())
+    check(last[1] == float(count) == VIEWER_FRAMES and d5 == 0.0,
+          f"{label}: accumulator after {VIEWER_FRAMES} frames vs "
+          f"Renderer.progressive_step: max difference {d5}")
+    # one sample a pixel: a lane that flips at a measure-zero edge keeps its
+    # whole difference (16-spp slabs average it), so the pixels beyond 3e-3
+    # are held to the kernels' lane budget instead of a maximum
+    diff = (first[0] - plain).abs()
+    out = float((diff > 3e-3).float().mean())
+    px = (diff > 3e-3).any(-1)
+    check(out <= 0.005 and float(px.float().mean()) <= LANE_BUDGET
+          and float(plain.std()) > 0.05, f"{label}: first frame vs plain "
+          f"torch: {out:.4%} beyond 3e-3, {int(px.sum())} pixels")
+    print(f"{label}: accumulator after {VIEWER_FRAMES} frames vs "
+          f"Renderer.progressive_step on the same generators and eye: max "
+          f"difference {d5:.1e}; first frame vs kernels='off': {out:.4%} of "
+          f"elements beyond 3e-3, {int(px.sum())} pixels of "
+          f"{px.numel()} ({float(px.float().mean()):.2e}, lane budget "
+          f"{LANE_BUDGET:.0e}), max diff {float(diff.max()):.4f}  PASS")
+    rgb = last[2]
+    png = [timed_host(lambda: png_bytes(rgb)) for _ in range(VIEWER_FRAMES)]
+    med = spread(f"{label} /frame request, {VIEWER_FRAMES} frames", secs,
+                 card, f", {1.0 / statistics.median(secs):.2f} frames/s")
+    spread(f"{label} render (Renderer.progressive_step, synchronised)",
+           steps, card)
+    pmed = spread(f"{label} PNG encoding (png_bytes, {len(png_bytes(rgb))} "
+                  "bytes)", png, card)
+    rest = med - statistics.median(steps) - pmed
+    print(f"{label}: request - render - PNG (medians) {rest * 1e3:.2f} ms: "
+          f"the copy to the host, to_u8 and HTTP | {card}")
+
+    pcfg = RenderConfig(max_bounces=10)
+    pw, ph = pt_res
+    tiles = -(-pw * ph // pcfg.pt_tile_rays)
+    pstate = V.PTViewerState(0, pcfg, res=pt_res, chunk_spp=1, device=dev)
+    phttpd = V.make_server(None, None, 0, state=pstate)
+    plabel = f"PT viewer {pw}x{ph}"
+    peye, pseeds, psecs, _, plast = serve_viewer(
+        torch, card, counted, phttpd, plabel, "K6", tiles * pcfg.max_bounces,
+        sync)
+    mean, psteps = np.zeros((ph, pw, 3), np.float32), []
+    for i, seed in enumerate(pseeds, 1):
+        gen = V._frame_generator(pstate.device, 0, seed)
+        sync()
+        t0 = time.perf_counter()
+        img = PT.render_pt(pstate.scene, pcfg, pw, ph, gen, eye=peye,
+                           at=pstate.at, spp=1)
+        sync()
+        psteps.append(time.perf_counter() - t0)
+        mean = mean + (img.cpu().numpy() - mean) * (1 / i)
+    pd = float(np.abs(plast[0] - mean).max())
+    check(plast[1] == VIEWER_FRAMES and pd == 0.0 and mean.std() > 0.05,
+          f"{plabel}: accumulator vs {VIEWER_FRAMES} render_pt calls: max "
+          f"difference {pd}")
+    print(f"{plabel}: accumulator after {VIEWER_FRAMES} frames vs "
+          f"{VIEWER_FRAMES} render_pt calls on the same generators and eye, "
+          f"folded by the same rule: max difference {pd:.1e}  PASS")
+    prgb = plast[2]
+    ppng = [timed_host(lambda: png_bytes(prgb)) for _ in range(VIEWER_FRAMES)]
+    med = spread(f"{plabel} /frame request, {VIEWER_FRAMES} frames", psecs,
+                 card, f", {1.0 / statistics.median(psecs):.2f} frames/s")
+    spread(f"{plabel} render (render_pt, synchronised)", psteps, card)
+    pmed = spread(f"{plabel} PNG encoding (png_bytes, "
+                  f"{len(png_bytes(prgb))} bytes)", ppng, card)
+    rest = med - statistics.median(psteps) - pmed
+    print(f"{plabel}: request - render - PNG (medians) {rest * 1e3:.2f} "
+          f"ms: the copy to the host, the mean, gamma, to_u8 and HTTP | "
+          f"{card}")
+
+
+def timed_host(fn):
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
 def main():
     import numpy as np
     import torch
@@ -3342,6 +3614,10 @@ def main():
     phase("10 (sharded)")
     sharded_phase(torch, card, counted,
                   (r, cfg, samples, img, main_runs["K3"]), acc, grid9)
+
+    # ---- 11. the browser viewer over HTTP on 127.0.0.1 ----
+    phase("11 (viewer)")
+    viewer_phase(torch, np, card, counted, dev)
 
     phase("end")
     print(json.dumps({"kernels": rows}))

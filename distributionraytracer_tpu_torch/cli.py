@@ -21,7 +21,17 @@ writes the image.
     python -m distributionraytracer_tpu_torch pathtrace --scene 0 \\
         -o PT_Output.png --res 800 600 --spp 16 [--bounces 10]
 
-Both run on the card (``--device cuda``) unless ``--device cpu`` is given.
+    python -m distributionraytracer_tpu_torch view scene.p3f \\
+        [--port 8765] [--res 512 512] [--spp 1]
+    python -m distributionraytracer_tpu_torch view --pt [--pt-scene 0] \\
+        [--res 400 300] [--spp 1] [--bounces 10] [--cubemap DIR]
+
+``view`` serves the progressive browser viewer on 127.0.0.1 (open
+http://localhost:8765/): the Whitted renderer on a P3F scene, or with
+``--pt`` the path tracer on a GLSL scene.
+
+All of them run on the card (``--device cuda``) unless ``--device cpu`` is
+given.
 """
 
 from __future__ import annotations
@@ -140,6 +150,33 @@ def _render_sharded(args, scene, cfg, device):
             shutil.rmtree(store, ignore_errors=True)
 
 
+def _cmd_view(args):
+    from distributionraytracer_tpu_torch import viewer
+    from distributionraytracer_tpu_torch.config import RenderConfig
+    from distributionraytracer_tpu_torch.integrator.render import (
+        default_config,
+    )
+    from distributionraytracer_tpu_torch.scene import load_p3f
+
+    if args.pt:
+        cfg = RenderConfig(max_bounces=args.bounces)
+        viewer.serve_pt(args.pt_scene, cfg, port=args.port,
+                        res=tuple(args.res) if args.res else (400, 300),
+                        cubemap=args.cubemap, chunk_spp=args.spp or 1,
+                        device=args.device)
+        return
+    if args.scene is None:
+        raise SystemExit(
+            "view: a scene path is required unless --pt is given")
+    scene = load_p3f(args.scene)
+    if args.res:
+        scene = scene.with_resolution(*args.res)
+    cfg = default_config(scene)
+    if args.spp is not None:
+        cfg = cfg.replace(spp=args.spp)
+    viewer.serve(scene, cfg, port=args.port, device=args.device)
+
+
 # default orbit camera per GLSL scene (P3D_RT.glsl:687-735 defaults)
 PT_CAMERAS = {0: ([6.0, 1.6, -6.0], [0.0, 0.5, 0.0]),
               4: ([0.0, -1.0, -2.0], [0.0, -1.0, 10.0])}
@@ -209,6 +246,27 @@ def main(argv=None):
     r.add_argument("--device", default="cuda",
                    help="torch device, e.g. 'cuda' (default) or 'cpu'")
     r.set_defaults(fn=_cmd_render)
+
+    v = sub.add_parser("view", help="interactive progressive viewer "
+                                    "(orbit camera, browser UI)")
+    v.add_argument("scene", nargs="?", default=None,
+                   help="P3F scene path (Whitted mode); omit with --pt")
+    v.add_argument("--port", type=int, default=8765)
+    v.add_argument("--res", type=int, nargs=2, default=None)
+    v.add_argument("--spp", type=int, default=None,
+                   help="Whitted: batch spp; --pt: spp per frame chunk")
+    v.add_argument("--pt", action="store_true",
+                   help="interactive progressive PATH TRACER "
+                        "(P3D_RT.html harness parity)")
+    v.add_argument("--pt-scene", type=int, default=0, choices=range(5),
+                   help="GLSL scene id for --pt")
+    v.add_argument("--bounces", type=int, default=10)
+    v.add_argument("--cubemap", default=None,
+                   help="skybox dir with right/left/top/bottom/front/back.jpg"
+                        " (decoded with PIL)")
+    v.add_argument("--device", default="cuda",
+                   help="torch device, e.g. 'cuda' (default) or 'cpu'")
+    v.set_defaults(fn=_cmd_view)
 
     t = sub.add_parser("pathtrace",
                        help="Monte Carlo path trace (GLSL scenes 0-4)")

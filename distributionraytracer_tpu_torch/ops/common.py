@@ -57,3 +57,9 @@ def safe_div(a, b, eps=1e-20):
 def clamp_color(c):
     """``Color::clamp`` to [0,1] (color.h:38-43)."""
     return torch.clamp(c, 0.0, 1.0)
+
+
+def u8fromfloat(x):
+    """float -> byte with the reference's x*255.99 saturate (maths.h:126-130)."""
+    v = x * 255.99
+    return torch.where(v >= 255.0, 255, v.to(torch.uint8)).to(torch.uint8)

@@ -28,6 +28,24 @@ def unit_disk(generator: torch.Generator, shape):
     return torch.stack([r * torch.sin(phi), r * torch.cos(phi)], dim=-1)
 
 
+def unit_sphere(generator: torch.Generator, shape):
+    """Uniform inside the unit ball, polar method (common.glsl:102-108)."""
+    h = uniform(generator, tuple(shape) + (3,))
+    cos_theta = h[..., 0] * 2.0 - 1.0
+    phi = h[..., 1] * (2.0 * math.pi)
+    r = h[..., 2] ** (1.0 / 3.0)
+    sin_theta = torch.sqrt(torch.clamp(1.0 - cos_theta * cos_theta, min=0.0))
+    return r[..., None] * torch.stack(
+        [sin_theta * torch.sin(phi), sin_theta * torch.cos(phi), cos_theta],
+        dim=-1)
+
+
+def unit_vector(generator: torch.Generator, shape):
+    """Uniform direction (normalize of ball sample, common.glsl:110-113)."""
+    v = unit_sphere(generator, shape)
+    return v / torch.linalg.norm(v, dim=-1, keepdim=True)
+
+
 def stratified_jitter(generator: torch.Generator, spp: int, shape):
     """n x n stratified jittered samples in [0,1)^2 (main.cpp:626-633).
 

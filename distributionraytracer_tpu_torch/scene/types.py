@@ -34,6 +34,10 @@ OBJ_TRIANGLE = 1
 OBJ_PLANE = 2
 OBJ_BOX = 3
 
+# Light types (scene.h:16)
+LIGHT_PUNCTUAL = 0
+LIGHT_QUAD = 1
+
 
 @dataclasses.dataclass(frozen=True)
 class SceneStatic:
@@ -66,6 +70,10 @@ class SceneStatic:
     # static ray-tree pruning facts (some material has T == 1 / Ks > 0)
     any_refr: bool = True
     any_refl: bool = True
+
+    @property
+    def has_dof(self) -> bool:
+        return self.aperture_ratio != 0.0
 
 
 @dataclasses.dataclass

@@ -27,21 +27,27 @@ def _chunk(tag: bytes, data: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
 
-def write_png(path: str, img):
-    """img: (H, W, 3) float in [0,1], row 0 at the bottom."""
-    if hasattr(img, "detach"):
-        img = img.detach().cpu().numpy()
-    rgb = to_u8(np.asarray(img))[::-1]
+def png_bytes(rgb_u8: np.ndarray) -> bytes:
+    """PNG file bytes of an (H, W, 3) u8 image whose row 0 is the bottom
+    scanline (flipped here, as the viewer's frames are)."""
+    rgb = np.asarray(rgb_u8, np.uint8)[::-1]
     h, w, c = rgb.shape
     if c != 3:
         raise ValueError(f"expected (H, W, 3), got {rgb.shape}")
     raw = np.concatenate([np.zeros((h, 1), np.uint8),
                           rgb.reshape(h, w * 3)], axis=1).tobytes()
+    return b"".join((
+        _SIG, _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)),
+        _chunk(b"IDAT", zlib.compress(raw, 6)), _chunk(b"IEND", b"")))
+
+
+def write_png(path: str, img):
+    """img: (H, W, 3) float in [0,1], row 0 at the bottom."""
+    if hasattr(img, "detach"):
+        img = img.detach().cpu().numpy()
+    data = png_bytes(to_u8(np.asarray(img)))
     with open(path, "wb") as f:
-        f.write(_SIG)
-        f.write(_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
-        f.write(_chunk(b"IDAT", zlib.compress(raw, 6)))
-        f.write(_chunk(b"IEND", b""))
+        f.write(data)
 
 
 def _unfilter(raw: bytes, h: int, w: int) -> np.ndarray:

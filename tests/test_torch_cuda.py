@@ -1570,3 +1570,29 @@ def test_sharded_render_world_size_one_nccl(dev, tmp_path):
         assert torch.equal(img, ref)
     finally:
         dist.destroy_process_group()
+
+
+def test_viewer_progressive_frames_launch_k3(dev):
+    """A 32x24 Whitted ViewerState on the card: two progressive frames at
+    one camera, each launching K3 (and no K1/K2), and at most 0.5% of the
+    elements beyond 3e-3 of the same frames on plain torch (one sample a
+    pixel: a lane that flips at an edge keeps its whole difference, so no
+    maximum is held)."""
+    from distributionraytracer_tpu_torch import viewer as V
+
+    scene = create_random_scene(0, 32, 24)
+    cfg = default_config(scene)
+    st = V.ViewerState(scene, cfg, device="cuda")
+    plain = V.ViewerState(scene, cfg.replace(kernels="off"), device="cuda")
+    assert st.renderer.executed_backend() == "fused-level"
+    for i in (1, 2):
+        CI.reset_launches()
+        CW.reset_launches()
+        rgb, n = st.frame(st.alpha0, st.beta0, st.r0, True)
+        assert n == float(i) and rgb.shape == (24, 32, 3)
+        assert CW.LAUNCHES["fused_level"] > 0
+        assert CI.LAUNCHES["closest_hit"] == CI.LAUNCHES["any_hit"] == 0
+        plain.frame(st.alpha0, st.beta0, st.r0, True)
+    diff = (st.prog_state[0] - plain.prog_state[0]).abs()
+    assert float((diff > 3e-3).float().mean()) <= 0.005
+    assert float(st.prog_state[0].std()) > 0.05

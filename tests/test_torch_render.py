@@ -233,7 +233,7 @@ def test_port_imports_without_jax():
         "for m in ('ops.cuda_whitted', 'ops.cuda_pt', 'ops.cubemap',\n"
         "          'integrator.pathtracer', 'scene.pt_scenes', 'native',\n"
         "          'accel.cuda_packet', 'accel.cuda_binned',\n"
-        "          'parallel.mesh'):\n"
+        "          'parallel.mesh', 'viewer'):\n"
         "    assert 'distributionraytracer_tpu_torch.' + m in sys.modules\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)
