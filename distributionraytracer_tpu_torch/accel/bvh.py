@@ -49,6 +49,7 @@ from distributionraytracer_tpu_torch.ops.intersect import (
 from distributionraytracer_tpu_torch.scene.types import (
     OBJ_BOX, OBJ_PLANE, OBJ_SPHERE, OBJ_TRIANGLE, SceneData,
 )
+from distributionraytracer_tpu_torch.utils import spans
 
 STACK_SIZE = 64
 LEAF_THRESHOLD = 2
@@ -534,6 +535,7 @@ def make_bvh_intersectors(scene: SceneData, bvh: BVHArrays,
                  active=root_ok)
         for _ in range(bound):
             act = s["active"]
+            spans.host_read(act)
             if not bool(act.any()):
                 break
             node, sp = s["node"], s["sp"]
@@ -582,6 +584,7 @@ def make_bvh_intersectors(scene: SceneData, bvh: BVHArrays,
             psp, pnode, found = sp2, node, ~need_pop
             while True:
                 go = ~found & (psp > 0)
+                spans.host_read(go)
                 if not bool(go.any()):
                     break
                 top = torch.clamp(psp - 1, 0, STACK_SIZE - 1)

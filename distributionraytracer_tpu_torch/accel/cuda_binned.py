@@ -70,6 +70,7 @@ from distributionraytracer_tpu_torch.ops.intersect import hit_packed
 from distributionraytracer_tpu_torch.scene.types import (
     ACCEL_GRID, OBJ_BOX, OBJ_PLANE, OBJ_SPHERE, OBJ_TRIANGLE, SceneData,
 )
+from distributionraytracer_tpu_torch.utils import spans
 
 LANES = 128  # rays per chain
 GROUP = 8  # object slots per group
@@ -119,6 +120,7 @@ def group_boxes(scene: SceneData, tabs: PacketTables) -> np.ndarray:
 def _host_camera(scene: SceneData):
     """NumPy float64 twin of scene.types.derive_camera (camera.h:44-57)."""
     st = scene.static
+    spans.host_read(scene.cam_eye, 3)
     g = lambda a: a.detach().cpu().numpy().astype(np.float64)
     eye, at, up = g(scene.cam_eye), g(scene.cam_at), g(scene.cam_up)
     n = eye - at

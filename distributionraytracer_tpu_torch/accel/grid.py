@@ -46,6 +46,7 @@ from distributionraytracer_tpu_torch.ops.intersect import (
 from distributionraytracer_tpu_torch.scene.types import (
     OBJ_BOX, OBJ_PLANE, OBJ_SPHERE, OBJ_TRIANGLE, SceneData,
 )
+from distributionraytracer_tpu_torch.utils import spans
 
 
 def _np(a) -> np.ndarray:
@@ -358,6 +359,7 @@ def make_grid_intersectors(scene: SceneData, grid: GridArrays,
         done = []  # (lanes, state) of lanes that dropped out, all final
         for it in range(max_iters):
             if it % CHECK_EVERY == 0:
+                spans.host_read(s["active"])  # nonzero reads its size
                 live = torch.nonzero(s["active"]).squeeze(1)
                 if live.numel() == 0:
                     break
@@ -528,6 +530,7 @@ def make_grid_scalar_intersectors(scene: SceneData, grid: GridArrays,
                  occluded=~ok, active=ok, found=torch.zeros_like(ok))
         for _ in range(bound):
             act = s["active"]
+            spans.host_read(act)
             if not bool(act.any()):
                 break
             has_obj = s["ptr"] < s["end"]

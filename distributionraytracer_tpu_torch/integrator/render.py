@@ -36,6 +36,7 @@ from distributionraytracer_tpu_torch.ops.camera import (
 from distributionraytracer_tpu_torch.scene.types import (
     SceneData, derive_camera,
 )
+from distributionraytracer_tpu_torch.utils import spans
 
 
 @dataclasses.dataclass
@@ -126,6 +127,7 @@ def _rays_from_samples(scene: SceneData, cfg: RenderConfig,
     H, W, S = samples.time.shape
     dev = samples.time.device
     cam = derive_camera(scene)
+    spans.count("tables.builds.pixel_grid")
     xy = np.stack(np.meshgrid(np.arange(W, dtype=np.float32),
                               np.arange(H, dtype=np.float32),
                               indexing="xy"), axis=-1)  # (H,W,2) = (x,y)
@@ -180,9 +182,10 @@ def render_from_samples(scene: SceneData, cfg: RenderConfig,
     no ``inter``, each tile goes through :func:`trace_whitted_soft`.
 
     ``return_rays=True`` also returns the exact traced-ray count (tree
-    nodes + shadow rays, the whitted.py counters) as an int64 tensor.  The
-    last tile is shorter rather than padded, so the count has no padding
-    lanes.
+    nodes + shadow rays, the whitted.py counters) as an int64 tensor; the
+    rays are counted only then (or while the recorder, ``utils.spans``,
+    is on: see :func:`trace_whitted`).  The last tile is shorter rather
+    than padded, so the count has no padding lanes.
     """
     H, W, S = samples.time.shape
     o, d, t, ls = _rays_from_samples(scene, cfg, samples, row_offset)
@@ -190,22 +193,25 @@ def render_from_samples(scene: SceneData, cfg: RenderConfig,
     perm = None
     tile = cfg.tile_rays
     if accel_tile is not None:
+        spans.count("tables.builds.block_perm")
         perm = torch.as_tensor(_block_perm(H, W, S), device=o.device).long()
         o, d, t, ls = o[perm], d[perm], t[perm], ls[perm]
         tile = accel_tile
-    colors = []
-    nrays = torch.zeros((), dtype=torch.int64, device=o.device)
+    colors, counts = [], []
     for a in range(0, n, tile):
         b = min(a + tile, n)
-        if cfg.soft_silhouette > 0.0 and inter is None:
-            color, stats = trace_whitted_soft(scene, cfg, o[a:b], d[a:b],
-                                              t[a:b], ls[a:b])
-        else:
-            color, stats = trace_whitted(scene, cfg, o[a:b], d[a:b], t[a:b],
-                                         ls[a:b], inter=inter,
-                                         fused_grid=fused_grid)
+        with spans.span("render.tile"):
+            if cfg.soft_silhouette > 0.0 and inter is None:
+                color, stats = trace_whitted_soft(
+                    scene, cfg, o[a:b], d[a:b], t[a:b], ls[a:b],
+                    count_rays=return_rays)
+            else:
+                color, stats = trace_whitted(
+                    scene, cfg, o[a:b], d[a:b], t[a:b], ls[a:b], inter=inter,
+                    fused_grid=fused_grid, count_rays=return_rays)
         colors.append(color)
-        nrays += stats["rays_traced"] + stats["shadow_rays"]
+        if return_rays:
+            counts += [stats["rays_traced"], stats["shadow_rays"]]
     colors = torch.cat(colors)
     if perm is not None:
         inv = torch.empty_like(perm)
@@ -213,7 +219,7 @@ def render_from_samples(scene: SceneData, cfg: RenderConfig,
         colors = colors[inv]
     colors = colors.reshape(H, W, S, 3)
     img = colors.mean(dim=2) if average else colors
-    return (img, nrays) if return_rays else img
+    return (img, torch.stack(counts).sum()) if return_rays else img
 
 
 def render_image(scene: SceneData, cfg: Optional[RenderConfig] = None,

@@ -57,6 +57,7 @@ from distributionraytracer_tpu_torch.ops.intersect import (
 from distributionraytracer_tpu_torch.scene.types import (
     ACCEL_BVH, OBJ_BOX, OBJ_PLANE, OBJ_SPHERE, OBJ_TRIANGLE, SceneData,
 )
+from distributionraytracer_tpu_torch.utils import spans
 
 class Intersectors(NamedTuple):
     """Closest-hit / shadow functions for one accel structure.
@@ -173,14 +174,21 @@ def _shadow_terms(scene, cfg, accel, hit_p, N, light_pos, inter):
 
 def trace_whitted(scene: SceneData, cfg: RenderConfig, o, d, time,
                   light_sample, inter: Optional[Intersectors] = None,
-                  fused_grid=None):
+                  fused_grid=None, count_rays: bool = False):
     """Trace a batch of primary rays; returns (color (R,3), stats dict).
 
     ``light_sample``: (R,3) per-ray sample for quad lights (only .x/.y
     used), the ``lightSample`` argument of ``rayTracing`` (main.cpp:294).
     ``fused_grid`` (the grid's ``(bbox_min, bbox_max)``) runs each level on
     K3 in grid mode (its plain version with ``kernels='off'``).
-    The stats ``rays_traced`` and ``shadow_rays`` are int64 tensors.
+
+    The rays are counted only when someone reads the counts: with
+    ``count_rays`` the stats hold ``rays_traced`` (tree nodes) and
+    ``shadow_rays`` as int64 tensors, else they are empty; while the
+    recorder (``utils.spans``) is on, each level adds its live lanes
+    (``whitted.lanes_live``, the level's share of ``rays_traced``) and its
+    shadow rays (``whitted.shadow_rays``) to the recorder's device counts.
+    Otherwise nothing is launched to count rays.
     """
     level_tabs = None
     fused = CW.fused_level
@@ -195,6 +203,7 @@ def trace_whitted(scene: SceneData, cfg: RenderConfig, o, d, time,
             inter = brute_intersectors(scene, cfg)
     st = scene.static
     R, dev = o.shape[0], o.device
+    recording = spans.enabled()
 
     kinds = tuple(
         k for k, possible in (("refr", st.any_refr), ("refl", st.any_refl))
@@ -210,78 +219,92 @@ def trace_whitted(scene: SceneData, cfg: RenderConfig, o, d, time,
     node_ior = torch.ones((R, 1), dtype=torch.float32, device=dev)
     node_ls = light_sample[:, None, :]
     node_valid = torch.ones((R, 1), dtype=torch.bool, device=dev)
-    rays_traced = torch.zeros((), dtype=torch.int64, device=dev)
-    shadow_rays = torch.zeros((), dtype=torch.int64, device=dev)
+    live, shadows = [], []
 
     for level in range(levels):
-        depth = level + 1
-        n = node_o.shape[1]
+        with spans.span("whitted.level"):
+            depth = level + 1
+            n = node_o.shape[1]
 
-        # node-major flattening: lanes run rays-within-node
-        def flat(a, n=n):
-            return a.transpose(0, 1).reshape((R * n,) + a.shape[2:])
+            # node-major flattening: lanes run rays-within-node
+            def flat(a, n=n):
+                return a.transpose(0, 1).reshape((R * n,) + a.shape[2:])
 
-        def unflat(a, n=n):
-            return a.reshape((n, R) + a.shape[1:]).transpose(0, 1)
+            def unflat(a, n=n):
+                return a.reshape((n, R) + a.shape[1:]).transpose(0, 1)
 
-        spawn = depth <= cfg.max_depth and branching > 0
-        fv = flat(node_valid)
-        if level_tabs is not None:
-            res = fused(
-                scene, cfg, flat(node_o), flat(node_d), flat(node_t),
-                flat(node_ior), flat(node_ls), fv, spawn=spawn,
-                tables=level_tabs, grid_bbox=fused_grid)
-            hit_flags = res.pop("_hit")
-            res["miss_color"] = _miss_color(scene, flat(node_d))
-        else:
-            hit: HitResult = inter.closest(flat(node_o), flat(node_d),
-                                           flat(node_t), valid=fv)
-            res = _shade_node(scene, cfg, inter, flat(node_o), flat(node_d),
-                              flat(node_t), flat(node_ior), flat(node_ls),
-                              fv, hit, spawn_children=spawn)
-            hit_flags = hit.hit
-        cur = {k: unflat(v) for k, v in res.items()}
-        rays_traced += fv.sum()
-        shadow_rays += st.n_lights * (fv & hit_flags).sum()
+            spawn = depth <= cfg.max_depth and branching > 0
+            fv = flat(node_valid)
+            if level_tabs is not None:
+                with spans.span("whitted.intersect"):
+                    res = fused(
+                        scene, cfg, flat(node_o), flat(node_d), flat(node_t),
+                        flat(node_ior), flat(node_ls), fv, spawn=spawn,
+                        tables=level_tabs, grid_bbox=fused_grid)
+                hit_flags = res.pop("_hit")
+                res["miss_color"] = _miss_color(scene, flat(node_d))
+            else:
+                with spans.span("whitted.intersect"):
+                    hit: HitResult = inter.closest(
+                        flat(node_o), flat(node_d), flat(node_t), valid=fv)
+                res = _shade_node(scene, cfg, inter, flat(node_o),
+                                  flat(node_d), flat(node_t), flat(node_ior),
+                                  flat(node_ls), fv, hit,
+                                  spawn_children=spawn)
+                hit_flags = hit.hit
+            cur = {k: unflat(v) for k, v in res.items()}
+            spans.count("whitted.lanes", R * n)
+            if count_rays or recording:
+                live.append(fv.sum())
+                shadows.append(st.n_lights * (fv & hit_flags).sum())
+                spans.count_device("whitted.lanes_live", live[-1])
+                spans.count_device("whitted.shadow_rays", shadows[-1])
 
-        if spawn:
-            # children: interleave the spawned kinds per node -> b*n nodes
-            def interleave(arrs):
-                if len(arrs) == 1:
-                    return arrs[0]
-                stacked = torch.stack(arrs, dim=2)  # (R, n, b, ...)
-                return stacked.reshape((R, branching * n) + arrs[0].shape[2:])
-            node_o = interleave([cur[k + "_o"] for k in kinds])
-            node_d = interleave([cur[k + "_d"] for k in kinds])
-            node_ior = interleave([cur[k + "_ior"] for k in kinds])
-            node_ls = interleave([cur["child_ls"]] * branching)
-            node_valid = interleave([cur[k + "_valid"] for k in kinds])
-            node_t = torch.zeros((R, branching * n), dtype=torch.float32,
-                                 device=dev)  # children carry time = 0
-        # keep only what the bottom-up combine reads
-        lvl.append({k: v for k, v in cur.items()
-                    if k in ("direct", "miss", "miss_color", "valid",
-                             "refr_weight", "refl_weight")})
+            if spawn:
+                # children: interleave the spawned kinds per node -> b*n
+                def interleave(arrs):
+                    if len(arrs) == 1:
+                        return arrs[0]
+                    stacked = torch.stack(arrs, dim=2)  # (R, n, b, ...)
+                    return stacked.reshape((R, branching * n)
+                                           + arrs[0].shape[2:])
+                node_o = interleave([cur[k + "_o"] for k in kinds])
+                node_d = interleave([cur[k + "_d"] for k in kinds])
+                node_ior = interleave([cur[k + "_ior"] for k in kinds])
+                node_ls = interleave([cur["child_ls"]] * branching)
+                node_valid = interleave([cur[k + "_valid"] for k in kinds])
+                node_t = torch.zeros((R, branching * n), dtype=torch.float32,
+                                     device=dev)  # children carry time = 0
+            # keep only what the bottom-up combine reads
+            lvl.append({k: v for k, v in cur.items()
+                        if k in ("direct", "miss", "miss_color", "valid",
+                                 "refr_weight", "refl_weight")})
 
     # ---------------- bottom-up combine ----------------
-    child_color = None
-    for level in reversed(range(levels)):
-        cur = lvl[level]
-        if child_color is None:
-            color = cur["direct"]
-        else:
-            acc = cur["direct"]
-            for ci, k in enumerate(kinds):
-                acc = acc + (clamp_color(child_color[:, ci::branching])
-                             * cur[k + "_weight"])
-            color = clamp_color(acc)
-        color = torch.where(cur["miss"][..., None], cur["miss_color"], color)
-        color = torch.where(cur["valid"][..., None], color,
-                            torch.zeros((), dtype=color.dtype, device=dev))
-        child_color = color
+    with spans.span("whitted.combine"):
+        child_color = None
+        for level in reversed(range(levels)):
+            cur = lvl[level]
+            if child_color is None:
+                color = cur["direct"]
+            else:
+                acc = cur["direct"]
+                for ci, k in enumerate(kinds):
+                    acc = acc + (clamp_color(child_color[:, ci::branching])
+                                 * cur[k + "_weight"])
+                color = clamp_color(acc)
+            color = torch.where(cur["miss"][..., None], cur["miss_color"],
+                                color)
+            color = torch.where(cur["valid"][..., None], color,
+                                torch.zeros((), dtype=color.dtype,
+                                            device=dev))
+            child_color = color
 
-    return child_color[:, 0], {"rays_traced": rays_traced,
-                               "shadow_rays": shadow_rays}
+    stats = {}
+    if count_rays:
+        stats = {"rays_traced": torch.stack(live).sum(),
+                 "shadow_rays": torch.stack(shadows).sum()}
+    return child_color[:, 0], stats
 
 
 def _miss_color(scene: SceneData, d):
@@ -503,7 +526,7 @@ def _near_sphere(scene: SceneData, o, d, time, motion_blur: bool):
 
 
 def trace_whitted_soft(scene: SceneData, cfg: RenderConfig, o, d, time,
-                       light_sample):
+                       light_sample, count_rays: bool = False):
     """Silhouette-aware trace: per ray, pick a silhouette candidate (the
     winning primitive, or, when the winner is a plane or a miss, the
     nearest in-front sphere closer than the winner, so that a sphere behind
@@ -523,7 +546,8 @@ def trace_whitted_soft(scene: SceneData, cfg: RenderConfig, o, d, time,
     as the JAX package forces ``pallas='off'``), ~2x a hard forward.
     Winner triangles and boxes get the inside half of the ramp only.  The
     candidate is forced and excluded on the primary level only: child rays
-    trace the full scene.  The statistics are ``c_with``'s trace's.
+    trace the full scene.  The statistics are ``c_with``'s trace's
+    (``count_rays`` as in :func:`trace_whitted`).
     """
     cfg = cfg.replace(kernels="off")
     mb, tau = cfg.motion_blur, cfg.soft_silhouette
@@ -580,7 +604,8 @@ def trace_whitted_soft(scene: SceneData, cfg: RenderConfig, o, d, time,
         return closest_hit_brute(scene, o2, d2, t2, mb, exclude_obj=cand)
 
     c1, stats = trace_whitted(scene, cfg, o, d, time, light_sample,
-                              inter=primary_first(closest_with))
+                              inter=primary_first(closest_with),
+                              count_rays=count_rays)
     c2, _ = trace_whitted(scene, cfg, o, d, time, light_sample,
                           inter=primary_first(closest_without))
     return alpha[:, None] * c1 + (1.0 - alpha[:, None]) * c2, stats

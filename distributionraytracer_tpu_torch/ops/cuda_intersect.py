@@ -31,6 +31,7 @@ from distributionraytracer_tpu_torch.ops.intersect import (
 from distributionraytracer_tpu_torch.scene.types import (
     OBJ_BOX, OBJ_PLANE, OBJ_SPHERE, OBJ_TRIANGLE, SceneData,
 )
+from distributionraytracer_tpu_torch.utils import spans
 
 ANY_HIT_MODES = {"none": 0, "grid": 1, "bvh": 2}
 
@@ -67,6 +68,7 @@ def type_runs(data, types, n_obj: int):
     is compared with; ``counts`` the number of each type of RUN_TYPES.
     Every row starts 16 bytes into the tensor times a whole number."""
     data, types = data[:n_obj], types[:n_obj]
+    spans.host_read(types, len(RUN_TYPES))  # each nonzero reads its size
     rows, ids, counts = [], [], []
     for typ, width in zip(RUN_TYPES, RUN_WIDTHS):
         k = torch.nonzero(types == typ)[:, 0]
@@ -80,6 +82,7 @@ def type_runs(data, types, n_obj: int):
 
 
 def object_tables(scene: SceneData) -> ObjectTables:
+    spans.count("tables.builds.object_tables")
     data, types, mats = scene.packed_objects()
     runs, ids, counts = type_runs(data, types, scene.static.n_objects)
     return ObjectTables(data.contiguous(), types.contiguous(),

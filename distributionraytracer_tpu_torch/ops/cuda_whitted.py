@@ -35,6 +35,7 @@ from distributionraytracer_tpu_torch.ops.intersect import (
     any_hit_brute, closest_hit_brute,
 )
 from distributionraytracer_tpu_torch.scene.types import SceneData
+from distributionraytracer_tpu_torch.utils import spans
 
 # Kernel launches since the last reset_launches(), by mode.
 LAUNCHES = {"fused_level": 0, "fused_level_grid": 0}
@@ -55,6 +56,7 @@ def fused_supported(scene: SceneData, cfg) -> bool:
 def pack_whitted_mats(scene: SceneData) -> torch.Tensor:
     """(O, 13) f32 per-OBJECT material rows: [cd3, cs3, kd, ks, kr, shine,
     T, ior, pad]."""
+    spans.count("tables.builds.pack_whitted_mats")
     _, _, mats = scene.packed_objects()
     m = mats.long()
     cols = [scene.mat_kd, scene.mat_ks, scene.mat_kr, scene.mat_shine,
@@ -75,6 +77,7 @@ class LevelTables(NamedTuple):
 
 
 def level_tables(scene: SceneData) -> LevelTables:
+    spans.count("tables.builds.level_tables")
     data, types, _ = scene.packed_objects()
     lights = torch.cat([scene.light_pos, scene.light_e1, scene.light_e2],
                        dim=1).to(torch.float32).contiguous()
@@ -221,6 +224,7 @@ def fused_level_plain(scene: SceneData, cfg, o, d, time, ior, light_sample,
 
 def grid_box(grid_bbox, device) -> torch.Tensor:
     """The grid's (bbox_min, bbox_max) as K3's (6,) f32 tensor."""
+    spans.count("tables.builds.grid_box")
     lo, hi = (torch.as_tensor(b, dtype=torch.float32).reshape(3).to(device)
               for b in grid_bbox)
     return torch.cat([lo, hi]).contiguous()

@@ -63,6 +63,7 @@ from distributionraytracer_tpu_torch.integrator.whitted import (
     Intersectors, brute_intersectors, differentiable_intersectors,
 )
 from distributionraytracer_tpu_torch.scene.types import SceneData
+from distributionraytracer_tpu_torch.utils import spans
 
 
 def detached(scene: SceneData) -> SceneData:
@@ -121,9 +122,10 @@ def l2_render_loss(scene: SceneData, cfg: RenderConfig, samples: SampleSet,
                    inter: Optional[Intersectors] = None) -> torch.Tensor:
     """Mean squared error of the render of ``samples`` against ``target``
     (H, W, 3)."""
-    img = render_from_samples(scene, cfg, samples, row_offset=row_offset,
-                              inter=inter)
-    return torch.mean((img - target) ** 2)
+    with spans.span("grad.loss"):
+        img = render_from_samples(scene, cfg, samples, row_offset=row_offset,
+                                  inter=inter)
+        return torch.mean((img - target) ** 2)
 
 
 # ------------------------------------------------------------ process groups

@@ -41,7 +41,6 @@ Usage:
 
 from __future__ import annotations
 
-import time
 from typing import Optional
 
 import numpy as np
@@ -80,6 +79,7 @@ from distributionraytracer_tpu_torch.ops.intersect import (
 from distributionraytracer_tpu_torch.scene.types import (
     ACCEL_BVH, ACCEL_GRID, ACCEL_NONE, OBJ_PLANE, OBJ_SPHERE, SceneData,
 )
+from distributionraytracer_tpu_torch.utils import spans
 
 # the JAX brute kernel's table bound: cost-brute takes no larger scene
 BRUTE_MAX_OBJECTS = 1024
@@ -172,36 +172,37 @@ def build_accel(scene: SceneData, verbose: bool = False,
     decides which objects the leaf collapse protects and whether the grid
     emulation may keep sphere boxes tight.  ``packet_kernel`` selects the
     kernel the tables are packed for (K8 takes a tree K7's packer
-    refuses)."""
+    refuses).  ``seconds`` is the ``accel.build`` span's duration."""
     st = scene.static
     builder = native.builder() if use_native else "numpy"
     out = AccelBuild(st.accel, builder=builder)
-    t0 = time.perf_counter()
-    if st.accel == ACCEL_GRID:
-        grid = build_grid(scene, use_native=use_native)
-        out.host = grid
-        out.tabs = pack_grid(scene, grid, motion_blur, packet_kernel,
-                             use_native=use_native)
-        if verbose:
-            n = grid.ncells
-            print(f"GRID: total cells = {int(n[0] * n[1] * n[2])}, "
-                  f"total objects = {st.n_objects}, ResX = {int(n[0])}, "
-                  f"ResY = {int(n[1])}, ResZ = {int(n[2])}")
-    elif st.accel == ACCEL_BVH:
-        tb = thread_bvh(build_bvh(scene, use_native=use_native))
-        prot = protect_mask(scene, motion_blur)
-        tabs = None
-        if packet_kernel == "grouped":
-            tabs = pack_grouped(scene, collapse_leaves(tb, GROUPED_LEAF,
-                                                       protect=prot))
-        if tabs is None:
-            tabs = pack_threaded(scene, collapse_leaves(tb, PACKET_LEAF,
-                                                        protect=prot))
-        out.host, out.tabs = tb, tabs
-        if verbose:
-            print(f"BVH: {tb.node_box.shape[0]} nodes over {st.n_objects} "
-                  f"objects (threaded, {tabs.kind} packet tables)")
-    out.seconds = time.perf_counter() - t0
+    with spans.timed("accel.build") as sp:
+        if st.accel == ACCEL_GRID:
+            grid = build_grid(scene, use_native=use_native)
+            out.host = grid
+            out.tabs = pack_grid(scene, grid, motion_blur, packet_kernel,
+                                 use_native=use_native)
+            if verbose:
+                n = grid.ncells
+                print(f"GRID: total cells = {int(n[0] * n[1] * n[2])}, "
+                      f"total objects = {st.n_objects}, ResX = {int(n[0])}, "
+                      f"ResY = {int(n[1])}, ResZ = {int(n[2])}")
+        elif st.accel == ACCEL_BVH:
+            tb = thread_bvh(build_bvh(scene, use_native=use_native))
+            prot = protect_mask(scene, motion_blur)
+            tabs = None
+            if packet_kernel == "grouped":
+                tabs = pack_grouped(scene, collapse_leaves(
+                    tb, GROUPED_LEAF, protect=prot))
+            if tabs is None:
+                tabs = pack_threaded(scene, collapse_leaves(
+                    tb, PACKET_LEAF, protect=prot))
+            out.host, out.tabs = tb, tabs
+            if verbose:
+                print(f"BVH: {tb.node_box.shape[0]} nodes over "
+                      f"{st.n_objects} objects (threaded, {tabs.kind} packet "
+                      "tables)")
+    out.seconds = sp.seconds
     if verbose and st.accel != ACCEL_NONE:
         print(f"accel build: {out.seconds:.2f}s ({builder} builder)")
     return out
@@ -255,15 +256,19 @@ class Renderer:
         route takes the frame).  One camera's bins are cached."""
         if self._gbox is None:
             return None
-        sc = self.scene
-        key = (H, W, S) + tuple(tuple(a.cpu().numpy().tolist())
-                                for a in (sc.cam_eye, sc.cam_at, sc.cam_up))
-        if key not in self._primary_cache:
-            pb = CB.build_primary_bins(sc, self._gbox, H, W, S)
-            self._primary_cache.clear()
-            self._primary_cache[key] = (None if pb is None
-                                        else pb.to(self.device))
-        pb = self._primary_cache[key]
+        with spans.span("render.bins"):
+            sc = self.scene
+            spans.host_read(sc.cam_eye, 3)
+            key = (H, W, S) + tuple(tuple(a.cpu().numpy().tolist())
+                                    for a in (sc.cam_eye, sc.cam_at,
+                                              sc.cam_up))
+            if key not in self._primary_cache:
+                spans.count("bins.primary_builds")
+                pb = CB.build_primary_bins(sc, self._gbox, H, W, S)
+                self._primary_cache.clear()
+                self._primary_cache[key] = (None if pb is None
+                                            else pb.to(self.device))
+            pb = self._primary_cache[key]
         return None if pb is None else CB.BinSet(pb, self._light_bins)
 
     def _traverses(self) -> bool:
@@ -326,16 +331,19 @@ class Renderer:
 
     # ------------------------------------------------------------- batch
     def render_with_samples(self, samples: SampleSet, return_rays=False):
-        samples = samples.to(self.device)
-        if self.accel == ACCEL_NONE:
+        with spans.span("render.frame"):
+            samples = samples.to(self.device)
+            if self.accel == ACCEL_NONE:
+                return render_from_samples(self.scene, self.cfg, samples,
+                                           return_rays=return_rays)
+            bins = None
+            if not (_use_cost_brute(self.scene, self.cfg)
+                    or self._traverses()):
+                bins = self._bins_for(*samples.time.shape)
+            inter, tile = self._intersectors(bins)
             return render_from_samples(self.scene, self.cfg, samples,
-                                       return_rays=return_rays)
-        bins = None
-        if not (_use_cost_brute(self.scene, self.cfg) or self._traverses()):
-            bins = self._bins_for(*samples.time.shape)
-        inter, tile = self._intersectors(bins)
-        return render_from_samples(self.scene, self.cfg, samples, inter=inter,
-                                   return_rays=return_rays, accel_tile=tile)
+                                       inter=inter, return_rays=return_rays,
+                                       accel_tile=tile)
 
     def render(self, generator: Optional[torch.Generator] = None,
                return_rays=False):

@@ -23,6 +23,8 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
+from distributionraytracer_tpu_torch.utils import spans
+
 # Acceleration structure selector (scene.h:22)
 ACCEL_NONE = 0
 ACCEL_GRID = 1
@@ -162,6 +164,7 @@ class SceneData:
         Returns ``(data (O,12) f32, types (O,) i32, mats (O,) i32)`` on the
         scene's device (one zero row when the scene has no object).
         """
+        spans.count("tables.builds.packed_objects")
         st = self.static
         dev = self.device
         O = st.n_objects

@@ -44,6 +44,7 @@ import torch
 from distributionraytracer_tpu_torch.integrator import pathtracer
 from distributionraytracer_tpu_torch.renderer import Renderer, resolve_device
 from distributionraytracer_tpu_torch.scene.pt_scenes import SCENE_BUILDERS
+from distributionraytracer_tpu_torch.utils import spans
 from distributionraytracer_tpu_torch.utils.image import png_bytes, to_u8
 
 _PAGE = """<!DOCTYPE html>
@@ -232,9 +233,12 @@ class ViewerState:
         if progressive:
             self.prog_state = rd.progressive_step(self.prog_state, gen)
             mean, count = self.prog_state
+            spans.host_read(mean, 2)
             img, n = mean.cpu().numpy(), float(count)
         else:
-            img = rd.render(gen).cpu().numpy()
+            img = rd.render(gen)
+            spans.host_read(img)
+            img = img.cpu().numpy()
             n = max(rd.cfg.spp, 1)
         self.last_rgb = to_u8(img)  # current accumulator, for /screenshot
         return self.last_rgb, n
@@ -330,7 +334,9 @@ class PTViewerState:
         gen = _frame_generator(self.device, self.seed, self.frame_i)
         img = pathtracer.render_pt(
             self.scene, self.cfg, self.res_x, self.res_y, gen,
-            eye=self._eye(), at=self.at, spp=self.chunk_spp).cpu().numpy()
+            eye=self._eye(), at=self.at, spp=self.chunk_spp)
+        spans.host_read(img)
+        img = img.cpu().numpy()
         # progressive mix(prev, color, 1/w) in LINEAR space (glsl:784-792)
         n2 = self.count + self.chunk_spp
         self.mean = self.mean + (img - self.mean) * (self.chunk_spp / n2)
@@ -375,6 +381,24 @@ def make_server(scene, cfg, port: int = 8765, state=None, device="cuda"):
             self.end_headers()
             self.wfile.write(body)
 
+        def _frame(self, q):
+            g = lambda k, d: float(q.get(k, [d])[0])
+            with spans.span("viewer.wait"):
+                state.lock.acquire()
+            try:
+                with spans.span("viewer.render"):
+                    rgb, n = state.frame(
+                        g("alpha", state.alpha), g("beta", state.beta),
+                        g("r", state.r),
+                        q.get("progressive", ["1"])[0] == "1")
+            finally:
+                state.lock.release()
+            with spans.span("viewer.png"):
+                body = png_bytes(rgb)
+            with spans.span("viewer.send"):
+                self._send(body, "image/png", [("X-Samples", str(n)),
+                                               ("Cache-Control", "no-store")])
+
         def do_GET(self):
             u = urlparse(self.path)
             if u.path == "/":
@@ -386,16 +410,8 @@ def make_server(scene, cfg, port: int = 8765, state=None, device="cuda"):
                     state.reset()
                 self._send(state.as_json().encode(), "application/json")
             elif u.path == "/frame":
-                q = parse_qs(u.query)
-                g = lambda k, d: float(q.get(k, [d])[0])
-                with state.lock:
-                    rgb, n = state.frame(
-                        g("alpha", state.alpha), g("beta", state.beta),
-                        g("r", state.r),
-                        q.get("progressive", ["1"])[0] == "1")
-                self._send(png_bytes(rgb), "image/png",
-                           [("X-Samples", str(n)),
-                            ("Cache-Control", "no-store")])
+                with spans.span("viewer.request"):
+                    self._frame(parse_qs(u.query))
             elif u.path == "/screenshot":
                 # save the current accumulator to disk, like the WebGL
                 # harness's screenshot button (P3D_RT.html:2301)
