@@ -43,7 +43,12 @@
    Rows 284:316 of each are held to a plain-torch render of the same rows
    of the same SampleSet (at most 0.5% of elements beyond 3e-3, max
    difference 0.05).  Then times FRAMES warm frames of the main path with
-   torch.cuda.synchronize and prints their spread and rays/s.
+   torch.cuda.synchronize and prints their spread and rays/s.  The main
+   path replays each tile as a CUDA graph, whose kernels no launcher call
+   counts: its K3 launches a frame (590: 118 tiles of 5 levels) are the
+   ``whitted_level_kernel`` activities in the device trace of one more
+   warm frame under ``torch.profiler`` (the frame step 8 prints), and
+   each counted run prints its graph replays beside its launches.
 6. Path traces scene 0 at 800x600, 16 spp, 10 bounces through ``render_pt``
    in two counted runs: the path tracer's main path (the fused body): K6
    only, one launch per tile and bounce; the staged body with
@@ -146,11 +151,12 @@
    staged), and the copy kernels that K1's, K2's and K5's wrappers
    launch.
 8. Profiles one more warm frame of each main path under ``torch.profiler``
-   and prints the device-busy time, the idle share and the top device
-   kernels, K3's and K6's summed time in their frames beside their
-   single-launch and per-tile times, and K7's (accelerated frame) and
-   K8's (one legacy-route frame) beside theirs; one frame of the binned+
-   and the switched-off box-ground routes, with K10's frame sum.
+   (the Whitted one is step 5's) and prints the device-busy time, the
+   idle share and the top device kernels, K3's and K6's summed time in
+   their frames beside their single-launch and per-tile times, and K7's
+   (accelerated frame) and K8's (one legacy-route frame) beside theirs;
+   one frame of the binned+ and the switched-off box-ground routes, with
+   K10's frame sum.
 9. Gradients: three inverse-rendering steps on the Whitted frame's scene
    (a 32-row band of the 800x600 spp16 frame, rows 284:316, 409,600
    samples, which bounds the autograd graph every tile of a loss keeps
@@ -185,13 +191,15 @@
    budget).
 10. Row sharding at world size 1 on an NCCL group (made from a ``file://``
    store in a temporary directory; no fallback to gloo):
-   ``render_image_sharded`` of the Whitted frame (K3 only, the main path's
-   590 launches, equal to ``Renderer.render_with_samples``: max difference
-   0) and of the grid frame on its ``CudaGrid`` tables (K7 only, equal to
-   ``render_from_samples(inter=accel_intersectors(...))``, and within the
-   slab budget of the Renderer's own K9 + K7 route over the whole frame);
-   one ``make_sharded_train_step`` step on the grid band, whose loss must
-   be phase 9's step 0 (rel 1e-6); an ``all_reduce``'s milliseconds.
+   ``render_image_sharded`` of the Whitted frame (K3 only, equal to
+   ``Renderer.render_with_samples``: max difference 0; on its own
+   ``TileGraphs``, a second frame's device trace holds the main path's 590
+   K3 launches) and of the grid frame on its ``CudaGrid`` tables (K7
+   only, equal to ``render_from_samples(inter=accel_intersectors(...))``,
+   and within the slab budget of the Renderer's own K9 + K7 route over
+   the whole frame); one ``make_sharded_train_step`` step on the grid
+   band, whose loss must be phase 9's step 0 (rel 1e-6); an
+   ``all_reduce``'s milliseconds.
 11. The browser viewer (``viewer.py``), both states served by
    ``make_server(..., port=0)`` on a thread and fetched with ``urllib`` on
    127.0.0.1: the Whitted ``ViewerState`` of ``create_random_scene(0)``
@@ -430,12 +438,12 @@ def level_breakdown(torch, dev, card, scene, cfg, samples, cmp_level=None):
         log.append((args, kw["spawn"]))
         return orig(sc, c, *args, **kw)
 
+    tb, n_obj, res = CW.level_tables(scene), scene.static.n_objects, []
     CW.fused_level = recorder
     try:
-        trace_whitted(scene, cfg, o, d, t, ls)
+        trace_whitted(scene, cfg, o, d, t, ls, tables=tb)
     finally:
         CW.fused_level = orig
-    tb, n_obj, res = CW.level_tables(scene), scene.static.n_objects, []
     for lv, ((lo, ld, lt, lior, lls, lval), spawn) in enumerate(log):
         n = lo.shape[0]
         rays = CI.ray_streams(n, lo[:, 0], lo[:, 1], lo[:, 2], ld[:, 0],
@@ -2484,7 +2492,7 @@ def sharded_phase(torch, card, counted, whitted, acc, grid):
     import torch.distributed as dist
 
     from distributionraytracer_tpu_torch.integrator.render import (
-        render_from_samples,
+        TileGraphs, render_from_samples,
     )
     from distributionraytracer_tpu_torch.parallel.mesh import (
         accel_intersectors, init_file_group, make_row_mesh,
@@ -2506,18 +2514,24 @@ def sharded_phase(torch, card, counted, whitted, acc, grid):
               f"{time.perf_counter() - t0:.2f}s to start (its first "
               "all_reduce included)")
         r, cfg, samples, ref, k3 = whitted
+        graphs = TileGraphs()
+
+        def sharded():
+            return render_image_sharded(r.scene, cfg, mesh, samples=samples,
+                                        graphs=graphs)
+
         img, runs, secs = counted(
             "render_image_sharded, Whitted frame 800x600 spp16 (world size "
-            "1, NCCL)", lambda: render_image_sharded(r.scene, cfg, mesh,
-                                                     samples=samples),
-            {"K3": True})
+            "1, NCCL)", sharded, {"K3": True})
         diff = float((img - ref).abs().max())
-        check(runs["K3"] == k3 and diff == 0.0,
-              f"sharded Whitted frame: K3 {runs['K3']} (main path {k3}), "
-              f"max difference {diff}")
-        print(f"sharded Whitted frame: {runs['K3']} K3 launches (the main "
-              f"path's {k3}), max difference to Renderer.render_with_samples "
-              f"{diff:.1e}, {secs:.4f} s  PASS")
+        sprof = profile_frame(torch, sharded, secs, "sharded Whitted frame")
+        got = kernel_sum(sprof, "whitted_level_kernel")[0]
+        check(got == k3 and diff == 0.0,
+              f"sharded Whitted frame: {got} K3 kernels in a warm frame's "
+              f"device trace (main path {k3}), max difference {diff}")
+        print(f"sharded Whitted frame: {got} K3 launches a warm frame in its "
+              f"device trace (the main path's {k3}), max difference to "
+              f"Renderer.render_with_samples {diff:.1e}, {secs:.4f} s  PASS")
 
         g, gcfg, gsamples = acc["grid"], acc["cfg"], acc["samples"]
         gimg, _, gsecs = counted(
@@ -2598,10 +2612,11 @@ def serve_viewer(torch, card, counted, httpd, label, kernel, expect_runs,
     before a frame, a warm-up frame at another camera, VIEWER_FRAMES
     progressive frames at the state's camera (each between a reset and a
     read of the launch counters: ``kernel`` only, ``expect_runs``
-    launches), a camera move, a batch frame, a screenshot.  Returns the
-    camera, the frames' generator indices and seconds, and the
-    accumulator (mean, count) and u8 frame after the first and the last
-    progressive frame."""
+    launches; on the card K3's, which replayed tile graphs launch without
+    a launcher call, are counted in the device trace of one more frame), a
+    camera move, a batch frame, a screenshot.  Returns the camera, the
+    frames' generator indices and seconds, and the accumulator (mean,
+    count) and u8 frame after the first and the last progressive frame."""
     import tempfile
     import threading
 
@@ -2642,6 +2657,8 @@ def serve_viewer(torch, card, counted, httpd, label, kernel, expect_runs,
         check(status == 200 and float(hdrs["X-Samples"]) == 1.0,
               f"{label}: warm-up frame {status}, {hdrs}")
         secs, seeds, acc = [], [], {}
+        # K3 on the card: the Renderer's tile graphs
+        graphed = kernel == "K3" and state.renderer.device.type == "cuda"
         for i in range(1, VIEWER_FRAMES + 1):
             (status, body, hdrs, s), runs, _ = counted(
                 f"{label} /frame {i}",
@@ -2651,11 +2668,21 @@ def serve_viewer(torch, card, counted, httpd, label, kernel, expect_runs,
                   and float(hdrs["X-Samples"]) == i
                   and hdrs["Cache-Control"] == "no-store",
                   f"{label} /frame {i}: {status}, {hdrs}")
-            check(runs[kernel] == expect_runs, f"{label} /frame {i}: "
-                  f"{runs[kernel]} {kernel} launches, not {expect_runs}")
+            check(graphed or runs[kernel] == expect_runs,
+                  f"{label} /frame {i}: {runs[kernel]} {kernel} launches, "
+                  f"not {expect_runs}")
             secs.append(s)
             seeds.append(state.frame_i)
             acc[i] = accumulator()
+        if graphed:
+            prof = profile_frame(
+                torch, lambda: http_get(port, f"/frame?{cam}&progressive=1"),
+                secs[-1], f"{label} /frame {VIEWER_FRAMES + 1}")
+            n = kernel_sum(prof, "whitted_level_kernel")[0]
+            check(n == expect_runs, f"{label}: {n} K3 kernels in a warm "
+                  f"frame's device trace, not {expect_runs}")
+            print(f"{label}: {n} K3 launches a warm frame in its device "
+                  f"trace ({expect_runs} expected)  PASS")
         eye = state._eye()
         (status, _, hdrs, _), _, _ = counted(
             f"{label} /frame after a camera move",
@@ -3093,15 +3120,21 @@ def main():
         counters; ``expect`` says which kernels must launch (True) and
         which must not (False)."""
         reset_launches()
+        replays = CW.GRAPHS["replays"]
         t0 = time.perf_counter()
         out = render()
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         got = launches()
-        print(f"{label}: launches {got}, {seconds:.4f} s")
+        replays = CW.GRAPHS["replays"] - replays
+        print(f"{label}: launches {got}, graph replays {replays}, "
+              f"{seconds:.4f} s")
         for k in got:
-            check((got[k] > 0) == expect.get(k, False),
-                  f"{label}: {k} launched {got[k]} times")
+            # a replayed tile graph runs K3 without a launcher call
+            ran = got[k] > 0 or (k == "K3" and replays > 0)
+            check(ran == expect.get(k, False),
+                  f"{label}: {k} launched {got[k]} times, graph replays "
+                  f"{replays}")
         return out, got, seconds
 
     scene = create_random_scene(0)
@@ -3118,7 +3151,7 @@ def main():
     slab = samples.rows(a, b)
     plain_cfg = cfg.replace(kernels="off", tile_rays=16384)
 
-    (img, nrays), main_runs, cold_s = counted(
+    (img, nrays), _, cold_s = counted(
         "Whitted main path, Renderer.render_with_samples (fused-level route)",
         lambda: r.render_with_samples(samples, return_rays=True),
         {"K3": True})
@@ -3175,6 +3208,18 @@ def main():
           f"rays/s at the median, peak {peak_gb:.2f} GiB | {card}")
     print(f"frame staged kernel route: {staged_s:.4f} s (one warm frame) | "
           f"{card}")
+    # K3's launches a frame, from the device trace: a replayed graph
+    # launches its kernels without a launcher call.  The frame without ray
+    # counts first captures its own graphs, unprofiled.
+    r.render_with_samples(samples)
+    wprof = profile_frame(torch, lambda: r.render_with_samples(samples), med,
+                          "Whitted frame")
+    main_k3 = kernel_sum(wprof, "whitted_level_kernel")[0]
+    k3_expect = -(-H * W * cfg.spp // cfg.tile_rays) * (cfg.max_depth + 1)
+    check(main_k3 == k3_expect, f"Whitted main path: {main_k3} K3 kernels "
+          f"in the device trace of a warm frame, not {k3_expect}")
+    print(f"Whitted main path: {main_k3} K3 launches a warm frame in its "
+          f"device trace ({k3_expect} expected)  PASS")
 
     # ---- 5. the path-traced frame: scene 0, 800x600, 16 spp, 10 bounces --
     phase("5")
@@ -3331,7 +3376,7 @@ def main():
     }
     route_of = {"K1": ("brute-kernel route frame", dark_runs["K1"]),
                 "K2": ("staged kernel route frame", staged_runs["K2"]),
-                "K3": ("Whitted main path frame", main_runs["K3"]),
+                "K3": ("Whitted main path frame", main_k3),
                 "K4": ("PT staged body frame", pst_runs["K4"]),
                 "K5": ("PT staged body frame", pst_runs["K5"]),
                 "K6": ("PT main path frame", pt_runs["K6"])}
@@ -3582,8 +3627,6 @@ def main():
 
     # ---- 7. profiles of one warm frame of each main path ----
     phase("8 (profiles)")
-    wprof = profile_frame(torch, lambda: r.render_with_samples(samples), med,
-                          "Whitted frame")
     pprof = profile_frame(torch, pt_frame, pmed, "PT frame")
     frame_sums(wprof, pprof, rows, levels, bounces, card)
     aprof = profile_frame(torch, lambda: acc["bvh"].render_with_samples(
@@ -3613,7 +3656,7 @@ def main():
     # ---- 10. row sharding at world size 1 on NCCL ----
     phase("10 (sharded)")
     sharded_phase(torch, card, counted,
-                  (r, cfg, samples, img, main_runs["K3"]), acc, grid9)
+                  (r, cfg, samples, img, main_k3), acc, grid9)
 
     # ---- 11. the browser viewer over HTTP on 127.0.0.1 ----
     phase("11 (viewer)")

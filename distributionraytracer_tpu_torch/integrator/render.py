@@ -14,21 +14,24 @@ PyTorch runs eagerly: the frame is traced in tiles of ``cfg.tile_rays``
 primary samples by a Python loop, which bounds the live ray-tree state.  The
 renderer's grid and BVH routes pass their own tile (``accel_tile``), and
 their rays are first grouped into square pixel blocks (:func:`_block_perm`),
-which the packet kernels and the binned route rely on.
+which the packet kernels and the binned route rely on.  On the card's
+fused-level route, a :class:`TileGraphs` replays each tile's whole
+``trace_whitted`` as one CUDA graph instead (:func:`graph_engages`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from distributionraytracer_tpu_torch.config import RenderConfig
 from distributionraytracer_tpu_torch.integrator.whitted import (
-    Intersectors, trace_whitted, trace_whitted_soft,
+    Intersectors, level_route, trace_whitted, trace_whitted_soft, tree_nodes,
 )
+from distributionraytracer_tpu_torch.ops import cuda_whitted as CW
 from distributionraytracer_tpu_torch.ops import sampling
 from distributionraytracer_tpu_torch.ops.camera import (
     primary_rays, thin_lens_rays,
@@ -168,11 +171,157 @@ def _block_perm(H: int, W: int, S: int, tile: int = 1024) -> np.ndarray:
     return (order[:, None] * S + np.arange(S)).ravel().astype(np.int32)
 
 
+def graph_engages(device_type: str, route: str, inter, fused_grid,
+                  soft_silhouette: float, needs_grad: bool,
+                  skybox: bool) -> bool:
+    """Whether a frame's tiles replay :class:`TileGraphs`: CUDA tensors on
+    the fused-level route (:func:`level_route`, with no intersectors and no
+    fused grid), hard silhouettes, no gradient being recorded through a
+    tensor that requires one (what ``ops.cuda_intersect.refuse_grad``
+    refuses), and no skybox (its lookup copies host constants to the card,
+    which a capture does not allow).  Every other frame runs its tiles
+    eagerly."""
+    return (device_type == "cuda" and route == "fused-level"
+            and inter is None and fused_grid is None
+            and soft_silhouette == 0.0 and not needs_grad and not skybox)
+
+
+# The scene leaves a fused-level tile reads: all but the camera's, whose
+# rays are the tile's inputs.
+_TILE_LEAVES = tuple(n for n in SceneData._LEAF_NAMES
+                    if not n.startswith("cam_"))
+
+
+def _graphs_engage(scene: SceneData, cfg: RenderConfig, rays, inter,
+                   fused_grid) -> bool:
+    """:func:`graph_engages` for a frame's rays and arguments."""
+    needs_grad = torch.is_grad_enabled() and any(
+        x.requires_grad
+        for x in (*rays, *(getattr(scene, n) for n in _TILE_LEAVES)))
+    return graph_engages(rays[0].device.type, level_route(scene, cfg),
+                         inter, fused_grid, cfg.soft_silhouette, needs_grad,
+                         scene.static.has_skybox)
+
+
+def _k3_tables(scene: SceneData, cfg: RenderConfig, inter,
+               fused_grid) -> Optional[CW.LevelTables]:
+    """The K3 tables of an eager frame whose tiles run K3 (the fused-level
+    and fused-grid routes), built once for all its tiles; else None."""
+    if inter is not None or cfg.soft_silhouette > 0.0:
+        return None
+    if fused_grid is None and level_route(scene, cfg) != "fused-level":
+        return None
+    return CW.level_tables(scene)
+
+
+class _Graph(NamedTuple):
+    graph: "torch.cuda.CUDAGraph"
+    inputs: tuple  # the static (o, d, time, light_sample) it reads
+    color: torch.Tensor  # the static (R, 3) colour it writes
+    stats: dict  # its static ray counts, when it counts rays
+    lanes: int  # tree lanes a replay traces (``whitted.lanes``)
+
+
+class TileGraphs:
+    """CUDA graphs of a tile's whole :func:`trace_whitted`, replayed for
+    every tile of a fused-level frame on the card (:func:`graph_engages`):
+    a tile then costs four input copies, one replay and one output copy
+    on the host.
+
+    A ``Renderer`` owns one, kept across its frames; every other engaged
+    frame makes its own.  It builds the scene's K3 tables
+    (``CW.level_tables``) once, and keeps them and its graphs while the
+    leaves a tile reads (``_TILE_LEAVES``) are the same tensors at the same
+    ``_version`` under the same config; else it drops the graphs and
+    builds the tables anew.  A new camera keeps both.  It holds at most
+    two graphs for each "rays counted" (``return_rays``, or the recorder
+    on): the full tile's, and one of the last, shorter tile, which a new
+    short length replaces.  A capture first runs ``trace_whitted`` eagerly
+    on a side stream, as a capture needs, then captures it; neither records
+    a span.  The graphs share one memory pool: each replay's outputs are
+    copied out before the next replay.
+    """
+
+    def __init__(self):
+        self.tables: Optional[CW.LevelTables] = None
+        self._held = None  # (cfg, static, leaves, versions) of the tables
+        self._graphs = {}  # (full tile, rays counted) -> _Graph
+        self._pool = None
+
+    def prepare(self, scene: SceneData, cfg: RenderConfig):
+        """Keep the tables and graphs for this frame, or drop the graphs
+        and build the tables anew."""
+        leaves = tuple(getattr(scene, n) for n in _TILE_LEAVES)
+        versions = tuple(x._version for x in leaves)
+        held = self._held
+        if (held is not None and held[0] == cfg and held[1] == scene.static
+                and all(a is b for a, b in zip(held[2], leaves))
+                and held[3] == versions):
+            return
+        self._graphs.clear()
+        self.tables = CW.level_tables(scene)
+        self._held = (cfg, scene.static, leaves, versions)
+
+    def _capture(self, scene, cfg, rays, counting: bool) -> _Graph:
+        inputs = tuple(x.clone() for x in rays)
+
+        def run():
+            return trace_whitted(scene, cfg, *inputs, count_rays=counting,
+                                 tables=self.tables)
+
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        main, side = torch.cuda.current_stream(), torch.cuda.Stream()
+        with spans.paused():
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                run()  # the eager warm-up a capture needs
+            main.wait_stream(side)
+            with torch.cuda.graph(graph, pool=self._pool):
+                color, stats = run()
+        CW.GRAPHS["captures"] += 1
+        spans.count("whitted.graph_captures")
+        return _Graph(graph, inputs, color, stats,
+                      inputs[0].shape[0] * tree_nodes(scene, cfg))
+
+    def trace(self, scene: SceneData, cfg: RenderConfig, rays, out,
+              count_rays: bool, full: bool):
+        """Trace one tile, ``rays`` = (o, d, time, light_sample), by its
+        graph into ``out`` (the tile's (R, 3) rows of the frame's colours);
+        ``full`` says whether it is a full tile.  Returns ``(out, stats)``,
+        the stats as :func:`trace_whitted`'s with ``count_rays`` whenever
+        the rays are counted.  Call :meth:`prepare` first, once a frame."""
+        counting = count_rays or spans.enabled()
+        key = (full, counting)
+        g = self._graphs.get(key)
+        if g is None or g.inputs[0].shape[0] != rays[0].shape[0]:
+            self._graphs.pop(key, None)
+            g = None  # a replaced graph's pool blocks serve the capture
+            g = self._graphs[key] = self._capture(scene, cfg, rays, counting)
+        for x, y in zip(g.inputs, rays):
+            x.copy_(y)
+        with spans.span("whitted.graph"):
+            g.graph.replay()
+        out.copy_(g.color)
+        CW.GRAPHS["replays"] += 1
+        spans.count("whitted.graph_replays")
+        if not counting:
+            return out, {}
+        # copies: the next replay overwrites the graph's own counts
+        stats = {k: v.clone() for k, v in g.stats.items()}
+        spans.count("whitted.lanes", g.lanes)
+        spans.count_device("whitted.lanes_live", stats["rays_traced"])
+        spans.count_device("whitted.shadow_rays", stats["shadow_rays"])
+        return out, stats
+
+
 def render_from_samples(scene: SceneData, cfg: RenderConfig,
                         samples: SampleSet, row_offset=0,
                         inter: Optional[Intersectors] = None,
                         average: bool = True, return_rays: bool = False,
-                        fused_grid=None, accel_tile: Optional[int] = None):
+                        fused_grid=None, accel_tile: Optional[int] = None,
+                        graphs: Optional[TileGraphs] = None):
     """Trace a SampleSet in tiles of ``cfg.tile_rays`` primary samples.
 
     ``accel_tile`` (the renderer's grid and BVH routes) groups the rays
@@ -180,6 +329,12 @@ def render_from_samples(scene: SceneData, cfg: RenderConfig,
     that many.  ``fused_grid`` (the grid's ``(bbox_min, bbox_max)``) runs
     every level on K3 in grid mode.  With ``cfg.soft_silhouette > 0`` and
     no ``inter``, each tile goes through :func:`trace_whitted_soft`.
+    Where :func:`graph_engages` says so, each tile is replayed as a CUDA
+    graph: by ``graphs``, kept across frames, or else by a
+    :class:`TileGraphs` of this frame's own.  The image is the eager
+    path's, bit for bit (the same kernels run in the same order on the
+    same inputs).  An eager frame on a K3 route builds the K3 tables once
+    for all its tiles.
 
     ``return_rays=True`` also returns the exact traced-ray count (tree
     nodes + shadow rays, the whitted.py counters) as an int64 tensor; the
@@ -197,22 +352,34 @@ def render_from_samples(scene: SceneData, cfg: RenderConfig,
         perm = torch.as_tensor(_block_perm(H, W, S), device=o.device).long()
         o, d, t, ls = o[perm], d[perm], t[perm], ls[perm]
         tile = accel_tile
+    graphed = _graphs_engage(scene, cfg, (o, d, t, ls), inter, fused_grid)
+    if graphed:
+        graphs = TileGraphs() if graphs is None else graphs
+        graphs.prepare(scene, cfg)
+        frame = torch.empty((n, 3), dtype=torch.float32, device=o.device)
+    else:
+        tables = _k3_tables(scene, cfg, inter, fused_grid)
     colors, counts = [], []
     for a in range(0, n, tile):
         b = min(a + tile, n)
         with spans.span("render.tile"):
-            if cfg.soft_silhouette > 0.0 and inter is None:
+            if graphed:
+                color, stats = graphs.trace(
+                    scene, cfg, (o[a:b], d[a:b], t[a:b], ls[a:b]),
+                    frame[a:b], return_rays, b - a == tile)
+            elif cfg.soft_silhouette > 0.0 and inter is None:
                 color, stats = trace_whitted_soft(
                     scene, cfg, o[a:b], d[a:b], t[a:b], ls[a:b],
                     count_rays=return_rays)
             else:
                 color, stats = trace_whitted(
                     scene, cfg, o[a:b], d[a:b], t[a:b], ls[a:b], inter=inter,
-                    fused_grid=fused_grid, count_rays=return_rays)
+                    fused_grid=fused_grid, count_rays=return_rays,
+                    tables=tables)
         colors.append(color)
         if return_rays:
             counts += [stats["rays_traced"], stats["shadow_rays"]]
-    colors = torch.cat(colors)
+    colors = frame if graphed else torch.cat(colors)
     if perm is not None:
         inv = torch.empty_like(perm)
         inv[perm] = torch.arange(n, device=perm.device)

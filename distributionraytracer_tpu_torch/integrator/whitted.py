@@ -172,9 +172,27 @@ def _shadow_terms(scene, cfg, accel, hit_p, N, light_pos, inter):
     return L, torch.ones_like(dist_true)
 
 
+def _tree_shape(scene: SceneData, cfg: RenderConfig):
+    """(kinds, levels) of the ray tree: the child kinds a node spawns
+    (statically dead ones pruned) and the number of levels."""
+    st = scene.static
+    kinds = tuple(
+        k for k, possible in (("refr", st.any_refr), ("refl", st.any_refl))
+        if possible or not cfg.static_prune)
+    return kinds, (cfg.max_depth + 1) if kinds else 1
+
+
+def tree_nodes(scene: SceneData, cfg: RenderConfig) -> int:
+    """Nodes of one primary ray's tree (31 at depth 4 with both kinds):
+    ``whitted.lanes`` counts this many lanes a sample."""
+    kinds, levels = _tree_shape(scene, cfg)
+    return sum(len(kinds) ** level for level in range(levels))
+
+
 def trace_whitted(scene: SceneData, cfg: RenderConfig, o, d, time,
                   light_sample, inter: Optional[Intersectors] = None,
-                  fused_grid=None, count_rays: bool = False):
+                  fused_grid=None, count_rays: bool = False,
+                  tables: Optional[CW.LevelTables] = None):
     """Trace a batch of primary rays; returns (color (R,3), stats dict).
 
     ``light_sample``: (R,3) per-ray sample for quad lights (only .x/.y
@@ -189,27 +207,29 @@ def trace_whitted(scene: SceneData, cfg: RenderConfig, o, d, time,
     (``whitted.lanes_live``, the level's share of ``rays_traced``) and its
     shadow rays (``whitted.shadow_rays``) to the recorder's device counts.
     Otherwise nothing is launched to count rays.
+
+    The K3 routes (``fused_grid``, or no ``inter`` on the fused-level
+    route) read ``tables``, ``CW.level_tables(scene)``, which the caller
+    builds once for all its tiles.
     """
     level_tabs = None
     fused = CW.fused_level
     if inter is None:
-        if fused_grid is not None:
-            level_tabs = CW.level_tables(scene)
-            if cfg.kernels == "off":
+        if fused_grid is not None or level_route(scene, cfg) == "fused-level":
+            if tables is None:
+                raise ValueError("the K3 routes read the caller's K3 tables: "
+                                 "pass tables=CW.level_tables(scene)")
+            level_tabs = tables
+            if fused_grid is not None and cfg.kernels == "off":
                 fused = CW.fused_level_plain
-        elif level_route(scene, cfg) == "fused-level":
-            level_tabs = CW.level_tables(scene)
         else:
             inter = brute_intersectors(scene, cfg)
     st = scene.static
     R, dev = o.shape[0], o.device
     recording = spans.enabled()
 
-    kinds = tuple(
-        k for k, possible in (("refr", st.any_refr), ("refl", st.any_refl))
-        if possible or not cfg.static_prune)
+    kinds, levels = _tree_shape(scene, cfg)
     branching = len(kinds)
-    levels = (cfg.max_depth + 1) if branching else 1
 
     # ---------------- top-down expansion ----------------
     lvl = []

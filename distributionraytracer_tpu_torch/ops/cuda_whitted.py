@@ -37,8 +37,12 @@ from distributionraytracer_tpu_torch.ops.intersect import (
 from distributionraytracer_tpu_torch.scene.types import SceneData
 from distributionraytracer_tpu_torch.utils import spans
 
-# Kernel launches since the last reset_launches(), by mode.
+# Kernel launches since the last reset_launches(), by mode: calls of the
+# launcher.  A call while a CUDA graph captures records its launch into
+# the graph, and the graph's replays launch it again without a call.
 LAUNCHES = {"fused_level": 0, "fused_level_grid": 0}
+# Tile graphs captured and replayed (integrator.render.TileGraphs).
+GRAPHS = {"captures": 0, "replays": 0}
 
 
 def reset_launches():

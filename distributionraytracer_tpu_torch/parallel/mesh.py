@@ -57,7 +57,7 @@ from distributionraytracer_tpu_torch.accel.grid import (
 )
 from distributionraytracer_tpu_torch.config import RenderConfig
 from distributionraytracer_tpu_torch.integrator.render import (
-    SampleSet, make_samples, render_from_samples,
+    SampleSet, TileGraphs, make_samples, render_from_samples,
 )
 from distributionraytracer_tpu_torch.integrator.whitted import (
     Intersectors, brute_intersectors, differentiable_intersectors,
@@ -228,14 +228,17 @@ def _all_rows(part: torch.Tensor, mesh: RowMesh) -> torch.Tensor:
 def render_image_sharded(scene: SceneData, cfg: RenderConfig, mesh: RowMesh,
                          generator: Optional[torch.Generator] = None,
                          samples: Optional[SampleSet] = None, accel=None,
-                         grid_unroll: Optional[int] = None) -> torch.Tensor:
+                         grid_unroll: Optional[int] = None,
+                         graphs: Optional[TileGraphs] = None) -> torch.Tensor:
     """The full image with its rows sharded over the group: each rank
     renders its ``rows_per`` rows at ``row_offset = rank * rows_per``
     through :func:`accel_intersectors` (so accel tables take their packet,
     DDA or walk route, never brute force), the padded image is gathered on
     every rank, and the ``[:H]`` crop returned: (H, W, 3), as
     ``render_image``.  Every rank must pass the same scene, tables and
-    samples (or a generator in the same state)."""
+    samples (or a generator in the same state).  ``graphs``, this rank's
+    own, keeps the tile graphs of the fused-level route across frames
+    (``render_from_samples``)."""
     if samples is None:
         samples = make_samples(scene, cfg, generator)
     samples, H = _pad_rows(samples, mesh.world)
@@ -243,7 +246,7 @@ def render_image_sharded(scene: SceneData, cfg: RenderConfig, mesh: RowMesh,
     off = mesh.rank * rows_per
     inter = accel_intersectors(scene, cfg, accel, grid_unroll)
     part = render_from_samples(scene, cfg, samples.rows(off, off + rows_per),
-                               row_offset=off, inter=inter)
+                               row_offset=off, inter=inter, graphs=graphs)
     return _all_rows(part, mesh)[:H]
 
 

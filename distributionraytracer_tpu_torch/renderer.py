@@ -66,8 +66,9 @@ from distributionraytracer_tpu_torch.accel.grid import (
 )
 from distributionraytracer_tpu_torch.config import RenderConfig
 from distributionraytracer_tpu_torch.integrator.render import (
-    SampleSet, _sample_count, default_config, make_samples, progressive_init,
-    progressive_samples, progressive_update, render_from_samples,
+    SampleSet, TileGraphs, _sample_count, default_config, make_samples,
+    progressive_init, progressive_samples, progressive_update,
+    render_from_samples,
 )
 from distributionraytracer_tpu_torch.integrator.whitted import (
     Intersectors, level_route,
@@ -218,6 +219,9 @@ class Renderer:
         self.accel_build = None
         self.tabs = None  # PacketTables (BVH) or CudaGrid (grid)
         self._traversal = None  # the 'traversal' route's intersectors
+        # the fused-level route's K3 tables and tile graphs, kept across
+        # frames (render_from_samples decides whether they engage)
+        self._graphs = TileGraphs()
         if self.accel != ACCEL_NONE:
             ab = build_accel(scene, verbose=verbose,
                              motion_blur=self.cfg.motion_blur,
@@ -335,7 +339,8 @@ class Renderer:
             samples = samples.to(self.device)
             if self.accel == ACCEL_NONE:
                 return render_from_samples(self.scene, self.cfg, samples,
-                                           return_rays=return_rays)
+                                           return_rays=return_rays,
+                                           graphs=self._graphs)
             bins = None
             if not (_use_cost_brute(self.scene, self.cfg)
                     or self._traverses()):

@@ -25,7 +25,8 @@ spans can be laid over a device trace.
 
 Off (the default), :func:`span` returns one shared no-op context manager and
 :func:`count` and :func:`count_device` return at once: no tensor op, no
-allocation, no lock and no read from the card.
+allocation, no lock and no read from the card.  Inside :func:`paused`, the
+calling thread records as if the recorder were off.
 """
 
 from __future__ import annotations
@@ -57,7 +58,25 @@ def disable():
 
 
 def enabled() -> bool:
-    return _on
+    """Whether this thread records: the recorder is on and not
+    :func:`paused`."""
+    return _on and not getattr(_local, "paused", 0)
+
+
+class paused:
+    """A context manager under which this thread records nothing: for work
+    that is not a unit's own, such as a CUDA graph's warm-up and capture,
+    whose tensors are reused by every replay."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        _local.paused = getattr(_local, "paused", 0) + 1
+        return self
+
+    def __exit__(self, *exc):
+        _local.paused -= 1
+        return False
 
 
 class _Off:
@@ -124,7 +143,7 @@ class _Span:
 def span(name: str):
     """A context manager that records a span named ``name``; the shared
     no-op one while the recorder is off."""
-    if not _on:
+    if not enabled():
         return _OFF
     return _Span(name, True)
 
@@ -133,7 +152,7 @@ def timed(name: str) -> _Span:
     """A span that always times itself (``.seconds`` after it closes) and
     is recorded only while the recorder is on: for a duration the program
     keeps whether or not anyone traces it."""
-    return _Span(name, _on)
+    return _Span(name, enabled())
 
 
 def _unit():
@@ -143,7 +162,7 @@ def _unit():
 
 def count(name: str, n: int = 1):
     """Add the host integer ``n`` to the counter ``name`` of the open unit."""
-    if not _on:
+    if not enabled():
         return
     _counts.append((_unit(), name, int(n)))
 
@@ -152,7 +171,7 @@ def count_device(name: str, tensor):
     """Add ``tensor`` (a 0-d int64 count on the unit's device) to the
     counter ``name``; it is summed on its device and read with the unit's
     other device counts when the unit's outermost span closes."""
-    if not _on:
+    if not enabled():
         return
     stack = _state()["stack"]
     (_state()["device"] if stack else _pending).append((name, tensor))
@@ -161,7 +180,7 @@ def count_device(name: str, tensor):
 def host_read(tensor, n: int = 1):
     """Count ``n`` reads of ``tensor`` from the card to the host
     (``sync.host_reads``); reads of a CPU tensor are no reads."""
-    if _on and tensor.device.type != "cpu":
+    if enabled() and tensor.device.type != "cpu":
         count("sync.host_reads", n)
 
 

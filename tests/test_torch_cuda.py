@@ -8,6 +8,7 @@ Every test here skips on a machine without a CUDA device.
 """
 
 import dataclasses
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -15,6 +16,7 @@ import torch
 
 from distributionraytracer_tpu_torch.config import RenderConfig
 from distributionraytracer_tpu_torch.integrator import pathtracer as PT
+from distributionraytracer_tpu_torch.integrator import render as RD
 from distributionraytracer_tpu_torch.integrator.render import (
     default_config, make_samples, render_from_samples,
 )
@@ -316,6 +318,32 @@ def _launches():
             CW.LAUNCHES["fused_level"])
 
 
+def _k3_kernels(run):
+    """K3 kernels the card ran during ``run()``, counted in
+    torch.profiler's device trace: a replayed tile graph launches them
+    without a call of the launcher, which ``CW.LAUNCHES`` counts."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA
+               and "whitted_level_kernel" in e.name())
+
+
+def _eager_tiles():
+    """Within it, every frame runs its tiles eagerly: the reference the
+    tile graphs are held to."""
+    return mock.patch.object(RD, "graph_engages", lambda *args: False)
+
+
+def _tiles(samples, cfg):
+    return -(-samples.time.numel() // cfg.tile_rays)
+
+
 def test_renderer_routes_match_on_card(dev):
     scene = create_random_scene(0, 64, 48)
     cfg = default_config(scene, spp=16)
@@ -327,7 +355,9 @@ def test_renderer_routes_match_on_card(dev):
     _reset_launches()
     img, nrays = r.render_with_samples(samples, return_rays=True)
     torch.cuda.synchronize()
-    assert _launches() == (0, 0, levels)
+    assert _launches()[:2] == (0, 0) and _launches()[2] > 0
+    assert _k3_kernels(lambda: r.render_with_samples(
+        samples, return_rays=True)) == levels
     assert torch.isfinite(img).all() and float(img.std()) > 0.05
     _reset_launches()
     staged = render_from_samples(r.scene, cfg, samples, return_rays=True,
@@ -352,7 +382,9 @@ def test_kernels_take_scenes_past_1024_objects(dev):
     _reset_launches()
     img = r.render_with_samples(samples)
     torch.cuda.synchronize()
-    assert _launches() == (0, 0, cfg.max_depth + 1)
+    assert _launches()[:2] == (0, 0) and _launches()[2] > 0
+    assert _k3_kernels(lambda: r.render_with_samples(samples)) == (
+        _tiles(samples, cfg) * (cfg.max_depth + 1))
     plain = Renderer(scene, cfg.replace(kernels="off"), device=dev)
     assert_images_close(img, plain.render_with_samples(samples))
     o, d, t = _cuda(dev, *random_rays(N, seed=8))
@@ -1587,12 +1619,217 @@ def test_viewer_progressive_frames_launch_k3(dev):
     assert st.renderer.executed_backend() == "fused-level"
     for i in (1, 2):
         CI.reset_launches()
-        CW.reset_launches()
-        rgb, n = st.frame(st.alpha0, st.beta0, st.r0, True)
+        out = []
+        k3 = _k3_kernels(lambda: out.append(
+            st.frame(st.alpha0, st.beta0, st.r0, True)))
+        rgb, n = out[0]
         assert n == float(i) and rgb.shape == (24, 32, 3)
-        assert CW.LAUNCHES["fused_level"] > 0
+        assert k3 > 0
         assert CI.LAUNCHES["closest_hit"] == CI.LAUNCHES["any_hit"] == 0
         plain.frame(st.alpha0, st.beta0, st.r0, True)
     diff = (st.prog_state[0] - plain.prog_state[0]).abs()
     assert float((diff > 3e-3).float().mean()) <= 0.005
     assert float(st.prog_state[0].std()) > 0.05
+
+
+# --------------------------------------------- tile graphs (fused-level)
+from distributionraytracer_tpu_torch.utils import spans  # noqa: E402
+
+
+def _graph_frame(dev, tile_rays=5000):
+    """The 64x48 random scene at 16 spp on the card: 49,152 samples, so
+    tiles of 5,000 leave a short last tile of 4,152."""
+    scene = create_random_scene(0, 64, 48)
+    cfg = default_config(scene, spp=16, tile_rays=tile_rays)
+    r = Renderer(scene, cfg, device=dev)
+    samples = make_samples(r.scene, cfg,
+                           torch.Generator(device=dev).manual_seed(0))
+    return r, samples
+
+
+def _captures():
+    return CW.GRAPHS["captures"]
+
+
+def test_tile_graphs_frame_is_the_eager_frame_bit_for_bit(dev):
+    r, samples = _graph_frame(dev)
+    assert r.executed_backend() == "fused-level"
+    n_tiles = -(-64 * 48 * 16 // 5000)
+    assert _tiles(samples, r.cfg) == n_tiles
+    levels = r.cfg.max_depth + 1
+    CW.reset_launches()
+    with _eager_tiles():
+        eager, eager_rays = render_from_samples(r.scene, r.cfg, samples,
+                                                return_rays=True)
+    eager_k3 = CW.LAUNCHES["fused_level"]
+    assert eager_k3 == n_tiles * levels
+    for frame in range(3):
+        c0, r0 = _captures(), CW.GRAPHS["replays"]
+        CW.reset_launches()
+        img, nrays = r.render_with_samples(samples, return_rays=True)
+        torch.cuda.synchronize()
+        # the launcher is called by the two captures and their warm-ups
+        assert CW.LAUNCHES["fused_level"] == (4 * levels if frame == 0
+                                              else 0)
+        assert CW.GRAPHS["replays"] - r0 == n_tiles
+        assert _captures() - c0 == (2 if frame == 0 else 0)
+        assert torch.equal(img, eager)
+        assert int(nrays) == int(eager_rays)
+    # the card runs the eager frame's K3 launches, by replays
+    assert _k3_kernels(lambda: r.render_with_samples(
+        samples, return_rays=True)) == eager_k3
+    # without the counts: two more graphs, the same image
+    c0 = _captures()
+    assert torch.equal(r.render_with_samples(samples), eager)
+    assert _captures() - c0 == 2
+    assert _k3_kernels(lambda: r.render_with_samples(samples)) == eager_k3
+
+
+def test_tile_graphs_engage_without_a_renderer(dev):
+    """A direct ``render_from_samples`` call on the route makes graphs of
+    its own: the same image, the same K3 launches on the card."""
+    r, samples = _graph_frame(dev)
+    with _eager_tiles():
+        eager = render_from_samples(r.scene, r.cfg, samples)
+    c0, r0 = _captures(), CW.GRAPHS["replays"]
+    img = render_from_samples(r.scene, r.cfg, samples)
+    assert torch.equal(img, eager)
+    assert _captures() - c0 == 2
+    assert CW.GRAPHS["replays"] - r0 == _tiles(samples, r.cfg)
+
+
+def test_tile_graphs_keep_one_short_tile_graph(dev):
+    """A new short last tile replaces the kept one; the full tile's graph
+    stays."""
+    r, samples = _graph_frame(dev)
+    fewer = make_samples(r.scene, r.cfg.replace(spp=9),
+                         torch.Generator(device=dev).manual_seed(1))
+    assert fewer.time.numel() % 5000 != samples.time.numel() % 5000
+    with _eager_tiles():
+        refs = [render_from_samples(r.scene, r.cfg, s)
+                for s in (samples, fewer)]
+    for s, ref, captures in ((samples, refs[0], 2), (fewer, refs[1], 1),
+                             (samples, refs[0], 1)):
+        c0 = _captures()
+        assert torch.equal(r.render_with_samples(s), ref)
+        assert _captures() - c0 == captures
+        assert len(r._graphs._graphs) == 2
+
+
+def test_tile_graphs_viewer_frames_are_the_eager_frames(dev):
+    from distributionraytracer_tpu_torch import viewer as V
+
+    scene = create_random_scene(0, 64, 48)
+    cfg = default_config(scene)
+    st = V.ViewerState(scene, cfg, device="cuda")
+    eager = V.ViewerState(scene, cfg, device="cuda")
+    cams = [(st.alpha0, st.beta0, st.r0), (st.alpha0 + 20.0, st.beta0, st.r0),
+            (st.alpha0 - 15.0, st.beta0 + 5.0, st.r0 * 1.1)]
+    after_first = None
+    for i in range(10):
+        cam = cams[min(i // 4, 2)]
+        rgb, n = st.frame(*cam, True)
+        with _eager_tiles():
+            ref, ref_n = eager.frame(*cam, True)
+        if after_first is None:
+            after_first = _captures()
+        assert n == ref_n and np.array_equal(rgb, ref)
+        assert torch.equal(st.prog_state[0], eager.prog_state[0])
+    assert _captures() == after_first
+
+
+def test_tile_graphs_recapture_on_new_materials(dev):
+    r, samples = _graph_frame(dev)
+    before = r.render_with_samples(samples)
+    c0 = _captures()
+    red = torch.zeros_like(r.scene.mat_cd)
+    red[:, 0] = 1.0
+    r.scene = dataclasses.replace(r.scene, mat_cd=red)
+    img = r.render_with_samples(samples)
+    assert _captures() - c0 == 2
+    with _eager_tiles():
+        assert torch.equal(img, render_from_samples(r.scene, r.cfg, samples))
+    assert not torch.equal(img, before)
+    c0 = _captures()
+    with torch.no_grad():
+        r.scene.mat_cd[:, 1] = 1.0  # in place: a new _version
+    img = r.render_with_samples(samples)
+    assert _captures() - c0 == 2
+    with _eager_tiles():
+        assert torch.equal(img, render_from_samples(r.scene, r.cfg, samples))
+
+
+def test_tile_graphs_count_what_the_eager_tiles_count(dev):
+    r, samples = _graph_frame(dev)
+
+    def recorded(run):
+        spans.collect()
+        spans.enable()
+        try:
+            with spans.span("render.frame"):
+                run()
+        finally:
+            spans.disable()
+        rec = spans.collect()
+        out = {}
+        for c in rec["counts"]:
+            out[c["name"]] = out.get(c["name"], 0) + c["n"]
+        return out, [s["name"] for s in rec["spans"]]
+
+    with _eager_tiles():
+        eager, eager_spans = recorded(
+            lambda: render_from_samples(r.scene, r.cfg, samples))
+    r.render_with_samples(samples)  # the uncounted graphs, captured
+    c0 = _captures()
+    got, got_spans = recorded(lambda: r.render_with_samples(samples))
+    assert _captures() - c0 == 2  # the counting graphs
+    tiles = got_spans.count("render.tile")
+    again, _ = recorded(lambda: r.render_with_samples(samples))
+    for c in (got, again):
+        for k in ("whitted.lanes", "whitted.lanes_live",
+                  "whitted.shadow_rays"):
+            assert c[k] == eager[k], k
+        assert c["whitted.graph_replays"] == tiles
+    assert got["whitted.graph_captures"] == 2
+    assert "whitted.graph_captures" not in again
+    assert got_spans.count("whitted.graph") == tiles
+    assert "whitted.level" not in got_spans and "whitted.level" in eager_spans
+
+
+def _skybox(scene):
+    faces, res = synthetic_faces(4)
+    return dataclasses.replace(
+        scene, sky_faces=torch.from_numpy(faces),
+        sky_res=torch.from_numpy(res),
+        static=dataclasses.replace(scene.static, has_skybox=True))
+
+
+def test_tile_graphs_bypass_other_routes(dev):
+    r, samples = _graph_frame(dev)
+    c0 = _captures()
+    # rtow.invert's route: the differentiable K1/K2 intersectors
+    sc = _requiring_grad(r.scene, "mat_cd")
+    inter = accel_intersectors(sc, r.cfg, None, differentiable=True)
+    loss = render_from_samples(sc, r.cfg, samples, inter=inter,
+                               graphs=r._graphs).mean()
+    loss.backward()
+    assert sc.mat_cd.grad is not None
+    # the fused-level route with a leaf that requires a gradient refuses,
+    # as the eager tiles do
+    r2, _ = _graph_frame(dev)
+    r2.scene = _requiring_grad(r2.scene, "sph_center")
+    with pytest.raises(RuntimeError, match="forward-only"):
+        r2.render_with_samples(samples)
+    # a BVH scene's packet route, kernels='off', a skybox
+    mesh = _mesh(ACCEL_BVH, n_tri=2000, res=(32, 32))
+    rb = Renderer(mesh, RenderConfig(spp=0), device=dev)
+    rb.render_with_samples(make_samples(rb.scene, rb.cfg))
+    off = Renderer(create_random_scene(0, 64, 48),
+                   r.cfg.replace(kernels="off"), device=dev)
+    off.render_with_samples(samples)
+    sky = Renderer(_skybox(create_random_scene(0, 64, 48)), r.cfg,
+                   device=dev)
+    img = sky.render_with_samples(samples)
+    assert torch.equal(img, render_from_samples(sky.scene, sky.cfg, samples))
+    torch.cuda.synchronize()
+    assert _captures() == c0
