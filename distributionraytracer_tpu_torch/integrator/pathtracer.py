@@ -30,6 +30,14 @@ fixed order by both bodies, or are injected (:class:`BounceUniforms`).
 
 GLSL leaves ``atten`` undefined on some non-writing paths (out-param
 semantics); those paths use atten = 1 here, documented deviations.
+
+Spans and counters (``utils/spans.py``, off by default): ``pt.frame``
+(``render_pt``), ``pt.tile`` (one ``ray_color`` call of
+``ray_color_tiled``), ``pt.bounce`` (one bounce of either body),
+``pt.intersect`` (the staged body's queries), ``pt.sky`` (the fused
+body's cubemap gather); ``pt.paths`` (a tile's paths at each bounce) and
+``pt.paths_live`` (those alive at the bounce's start, counted on the
+device only while the recorder is on).
 """
 
 from __future__ import annotations
@@ -51,6 +59,7 @@ from distributionraytracer_tpu_torch.scene.pt_scenes import (
     MT_DIELECTRIC, MT_DIFFUSE, MT_METAL, MT_PLASTIC, PTScene,
     SKY_CUBEMAP_X3, SKY_GRADIENT,
 )
+from distributionraytracer_tpu_torch.utils import spans
 
 EPS = 1e-3  # common.glsl:7
 PI = 3.14159265358979
@@ -543,16 +552,22 @@ def _ray_color_fused(scene, cfg, o, d, time, draws, tables):
     n_ql = scene.qlight_pos.shape[0]
     state = CP.bounce_state(o, d, time)
     for b in range(cfg.max_bounces):
-        u = draws(b)
-        CP.pt_bounce(scene, state,
-                     CP.bounce_streams(u.uch, u.u3a, u.u3b, u.urr, u.uq,
-                                       n_ql),
-                     cfg.russian_roulette, tables=tb)
+        with spans.span("pt.bounce"):
+            spans.count("pt.paths", o.shape[0])
+            if spans.enabled():
+                spans.count_device("pt.paths_live",
+                                   torch.count_nonzero(state[CP.ST_ALIVE]))
+            u = draws(b)
+            CP.pt_bounce(scene, state,
+                         CP.bounce_streams(u.uch, u.u3a, u.u3b, u.urr, u.uq,
+                                           n_ql),
+                         cfg.russian_roulette, tables=tb)
     col = state[CP.ST_COL].T
     if scene.sky_mode != SKY_GRADIENT:
-        tex = srgb_to_linear(gl_cubemap_color(scene.sky_faces, scene.sky_res,
-                                              state[CP.ST_MD].T))
-        col = col + state[CP.ST_MW].T * tex * _sky_factor(scene)
+        with spans.span("pt.sky"):
+            tex = srgb_to_linear(gl_cubemap_color(
+                scene.sky_faces, scene.sky_res, state[CP.ST_MD].T))
+            col = col + state[CP.ST_MW].T * tex * _sky_factor(scene)
     return col
 
 
@@ -566,61 +581,73 @@ def _ray_color_staged(scene, cfg, o, d, time, draws, queries: PTQueries):
     alive = torch.ones((R,), dtype=torch.bool, device=o.device)
     t_ray = time
     zero_t = torch.zeros((R,), **f32)  # shadow and scattered rays: time 0
+
+    def occluded(*args):
+        with spans.span("pt.intersect"):
+            return queries.occluded(*args)
+
     for b in range(cfg.max_bounces):
-        # scattered rays are built with the 2-arg createRay -> time = 0
-        # (common.glsl:43-46): only camera rays see motion
-        u = draws(b)
-        hit = queries.closest(o, d, t_ray)
-        m = _mat_gather(scene, hit.mat, hit.pos)
+        with spans.span("pt.bounce"):
+            spans.count("pt.paths", R)
+            if spans.enabled():
+                spans.count_device("pt.paths_live", alive.sum())
+            # scattered rays are built with the 2-arg createRay -> time = 0
+            # (common.glsl:43-46): only camera rays see motion
+            u = draws(b)
+            with spans.span("pt.intersect"):
+                hit = queries.closest(o, d, t_ray)
+            m = _mat_gather(scene, hit.mat, hit.pos)
 
-        live_hit = alive & hit.hit
-        emis_on = torch.any(m["emissive"] != 0.0, dim=-1)
-        col = col + torch.where((live_hit & emis_on)[..., None],
-                                m["emissive"] * thr, 0.0)
+            live_hit = alive & hit.hit
+            emis_on = torch.any(m["emissive"] != 0.0, dim=-1)
+            col = col + torch.where((live_hit & emis_on)[..., None],
+                                    m["emissive"] * thr, 0.0)
 
-        # direct lighting (per-scene static light lists)
-        dl = torch.zeros_like(col)
-        for j in range(n_pl):
-            dl = dl + direct_point(scene, scene.plight_pos[j],
-                                   scene.plight_color[j], d, hit, m, zero_t,
-                                   queries.occluded)
-        for j in range(n_ql):
-            dl = dl + direct_quad(scene, j, d, hit, m,
-                                  u.uq[:, 2 * j], u.uq[:, 2 * j + 1])
-        col = col + torch.where(live_hit[..., None], dl * thr, 0.0)
+            # direct lighting (per-scene static light lists)
+            dl = torch.zeros_like(col)
+            for j in range(n_pl):
+                dl = dl + direct_point(scene, scene.plight_pos[j],
+                                       scene.plight_color[j], d, hit, m,
+                                       zero_t, occluded)
+            for j in range(n_ql):
+                dl = dl + direct_quad(scene, j, d, hit, m,
+                                      u.uq[:, 2 * j], u.uq[:, 2 * j + 1])
+            col = col + torch.where(live_hit[..., None], dl * thr, 0.0)
 
-        ok, new_o, new_d, atten = scatter(scene, o, d, hit, m,
-                                          u.uch, u.u3a, u.u3b)
-        # no-scatter (metal absorbed): col += thr * emissive, stop
-        # (P3D_RT.glsl:641-645)
-        col = col + torch.where((live_hit & ~ok)[..., None],
-                                thr * m["emissive"], 0.0)
-        thr = torch.where((live_hit & ok)[..., None], thr * atten, thr)
+            ok, new_o, new_d, atten = scatter(scene, o, d, hit, m,
+                                              u.uch, u.u3a, u.u3b)
+            # no-scatter (metal absorbed): col += thr * emissive, stop
+            # (P3D_RT.glsl:641-645)
+            col = col + torch.where((live_hit & ~ok)[..., None],
+                                    thr * m["emissive"], 0.0)
+            thr = torch.where((live_hit & ok)[..., None], thr * atten, thr)
 
-        # Russian roulette (P3D_RT.glsl:651-656)
-        if cfg.russian_roulette:
-            p = torch.amax(thr, dim=-1)
-            killed = u.urr > p
-            thr = torch.where((live_hit & ok & ~killed)[..., None],
-                              thr / torch.clamp(p, min=1e-12)[..., None], thr)
-        else:
-            killed = torch.zeros_like(alive)
+            # Russian roulette (P3D_RT.glsl:651-656)
+            if cfg.russian_roulette:
+                p = torch.amax(thr, dim=-1)
+                killed = u.urr > p
+                thr = torch.where((live_hit & ok & ~killed)[..., None],
+                                  thr / torch.clamp(p, min=1e-12)[..., None],
+                                  thr)
+            else:
+                killed = torch.zeros_like(alive)
 
-        # miss: sky (P3D_RT.glsl:659-672)
-        if scene.sky_mode == SKY_GRADIENT:
-            tsky = torch.clamp(0.8 * (d[..., 1] + 1.0), 0.0, 1.0)[..., None]
-            sky = ((1.0 - tsky) * torch.ones(3, **f32)
-                   + tsky * torch.tensor([0.5, 0.7, 1.0], **f32))
-        else:
-            sky = srgb_to_linear(gl_cubemap_color(
-                scene.sky_faces, scene.sky_res, d)) * _sky_factor(scene)
-        miss = alive & ~hit.hit
-        col = col + torch.where(miss[..., None], thr * sky, 0.0)
+            # miss: sky (P3D_RT.glsl:659-672)
+            if scene.sky_mode == SKY_GRADIENT:
+                tsky = torch.clamp(0.8 * (d[..., 1] + 1.0), 0.0,
+                                   1.0)[..., None]
+                sky = ((1.0 - tsky) * torch.ones(3, **f32)
+                       + tsky * torch.tensor([0.5, 0.7, 1.0], **f32))
+            else:
+                sky = srgb_to_linear(gl_cubemap_color(
+                    scene.sky_faces, scene.sky_res, d)) * _sky_factor(scene)
+            miss = alive & ~hit.hit
+            col = col + torch.where(miss[..., None], thr * sky, 0.0)
 
-        alive = alive & hit.hit & ok & ~killed
-        o = torch.where(alive[..., None], new_o, o)
-        d = torch.where(alive[..., None], new_d, d)
-        t_ray = zero_t
+            alive = alive & hit.hit & ok & ~killed
+            o = torch.where(alive[..., None], new_o, o)
+            d = torch.where(alive[..., None], new_d, d)
+            t_ray = zero_t
     return col
 
 
@@ -640,10 +667,11 @@ def ray_color_tiled(scene: PTScene, cfg: RenderConfig, o, d, time,
     cols = []
     for a in range(0, R, tile):
         b = min(a + tile, R)
-        cols.append(ray_color(
-            scene, cfg, o[a:b], d[a:b], time[a:b], generator,
-            uniforms.lanes(a, b) if uniforms is not None else None,
-            queries, tables=tb))
+        with spans.span("pt.tile"):
+            cols.append(ray_color(
+                scene, cfg, o[a:b], d[a:b], time[a:b], generator,
+                uniforms.lanes(a, b) if uniforms is not None else None,
+                queries, tables=tb))
     return torch.cat(cols) if cols else o.new_zeros((0, 3))
 
 
@@ -702,23 +730,24 @@ def render_pt(scene: PTScene, cfg: RenderConfig, res_x: int, res_y: int,
 
     ``samples`` replaces the generator's jitter, time and (when it has
     them) trace uniforms; ``queries`` as in :func:`ray_color`."""
-    dev = scene.device
-    if samples is None:
-        if generator is None:
-            generator = torch.Generator(device=dev).manual_seed(0)
-        jitter = torch.rand((res_y, res_x, spp, 2), generator=generator,
-                            device=dev)
-        time = torch.rand((res_y, res_x, spp), generator=generator,
-                          device=dev)
-        uniforms = None
-    else:
-        jitter, time = samples.jitter.to(dev), samples.time.to(dev)
-        uniforms = (samples.uniforms.to(dev) if samples.uniforms is not None
-                    else None)
-    o, d = primary_rays(res_x, res_y, jitter, eye, at, fovy)
-    col = ray_color_tiled(scene, cfg, o, d, time.reshape(-1), generator,
-                          uniforms, queries)
-    return torch.mean(col.reshape(res_y, res_x, spp, 3), dim=2)
+    with spans.span("pt.frame"):
+        dev = scene.device
+        if samples is None:
+            if generator is None:
+                generator = torch.Generator(device=dev).manual_seed(0)
+            jitter = torch.rand((res_y, res_x, spp, 2), generator=generator,
+                                device=dev)
+            time = torch.rand((res_y, res_x, spp), generator=generator,
+                              device=dev)
+            uniforms = None
+        else:
+            jitter, time = samples.jitter.to(dev), samples.time.to(dev)
+            uniforms = (samples.uniforms.to(dev)
+                        if samples.uniforms is not None else None)
+        o, d = primary_rays(res_x, res_y, jitter, eye, at, fovy)
+        col = ray_color_tiled(scene, cfg, o, d, time.reshape(-1), generator,
+                              uniforms, queries)
+        return torch.mean(col.reshape(res_y, res_x, spp, 3), dim=2)
 
 
 def to_gamma(c):

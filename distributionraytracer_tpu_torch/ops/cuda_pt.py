@@ -34,6 +34,7 @@ from distributionraytracer_tpu_torch.ops.cuda_intersect import (
 from distributionraytracer_tpu_torch.scene.pt_scenes import (
     MT_DIELECTRIC, MT_DIFFUSE, MT_METAL, MT_PLASTIC, PTScene, SKY_GRADIENT,
 )
+from distributionraytracer_tpu_torch.utils import spans
 
 EPS = 1e-3  # common.glsl:7
 PI = float(np.float32(3.14159265358979))
@@ -104,6 +105,7 @@ def pack_pt_mats(scene: PTScene) -> torch.Tensor:
 
 
 def pt_tables(scene: PTScene) -> PTTables:
+    spans.count("tables.builds.pt_tables")
     data, mats, counts = pack_pt(scene)
     f = lambda *a: torch.cat(a, dim=1).to(torch.float32).contiguous()
     return PTTables(

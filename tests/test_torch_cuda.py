@@ -1833,3 +1833,32 @@ def test_tile_graphs_bypass_other_routes(dev):
     assert torch.equal(img, render_from_samples(sky.scene, sky.cfg, samples))
     torch.cuda.synchronize()
     assert _captures() == c0
+
+
+def test_pt_frame_matches_the_benchmark_reference_on_card(dev):
+    """A 64x48, 16-spp, 10-bounce frame of scene 0 through ``render_pt``
+    (K6) with injected samples, against the benchmark's plain reference
+    path tracer over the same samples, judged by the ``pt0.frame`` cell's
+    own comparison and limits."""
+    from portbench import harness
+    from portbench.reference import pt_scene
+    from portbench.traffic import pt_frames
+
+    cfg = dict(harness.load_json("configs", "pt_scene0.json"), res_x=64,
+               res_y=48)
+    limits = harness.load_json("workloads", "pt0.frame.json")["params"][
+        "limits"]
+    drawn = pt_frames.draw(cfg, 2**40 + 17, 0, dev)
+    jitter, times, uni = drawn
+    CP.reset_launches()
+    got = PT.render_pt(PS.scene0().to(dev),
+                       RenderConfig(max_bounces=cfg["max_bounces"]), 64, 48,
+                       eye=cfg["eye"], at=cfg["at"], fovy=cfg["fovy"],
+                       spp=cfg["spp"],
+                       samples=PT.PTSamples(jitter, times,
+                                            PT.BounceUniforms(*uni)))
+    assert CP.LAUNCHES["pt_bounce"] == cfg["max_bounces"]
+    want = pt_frames.reference_pixels(pt_scene.ref_scene(cfg, dev), cfg,
+                                      drawn, None)
+    checks = pt_frames.compare([(got, want)], limits)
+    assert checks.correct, checks.lines()
