@@ -29,7 +29,10 @@
    - K6 bounce, from camera rays and from the state after three bounces,
      on the same uniforms: alive flags equal, origins within 1e-5 of their
      magnitude, every other state row within atol 2e-3 + rtol 2e-3;
-   each but for at most 0.01% of the lanes.
+   each but for at most 0.01% of the lanes;
+   - the looped K6 (``pt_trace``), four bounces from camera rays, against
+     four plain bounces: colours (and scene 3's latched miss rows) within
+     atol 2e-3 + rtol 2e-3 but for at most 0.01% of the lanes a bounce.
 5. Renders the built-in random scene at 800x600, 16 spp, depth 4 in three
    runs, each with every launch counter set to 0 just before it and read
    just after it:
@@ -51,7 +54,8 @@
    each counted run prints its graph replays beside its launches.
 6. Path traces scene 0 at 800x600, 16 spp, 10 bounces through ``render_pt``
    in two counted runs: the path tracer's main path (the fused body): K6
-   only, one launch per tile and bounce; the staged body with
+   only, one looped launch a tile (every bounce, the tile's uniforms drawn
+   from the generator up front); the staged body with
    ``kernel_queries``: K4 and K5 only.  Puts the camera rays of rows
    284:316 (409,600 paths, uniforms drawn once) through ``ray_color`` on
    the fused kernel, the staged kernels and plain torch, and holds both
@@ -106,7 +110,9 @@
    medians, rays/s and peak memory of each.
 7. Times each kernel and its plain version at its main path's shapes (K1
    to K3: one 65,536-sample tile of the Whitted frame; K4 to K6: one
-   131,072-path tile at bounce 0 of the path-traced frame; K7 to K9 and
+   131,072-path tile at bounce 0 of the path-traced frame; the looped K6:
+   7b's tile, every bounce, its floor summed over the bounces' live
+   paths from the states 7b records; K7 to K9 and
    K3's grid mode: the inputs of 6b; K10: the binned+ BVH route's primary
    shadow batch of 6c, beside K7's bare launch on it) with CUDA
    events: the bare launch on the streams the kernel reads (``ms``) and
@@ -128,8 +134,12 @@
    primary shadow launches).
 7b. Times K3 at each level (0-4) of the Whitted frame's middle tile and K6
    at each bounce (0-9) of the PT frame's middle tile, on the inputs the
-   frames give them, each beside its valid or live share, and holds each
-   launch to its plain version.
+   frames give them (K6: the looped launch's recorded camera rays and
+   uniforms, taken a bounce at a time through single-bounce launches),
+   each beside its valid or live share, and holds each launch to its
+   plain version.  The looped K6 on that tile must give the single-bounce
+   launches' final colours bit for bit, and is held to ten plain bounces
+   as in step 4; then its row (``pt_bounce_loop``) is timed.
 7c. Records the inputs of every K1 and K2 launch of the Whitted staged route
    (``render_from_samples(..., inter=brute_intersectors(...))``) on its
    middle tile and of every K4 and K5 launch of the PT staged body
@@ -152,8 +162,8 @@
    launch.
 8. Profiles one more warm frame of each main path under ``torch.profiler``
    (the Whitted one is step 5's) and prints the device-busy time, the
-   idle share and the top device kernels, K3's and K6's summed time in
-   their frames beside their single-launch and per-tile times, and K7's
+   idle share and the top device kernels, K3's and the looped K6's summed
+   time in their frames beside their single-launch and per-tile times, and K7's
    (accelerated frame) and K8's (one legacy-route frame) beside theirs;
    one frame of the binned+ and the switched-off box-ground routes, with
    K10's frame sum.
@@ -209,7 +219,8 @@
    route, a warm-up frame at another camera, five progressive
    ``/frame``s at the state's camera (``X-Samples`` 1 to 5), each between
    a reset and a read of the launch counters (K3 only, 8 tiles x 5
-   levels; K6 only, 4 tiles x 10 bounces), a camera move (``X-Samples``
+   levels; K6 only, one looped launch a tile, 4 tiles), a camera move
+   (``X-Samples``
    1), a batch frame, ``/screenshot?path=`` read back by ``read_png`` as
    (600, 800, 3).  The Whitted accumulator after frame 5 must equal
    ``Renderer.progressive_step`` at the same eye on the same generators
@@ -466,34 +477,61 @@ def level_breakdown(torch, dev, card, scene, cfg, samples, cmp_level=None):
 
 
 def bounce_breakdown(torch, card, pts, pcfg, paths, pt_frame,
-                     cmp_pt_bounce=None):
+                     cmp_pt_bounce=None, cmp_pt_trace=None):
     """K6 at each bounce of the path-traced frame's middle tile (the
     first tiles look at the floor, whose paths leave for the sky within two
-    bounces): the state and uniforms that one ``pt_frame()`` gives
-    ``pt_bounce`` for that tile (``render_pt`` runs its ``paths`` in
-    tiles of ``pcfg.pt_tile_rays``, each through its bounces), each
-    bounce's live share and its bare launch time (the state restored,
-    untimed, before each launch); ``cmp_pt_bounce`` (if given) holds each
-    bounce to its plain version.  Returns [(live share, ms)]."""
+    bounces): the camera rays and uniforms that one ``pt_frame()`` gives
+    the looped K6 (``pt_trace``) for that tile (``render_pt`` runs its
+    ``paths`` in tiles of ``pcfg.pt_tile_rays``), taken through the
+    bounces one single-bounce K6 at a time; each bounce's live share and
+    its bare launch time (the state restored, untimed, before each
+    launch); ``cmp_pt_bounce`` (if given) holds each bounce to its plain
+    version.  The looped K6 on the tile must give the replay's final
+    colours bit for bit; ``cmp_pt_trace`` (if given) holds it to its plain
+    version.  Returns [(live share, ms)] and the tile's record: its
+    inputs, the state before each bounce, and the looped K6's error
+    against its plain version."""
     from distributionraytracer_tpu_torch.ops import cuda_pt as CP
     from distributionraytracer_tpu_torch.scene.pt_scenes import SKY_GRADIENT
     B = pcfg.max_bounces
     k = -(-paths // pcfg.pt_tile_rays) // 2
-    log, calls, orig = [], [0], CP.pt_bounce
+    calls, orig = [], CP.pt_trace
 
-    def recorder(sc, state, uni, rr, **kw):
-        if calls[0] // B == k:
-            log.append((state.clone(), uni, rr))
-        calls[0] += 1
-        return orig(sc, state, uni, rr, **kw)
+    def recorder(sc, o, d, tm, uniforms, rr, **kw):
+        calls.append((o, d, tm, uniforms, rr) if len(calls) == k else None)
+        return orig(sc, o, d, tm, uniforms, rr, **kw)
 
-    CP.pt_bounce = recorder
+    CP.pt_trace = recorder
     try:
         pt_frame()
     finally:
-        CP.pt_bounce = orig
-    check(len(log) == B, f"K6 breakdown: recorded {len(log)} bounces of "
-          f"tile {k}, not {B}")
+        CP.pt_trace = orig
+    check(len(calls) > k, f"K6 breakdown: {len(calls)} looped launches, "
+          f"no tile {k}")
+    o, d, tm, uniforms, rr = calls[k]
+    state, log = CP.bounce_state(o, d, tm), []
+    for b in range(B):
+        u = uniforms.bounce(b)
+        uni = CP.bounce_streams(u.uch, u.u3a, u.u3b, u.urr, u.uq,
+                                pts.qlight_pos.shape[0])
+        log.append((state.clone(), uni, rr))
+        CP.pt_bounce_kernel(pts, state, uni, rr)
+    looped = CP.pt_trace_kernel(pts, o, d, tm, uniforms, rr)
+    check(torch.equal(looped.col, state[CP.ST_COL].T),
+          f"K6 breakdown: the looped K6's colours on tile {k} are not the "
+          f"{B} single-bounce launches' final colours")
+    if looped.mw is not None:
+        check(torch.equal(looped.mw, state[CP.ST_MW].T)
+              and torch.equal(looped.md, state[CP.ST_MD].T),
+              f"K6 breakdown: the looped K6's latched misses on tile {k} "
+              f"are not the single-bounce launches'")
+    err, note = None, ""
+    if cmp_pt_trace is not None:
+        err, m, _ = cmp_pt_trace(pts, o, d, tm, uniforms, rr)
+        note = (f"; vs {B} plain bounces: lanes differing {m:.2e}, max abs "
+                f"err {err:.3e}")
+    print(f"K6 looped launch (tile {k}): colours equal to {B} single-bounce "
+          f"launches{note} | {card}")
     ptb, grad, res = CP.pt_tables(pts), pts.sky_mode == SKY_GRADIENT, []
     for b, (state, uni, rr) in enumerate(log):
         n = state.shape[1]
@@ -509,7 +547,9 @@ def bounce_breakdown(torch, card, pts, pcfg, paths, pt_frame,
         print(f"K6 bounce {b} (tile {k}): {n} paths, live {live:.4f}: "
               f"{ms:.4f} ms{note} | {card}")
         res.append((live, ms))
-    return res
+    rec = dict(o=o, d=d, time=tm, uniforms=uniforms, rr=rr,
+               states=[st for st, _, _ in log], err=err, tile=k)
+    return res, rec
 
 
 def profile_frame(torch, render, wall_s, label, scopes=()):
@@ -1639,18 +1679,20 @@ def walk_rows(torch, card, st):
 
 
 def frame_sums(wprof, pprof, rows, levels, bounces, card):
-    """K3's and K6's summed device time in the profiled frames, beside
-    their single-launch time (level 0, bounce 0) and the per-level and
-    per-bounce times of one tile."""
+    """K3's and the looped K6's summed device time in the profiled frames,
+    beside one launch (K3 at level 0, the looped K6 on the breakdown's
+    tile) and the per-level and per-bounce times of one tile (K6 there
+    one single-bounce launch a bounce)."""
     single = {r["name"]: r["ms"] for r in rows}
     out = {}
     for key, prof, kern, name, per in (
             ("K3", wprof, "whitted_level_kernel", "fused_level", levels),
-            ("K6", pprof, "pt_bounce_kernel", "pt_bounce", bounces)):
+            ("K6loop", pprof, "pt_bounce_kernel_loop", "pt_bounce_loop",
+             bounces)):
         n, ms = kernel_sum(prof, kern)
         tile = sum(x[-1] for x in per)
         print(f"{key} {name} in the profiled frame: {n} launches, "
-              f"{ms:.3f} ms summed; one launch at level/bounce 0 "
+              f"{ms:.3f} ms summed; one launch "
               f"{single.get(name, per[0][-1]):.4f} ms; one tile's "
               f"levels/bounces {tile:.4f} ms | {card}")
         out[key] = {"frame_launches": n, "frame_ms": ms, "tile_ms": tile,
@@ -2803,8 +2845,7 @@ def viewer_phase(torch, np, card, counted, dev, scene=None,
     phttpd = V.make_server(None, None, 0, state=pstate)
     plabel = f"PT viewer {pw}x{ph}"
     peye, pseeds, psecs, _, plast = serve_viewer(
-        torch, card, counted, phttpd, plabel, "K6", tiles * pcfg.max_bounces,
-        sync)
+        torch, card, counted, phttpd, plabel, "K6loop", tiles, sync)
     mean, psteps = np.zeros((ph, pw, 3), np.float32), []
     for i, seed in enumerate(pseeds, 1):
         gen = V._frame_generator(pstate.device, 0, seed)
@@ -2906,6 +2947,7 @@ def main():
     for k, lines in ptxas_report(built.log, ("closest_hit_kernel",
                                              "closest_items_kernel",
                                              "whitted_level_kernel",
+                                             "pt_bounce_kernel_loop",
                                              "pt_bounce_kernel",
                                              "pt_any_hit_kernel",
                                              "any_hit_kernel",
@@ -2992,7 +3034,8 @@ def main():
         return max_err(floats, valid & ~bad), frac(bad)
 
     ks = kernel_scene(SceneBuilder).to(dev)
-    errs = {k: 0.0 for k in ("K1", "K2", "K3", "K4", "K5", "K6")}
+    errs = {k: 0.0 for k in ("K1", "K2", "K3", "K4", "K5", "K6",
+                             "K6loop")}
     for mb in (False, True):
         o, d, t = rays(R)
         valid = torch.rand(R, device=dev) < 0.9
@@ -3055,6 +3098,23 @@ def main():
         return max_err([(got.T, ref.T)], ~bad), frac(bad), frac(
             ref[CP.ST_ALIVE] > 0)
 
+    def cmp_pt_trace(scene, o, d, tm, uniforms, rr):
+        """The looped K6 against its plain version (B plain bounces) on the
+        paths' colours (and latched miss rows): each bounce may flip
+        LANE_BUDGET of the lanes."""
+        B = uniforms.uch.shape[0]
+        ref = CP.pt_trace_plain(scene, o, d, tm, uniforms, rr)
+        got = CP.pt_trace_kernel(scene, o, d, tm, uniforms, rr)
+        torch.cuda.synchronize()
+        pairs = [(a, b) for a, b in zip(got, ref) if b is not None]
+        bad = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
+        for a, b in pairs:
+            bad |= off_lanes(a, b, 2e-3 + 2e-3 * b.abs())
+        check(frac(bad) <= B * LANE_BUDGET,
+              f"looped K6: {frac(bad)} of lanes differ from {B} plain "
+              f"bounces")
+        return max_err(pairs, ~bad), frac(bad), got
+
     def pt_scene(si):
         args = () if si == 0 else synthetic_faces(np, si)
         return SCENE_BUILDERS[si](*args).to(dev)
@@ -3094,6 +3154,11 @@ def main():
                       f"{m:.2e}, alive after {alive:.3f}, max abs err "
                       f"elsewhere {e:.3e}  PASS")
             CP.pt_bounce_plain(sc, state, uni, True)
+        e, m, _ = cmp_pt_trace(sc, po.contiguous(), pd, tm,
+                               PT.draw_bounces(sc, R, 4, g, dev), True)
+        errs["K6loop"] = max(errs["K6loop"], e)
+        print(f"K6 pt_trace (looped) scene {si}, 4 bounces: lanes differing "
+              f"{m:.2e}, max abs err elsewhere {e:.3e}  PASS")
 
     # ---- 4. the Whitted frame: 800x600, 16 spp, depth 4, three routes ----
     phase("4")
@@ -3110,6 +3175,7 @@ def main():
                 "K4": CP.LAUNCHES["pt_closest"],
                 "K5": CP.LAUNCHES["pt_any_hit"],
                 "K6": CP.LAUNCHES["pt_bounce"],
+                "K6loop": CP.LAUNCHES["pt_trace"],
                 "K7": bv["grouped_closest"] + bv["grouped_shadow"],
                 "K8": bv["legacy_closest"] + bv["legacy_shadow"],
                 "K9": CBN.LAUNCHES["binned_closest"],
@@ -3238,10 +3304,10 @@ def main():
 
     pimg, pt_runs, pt_cold = counted(
         "path-tracer main path, render_pt (fused body)", pt_frame,
-        {"K6": True})
-    check(pt_runs["K6"] == tiles * pcfg.max_bounces,
-          f"pt_bounce launched {pt_runs['K6']} times, not "
-          f"{tiles} tiles x {pcfg.max_bounces} bounces")
+        {"K6loop": True})
+    check(pt_runs["K6loop"] == tiles,
+          f"the looped K6 launched {pt_runs['K6loop']} times, not once a "
+          f"tile ({tiles})")
     pstaged, pst_runs, pst_s = counted(
         "render_pt(queries=kernel_queries) (staged body)",
         lambda: pt_frame(PT.kernel_queries(pts)), {"K4": True, "K5": True})
@@ -3359,6 +3425,59 @@ def main():
         fold = cum.gather(0, first[None])[0]
         return float((PT_FOLD_OPS + fold)[lanes].sum()), okm.any(0)
 
+    def k6_bounce_ops(state, u, rr):
+        """FP32 operations of one K6 bounce on ``state``'s live lanes (a
+        dead lane costs nothing: the block compacts its live lanes) with
+        the bounce's uniforms ``u`` (every lane's): the closest fold, the
+        winner, the hit or miss, the scatter, roulette's survivors, and
+        each light's work with its shadow fold (time 0, as K6 casts)."""
+        live = state[CP.ST_ALIVE] > 0
+        o, d = (state[r_].T[live].contiguous() for r_ in (CP.ST_O, CP.ST_D))
+        t = state[CP.ST_TIME][live].contiguous()
+        n = o.shape[0]
+        if n == 0:
+            return 0.0
+        h = PT.hit_world(pts, o, d, t)
+        hits = float(h.hit.sum())
+        nrm = torch.nn.functional.normalize(h.normal, dim=-1)
+        t0 = torch.zeros(n, device=dev)
+        uni = CP.bounce_streams(u.uch, u.u3a, u.u3b, u.urr, u.uq,
+                                pts.qlight_pos.shape[0])
+        survive = CP.pt_bounce_plain(pts, state.clone(), uni, rr)[
+            CP.ST_ALIVE] > 0
+        mid = h.mat.long()
+        mtyp = pts.mat_type[mid].long()
+        gradient = pts.sky_mode == SKY_GRADIENT
+        ops = (n * PT_FOLD_OPS
+               + float(pt_test_ops(torch, PT, pts, o, d, t).sum())
+               + (n - hits) * PT_MISS_OPS * gradient
+               + hits * (PT_WINNER_OPS + PT_HIT_OPS)
+               + float((h.hit & pts.mat_stripe[mid]).sum()) * PT_STRIPE_OPS
+               + float((h.hit & (pts.mat_emissive[mid] != 0).any(-1)).sum())
+               * PT_EMIT_OPS
+               + float(survive.sum()) * PT_SURVIVE_OPS)
+        per_typ = lambda table: torch.tensor(table, dtype=torch.float64,
+                                             device=dev)[mtyp]
+        ops += float(per_typ(PT_SCATTER_OPS)[h.hit].sum())
+        light_ops = PT_LIGHT_OPS + per_typ(PT_LIGHT_RGB_OPS)
+        for j in range(pts.plight_pos.shape[0]):
+            lu = pts.plight_pos[j] - h.pos
+            dist = torch.sqrt(torch.clamp((lu * lu).sum(-1), min=1e-24))
+            lj = lu / dist[:, None]
+            facing = h.hit & ((nrm * lj).sum(-1) > 0)
+            fold, occ = pt_shadow_ops(pts, h.pos + nrm * 1e-3, lj, t0,
+                                      dist - 1e-3, facing)
+            ops += (hits * PT_POINT_OPS + float(facing.sum()) * PT_SHADOW_OPS
+                    + fold + float(light_ops[facing & ~occ].sum()))
+        uq = u.uq[live]
+        for j in range(pts.qlight_pos.shape[0]):
+            lp = (pts.qlight_pos[j] + pts.qlight_e1[j] * uq[:, 2 * j, None]
+                  + pts.qlight_e2[j] * uq[:, 2 * j + 1, None])
+            facing = h.hit & ((nrm * (lp - h.pos)).sum(-1) > 0)
+            ops += hits * PT_QUAD_OPS + float(
+                (light_ops + PT_QUAD_GGX_OPS)[facing].sum())
+        return ops
+
     rows = []
     meta = {
         "K1": ("closest_hit", "intersect.cu", "distributionraytracer_tpu/"
@@ -3373,13 +3492,17 @@ def main():
                "pallas_pt.py:312"),
         "K6": ("pt_bounce", "pt.cu", "distributionraytracer_tpu/ops/"
                "pallas_pt.py:767"),
+        "K6loop": ("pt_bounce_loop", "pt.cu", "distributionraytracer_tpu/"
+                   "integrator/pathtracer.py:535"),
     }
     route_of = {"K1": ("brute-kernel route frame", dark_runs["K1"]),
                 "K2": ("staged kernel route frame", staged_runs["K2"]),
                 "K3": ("Whitted main path frame", main_k3),
                 "K4": ("PT staged body frame", pst_runs["K4"]),
                 "K5": ("PT staged body frame", pst_runs["K5"]),
-                "K6": ("PT main path frame", pt_runs["K6"])}
+                "K6": ("PT main path frame (none: the looped K6 runs there)",
+                       pt_runs["K6"]),
+                "K6loop": ("PT main path frame", pt_runs["K6loop"])}
 
     def row(k, lanes, bare, wrapper, plain, nbytes, ops, setup=None):
         ms = timed_ms(torch, bare, 20, setup)
@@ -3538,36 +3661,7 @@ def main():
     e6, _, _ = cmp_pt_bounce(pts, st0, uni)
     errs["K6"] = max(errs["K6"], e6)
     errs["K4"] = max(errs["K4"], e4)
-    mid = h.mat.long()
-    mtyp = pts.mat_type[mid].long()
-    survive = CP.pt_bounce_plain(pts, st0.clone(), uni, True)[
-        CP.ST_ALIVE] > 0
-    gradient = pts.sky_mode == SKY_GRADIENT
-    k6_ops = (pt_closest_ops + (n - hits) * PT_MISS_OPS * gradient
-              + hits * (PT_WINNER_OPS + PT_HIT_OPS)
-              + float((h.hit & pts.mat_stripe[mid]).sum()) * PT_STRIPE_OPS
-              + float((h.hit & (pts.mat_emissive[mid] != 0).any(-1)).sum())
-              * PT_EMIT_OPS
-              + float(survive.sum()) * PT_SURVIVE_OPS)
-    per_typ = lambda table: torch.tensor(table, dtype=torch.float64,
-                                         device=dev)[mtyp]
-    k6_ops += float(per_typ(PT_SCATTER_OPS)[h.hit].sum())
-    light_ops = PT_LIGHT_OPS + per_typ(PT_LIGHT_RGB_OPS)
-    for j in range(n_pl):
-        lu = pts.plight_pos[j] - h.pos
-        dist = torch.sqrt(torch.clamp((lu * lu).sum(-1), min=1e-24))
-        lj = lu / dist[:, None]
-        facing = h.hit & ((nrm * lj).sum(-1) > 0)
-        fold, occ = pt_shadow_ops(pts, h.pos + nrm * 1e-3, lj, t5,
-                                  dist - 1e-3, facing)
-        k6_ops += (hits * PT_POINT_OPS + float(facing.sum()) * PT_SHADOW_OPS
-                   + fold + float(light_ops[facing & ~occ].sum()))
-    for j in range(pts.qlight_pos.shape[0]):
-        lp = (pts.qlight_pos[j] + pts.qlight_e1[j] * u.uq[:, 2 * j, None]
-              + pts.qlight_e2[j] * u.uq[:, 2 * j + 1, None])
-        facing = h.hit & ((nrm * (lp - h.pos)).sum(-1) > 0)
-        k6_ops += hits * PT_QUAD_OPS + float(
-            (light_ops + PT_QUAD_GGX_OPS)[facing].sum())
+    k6_ops = k6_bounce_ops(st0, u, True)
     st = st0.clone()
     restore = lambda: st.copy_(st0)
     row("K6", n,
@@ -3609,9 +3703,37 @@ def main():
     phase("7b")
     levels = level_breakdown(torch, dev, card, r.scene, cfg, samples,
                              cmp_level)
-    bounces = bounce_breakdown(torch, card, pts, pcfg,
-                               pf["res"][0] * pf["res"][1] * pf["spp"],
-                               pt_frame, cmp_pt_bounce)
+    bounces, btile = bounce_breakdown(torch, card, pts, pcfg,
+                                      pf["res"][0] * pf["res"][1] * pf["spp"],
+                                      pt_frame, cmp_pt_bounce, cmp_pt_trace)
+    # the looped K6 on that tile: one launch for its every bounce.  Its
+    # floor: the camera rays read and the colours written once; each bounce
+    # with live paths reads their uniform rows and the tables; the state
+    # stays in the block's shared memory.
+    errs["K6loop"] = max(errs["K6loop"], btile["err"])
+    bo, bd, bt, bu, brr = (btile[k_] for k_ in ("o", "d", "time", "uniforms",
+                                                "rr"))
+    n = bo.shape[0]
+    n_ql = pts.qlight_pos.shape[0]
+    buni = CP._trace_uniforms(bu, n, n_ql)
+    grad_sky = pts.sky_mode == SKY_GRADIENT
+    rows3 = lambda: torch.empty((n, 3), device=dev)
+    bout = CP.Traced(rows3(), None if grad_sky else rows3(),
+                     None if grad_sky else rows3())
+    n_live = [int((st_[CP.ST_ALIVE] > 0).sum()) for st_ in btile["states"]]
+    loop_ops = sum(k6_bounce_ops(st_, bu.bounce(b_), brr)
+                   for b_, st_ in enumerate(btile["states"]) if n_live[b_])
+    loop_bytes = (n * f4(7 + (3 if grad_sky else 9))
+                  + sum(nl * f4(CP.UNIFORM_ROWS + 2 * n_ql)
+                        + K * f4(12 + 16) + n_pl * f4(6) + n_ql * f4(12)
+                        for nl in n_live if nl))
+    print(f"K6 looped launch (tile {btile['tile']}): live paths a bounce "
+          f"{n_live} | {card}")
+    row("K6loop", n,
+        lambda: CP.launch_trace(ptb, bo, bd, bt, buni, brr, grad_sky, bout),
+        lambda: CP.pt_trace_kernel(pts, bo, bd, bt, bu, brr, tables=ptb),
+        lambda: CP.pt_trace_plain(pts, bo, bd, bt, bu, brr, tables=ptb),
+        loop_bytes, loop_ops)
     # ---- 7c. K2 and K5 at each launch of the staged frames ----
     phase("7c")
     cost = {"bvh": (acc["cb"], acc["samples"]),

@@ -86,7 +86,9 @@ class RenderConfig:
     - ``russian_roulette``: path termination on the max throughput channel
                        with 1/p boost (P3D_RT.glsl:651-656).
     - ``pt_tile_rays``: path-tracer paths per tile (0 = no tiling); bounds
-                       the live per-bounce state.
+                       the per-bounce state and a tile's generator draws.
+                       On the card, paths with injected uniforms go to the
+                       looped K6 in one call (``pathtracer.trace_tiles``).
     """
 
     max_depth: int = 4

@@ -1,5 +1,6 @@
 // K4 pt_closest, K5 pt_any_hit and K6 pt_bounce: the GLSL path tracer's
-// scene queries and its fused bounce.
+// scene queries and its fused bounce, one bounce a launch or a path's whole
+// bounce loop in one launch.
 //
 // Replaces distributionraytracer_tpu/ops/pallas_pt.py:
 //   K4 pt_closest (_closest_kernel over _fold),
@@ -68,7 +69,18 @@
 //     below ended its spills);
 //   - the IEEE root of every missed sphere is skipped: quad_t returns on a
 //     negative (or NaN) discriminant before its sqrt and divisions (K4, K5
-//     too).  PERF.md records what each point bought on the card.
+//     too);
+//   - the path tracer's main route runs a path's whole bounce loop in one
+//     launch (pt_bounce_kernel_loop): a block keeps its lanes' 20 state
+//     rows in shared memory (~20 KB; two blocks an SM, as before), and
+//     before each bounce compacts its live lanes again, regroups, and runs
+//     the same body (bounce_lane) on that bounce's uniforms, read in place
+//     from the stacked tensors; it leaves when no lane is live.  A launch a
+//     bounce had the host pack each bounce's uniforms and launch 10 kernels
+//     a tile, ~100 us of host work against ~33 us of kernel, and every
+//     bounce's state went to memory and back.  The single-bounce
+//     pt_bounce_kernel runs the same body on a (20, R) state in global
+//     memory.  PERF.md records what each point bought on the card.
 // The winner's normal and material are fetched once, after the fold.
 // Skips that are exact:
 //   - K6 dead lanes (alive == 0) pass every state stream through unchanged
@@ -96,7 +108,10 @@
 //   K5 o, d (R,3), time (R,), tmax (R,) or a scalar -> occ (R,) u8; the
 //      table 16-byte aligned;
 //   K6 state (20,R) ox oy oz dx dy dz time col3 thr3 alive mw3 md3, read
-//      and written in place; uni (8+2*Lq,R) uch u3a3 u3b3 urr uq...
+//      and written in place; uni (8+2*Lq,R) uch u3a3 u3b3 urr uq...;
+//   looped K6 o, d (R,3), time (R,), the stacked uniforms uq (B,R,2q),
+//      uch (B,R), u3a, u3b (B,R,3), urr (B,R) through their strides ->
+//      col (R,3), and mw, md (R,3) for cubemap skies;
 // Each launch function returns cudaGetLastError().
 
 #include <cfloat>
@@ -108,6 +123,7 @@ namespace {
 
 constexpr int kThreads = 128;               // K4, K5: threads a block
 constexpr int kBounceThreads = drt::kLaneBlock;  // K6: threads, and lanes
+constexpr int kStateRows = 20;  // K6: rows of a lane's state
 constexpr int kU = drt::kUnroll;  // K5, K6: rows a thread tests side by side
 constexpr int kClosestU = 2;      // K4: rows a thread tests side by side
 constexpr int kRow = 12;
@@ -694,45 +710,80 @@ __global__ void __launch_bounds__(kThreads) pt_any_hit_kernel(
   occ[i] = any_rounds(table, T, S, T + S + M, r, time[i], tx) ? 1 : 0;
 }
 
-// Two blocks an SM: ptxas then has up to 128 registers a thread and
-// spills nothing (with no floor it may hold a kernel to 80 and spill in
-// the folds, as K3 measured).
-__global__ void __launch_bounds__(kBounceThreads, 2) pt_bounce_kernel(
+// K6's state of one lane: row k at p[k * stride], in the callers' (20, R)
+// tensor (the single-bounce launch) or in a block's (20, kBounceThreads)
+// rows in shared memory (the looped launch).
+struct StateRows {
+  float* p;
+  size_t stride;
+  __device__ __forceinline__ float& operator[](int k) const {
+    return p[k * stride];
+  }
+};
+
+// One lane's uniforms of one bounce: the branch choice ch, the two
+// direction samples a(0..2) and b(0..2), the roulette's rr, and quad light
+// j's jitter q(2j), q(2j + 1).  StreamUniforms reads them from the
+// (8 + 2 * n_ql, R) streams of the single-bounce launch.
+struct StreamUniforms {
+  const float* p;  // the lane's column
+  size_t stride;   // R
+  __device__ __forceinline__ float ch() const { return p[0]; }
+  __device__ __forceinline__ float a(int k) const {
+    return p[(1 + k) * stride];
+  }
+  __device__ __forceinline__ float b(int k) const {
+    return p[(4 + k) * stride];
+  }
+  __device__ __forceinline__ float rr() const { return p[7 * stride]; }
+  __device__ __forceinline__ float q(int k) const {
+    return p[(8 + k) * stride];
+  }
+};
+
+// The looped launch's uniforms: BounceUniforms' stacked tensors uq
+// (B,R,2q), uch (B,R), u3a and u3b (B,R,3) and urr (B,R), in that order,
+// each read in place through its bounce and lane strides (in elements; a
+// vector's components adjacent).
+struct BounceUniforms {
+  const float* p[5];
+  long long sb[5], sr[5];
+};
+
+struct StackedUniforms {
+  const BounceUniforms& u;
+  int bounce;
+  long long lane;
+  __device__ __forceinline__ float at(int x, int k) const {
+    return __ldg(u.p[x] + bounce * u.sb[x] + lane * u.sr[x] + k);
+  }
+  __device__ __forceinline__ float ch() const { return at(1, 0); }
+  __device__ __forceinline__ float a(int k) const { return at(2, k); }
+  __device__ __forceinline__ float b(int k) const { return at(3, k); }
+  __device__ __forceinline__ float rr() const { return at(4, 0); }
+  __device__ __forceinline__ float q(int k) const { return at(0, k); }
+};
+
+// K6's body: one bounce of one live lane after the block's compaction
+// (closest hit, lights and shadow folds, scatter, roulette), its state's
+// rows updated in place.  The lane's group of grp.size threads runs it
+// together; a return ends the thread's bounce.
+template <class Uni>
+__device__ __forceinline__ void bounce_lane(
     const float* __restrict__ table, const float* __restrict__ mrow, int T,
     int S, int M, const float* __restrict__ plights, int n_pl,
-    const float* __restrict__ qlights, int n_ql, float* __restrict__ state,
-    const float* __restrict__ uni, int n, int rr, int grad_sky) {
-  __shared__ int s_lane[kBounceThreads];
-  __shared__ float s_time[kBounceThreads];
-  __shared__ int s_warp[kBounceThreads / 32];
-  const size_t N = n;
-  const int i = blockIdx.x * kBounceThreads + threadIdx.x;
-  bool live = false;
-  float time = 0.0f;
-  if (i < n) {  // one coalesced pass over every lane's time and flag
-    time = state[6 * N + i];
-    state[6 * N + i] = 0.0f;  // scattered rays carry time 0 (common.glsl:43-46)
-    live = state[13 * N + i] > 0.0f;  // a dead lane's state passes through
-  }
-  const int n_live = drt::compact_lanes<kBounceThreads>(live, i, time,
-                                                        s_lane, s_time,
-                                                        s_warp);
-  if (n_live == 0) return;
-  const drt::Group grp = drt::make_group(n_live, kBounceThreads);
-  if (!grp.active) return;  // whole groups: no vote or shuffle misses them
+    const float* __restrict__ qlights, int n_ql, const drt::Group& grp,
+    const StateRows& st, float time, const Uni& uni, int rr, int grad_sky) {
   // A block whose live lanes fill its threads (G = 1) runs the serial
   // folds, whose loops the compiler unrolls itself; the others split
   // theirs over their groups.
   const bool serial = grp.size == 1;
   const int K = T + S + M;
   const bool writer = grp.sub == 0;
-  const int i_lane = s_lane[grp.slot];
-  time = s_time[grp.slot];
-  float* st = state + i_lane;  // row k of the lane's state at st[k * N]
 
-  const Ray r{st[0], st[N], st[2 * N], st[3 * N], st[4 * N], st[5 * N]};
-  float col[3] = {st[7 * N], st[8 * N], st[9 * N]};
-  float thr[3] = {st[10 * N], st[11 * N], st[12 * N]};
+  const Ray r{st[0], st[1], st[2], st[3], st[4], st[5]};
+  float col[3] = {st[7], st[8], st[9]};
+  float thr[3] = {st[10], st[11], st[12]};
 
   // ---- closest hit, the winner's normal ----
   float t_hit, nrm[3];
@@ -753,16 +804,16 @@ __global__ void __launch_bounds__(kBounceThreads, 2) pt_bounce_kernel(
                             1.0f - tsky + tsky * 0.7f,
                             1.0f - tsky + tsky * 1.0f};
 #pragma unroll
-      for (int k = 0; k < 3; ++k) st[(7 + k) * N] = col[k] + thr[k] * sky[k];
+      for (int k = 0; k < 3; ++k) st[7 + k] = col[k] + thr[k] * sky[k];
     } else {
       // latch (throughput, direction) for the cubemap gather
 #pragma unroll
-      for (int k = 0; k < 3; ++k) st[(14 + k) * N] = thr[k];
-      st[17 * N] = r.dx;
-      st[18 * N] = r.dy;
-      st[19 * N] = r.dz;
+      for (int k = 0; k < 3; ++k) st[14 + k] = thr[k];
+      st[17] = r.dx;
+      st[18] = r.dy;
+      st[19] = r.dz;
     }
-    st[13 * N] = 0.0f;
+    st[13] = 0.0f;
     return;
   }
 
@@ -820,8 +871,8 @@ __global__ void __launch_bounds__(kBounceThreads, 2) pt_bounce_kernel(
   const float gview[3] = {-v[0], -v[1], -v[2]};
   for (int j = 0; j < n_ql; ++j) {
     const float* Q = qlights + (size_t)j * 12;
-    const float u1 = uni[(8 + 2 * j) * N + i_lane];
-    const float u2 = uni[(9 + 2 * j) * N + i_lane];
+    const float u1 = uni.q(2 * j);
+    const float u2 = uni.q(2 * j + 1);
     float l[3];
 #pragma unroll
     for (int k = 0; k < 3; ++k)
@@ -833,16 +884,14 @@ __global__ void __launch_bounds__(kBounceThreads, 2) pt_bounce_kernel(
   }
 
   // ---- scatter (common.glsl:300-407) ----
-  const float uch = uni[i_lane];
+  const float uch = uni.ch();
   const bool outside = (r.dx * nv[0] + r.dy * nv[1] + r.dz * nv[2]) < 0.0f;
   const float sgn = outside ? 1.0f : -1.0f;
   const float Nn[3] = {nv[0] * sgn, nv[1] * sgn, nv[2] * sgn};
   float ua[3], sb[3];
-  unit_sphere(uni[N + i_lane], uni[2 * N + i_lane], uni[3 * N + i_lane],
-              ua);
+  unit_sphere(uni.a(0), uni.a(1), uni.a(2), ua);
   norm3(ua[0], ua[1], ua[2]);
-  unit_sphere(uni[4 * N + i_lane], uni[5 * N + i_lane], uni[6 * N + i_lane],
-              sb);
+  unit_sphere(uni.b(0), uni.b(1), uni.b(2), sb);
 
   const bool is_dif = m.typ == kDiffuse, is_met = m.typ == kMetal;
   const bool is_die = m.typ == kDielectric;
@@ -943,7 +992,7 @@ __global__ void __launch_bounds__(kBounceThreads, 2) pt_bounce_kernel(
     for (int k = 0; k < 3; ++k) thr[k] = thr[k] * atten[k];
     if (rr) {  // Russian roulette (P3D_RT.glsl:651-656)
       const float pmax = fmaxf(thr[0], fmaxf(thr[1], thr[2]));
-      if (uni[7 * N + i_lane] > pmax) {
+      if (uni.rr() > pmax) {
         alive2 = false;
       } else {
         const float boost = 1.0f / fmaxf(pmax, 1e-12f);
@@ -955,18 +1004,117 @@ __global__ void __launch_bounds__(kBounceThreads, 2) pt_bounce_kernel(
 
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    st[(7 + k) * N] = col[k];
-    st[(10 + k) * N] = thr[k];
+    st[7 + k] = col[k];
+    st[10 + k] = thr[k];
   }
   if (alive2) {
     const float off = refract_dir ? -kEps : kEps;
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
-      st[k * N] = p[k] + Nn[k] * off;
-      st[(3 + k) * N] = new_d[k];
+      st[k] = p[k] + Nn[k] * off;
+      st[3 + k] = new_d[k];
     }
   }
-  st[13 * N] = alive2 ? 1.0f : 0.0f;
+  st[13] = alive2 ? 1.0f : 0.0f;
+}
+
+// Two blocks an SM: ptxas then has up to 128 registers a thread and
+// spills nothing (with no floor it may hold a kernel to 80 and spill in
+// the folds, as K3 measured).  One bounce of every lane of a (20, R) state
+// in global memory.
+__global__ void __launch_bounds__(kBounceThreads, 2) pt_bounce_kernel(
+    const float* __restrict__ table, const float* __restrict__ mrow, int T,
+    int S, int M, const float* __restrict__ plights, int n_pl,
+    const float* __restrict__ qlights, int n_ql, float* __restrict__ state,
+    const float* __restrict__ uni, int n, int rr, int grad_sky) {
+  __shared__ int s_lane[kBounceThreads];
+  __shared__ float s_time[kBounceThreads];
+  __shared__ int s_warp[kBounceThreads / 32];
+  const size_t N = n;
+  const int i = blockIdx.x * kBounceThreads + threadIdx.x;
+  bool live = false;
+  float time = 0.0f;
+  if (i < n) {  // one coalesced pass over every lane's time and flag
+    time = state[6 * N + i];
+    state[6 * N + i] = 0.0f;  // scattered rays carry time 0 (common.glsl:43-46)
+    live = state[13 * N + i] > 0.0f;  // a dead lane's state passes through
+  }
+  const int n_live = drt::compact_lanes<kBounceThreads>(live, i, time,
+                                                        s_lane, s_time,
+                                                        s_warp);
+  if (n_live == 0) return;
+  const drt::Group grp = drt::make_group(n_live, kBounceThreads);
+  if (!grp.active) return;  // whole groups: no vote or shuffle misses them
+  const int i_lane = s_lane[grp.slot];
+  bounce_lane(table, mrow, T, S, M, plights, n_pl, qlights, n_ql, grp,
+              StateRows{state + i_lane, N}, s_time[grp.slot],
+              StreamUniforms{uni + i_lane, N}, rr, grad_sky);
+}
+
+// The looped K6: every bounce of a block's paths in one launch.  The block
+// keeps its kBounceThreads lanes' state rows in shared memory from the
+// camera rays to the last bounce; before each bounce it compacts its live
+// lanes again and picks its group size, as a launch a bounce does, and it
+// leaves the loop when none is left.  Every thread reaches each bounce's
+// barriers: a lane's early return ends its bounce, not its loop.  Writes
+// col (R,3) and, for cubemap skies, the latched (throughput, direction)
+// rows mw and md (R,3); with `live_count` (B,) given, thread 0 adds its
+// block's live lanes at each bounce's start.
+__global__ void __launch_bounds__(kBounceThreads, 2) pt_bounce_kernel_loop(
+    const float* __restrict__ table, const float* __restrict__ mrow, int T,
+    int S, int M, const float* __restrict__ plights, int n_pl,
+    const float* __restrict__ qlights, int n_ql, const float* __restrict__ o,
+    const float* __restrict__ d, const float* __restrict__ time_in, int n,
+    int n_bounces, const BounceUniforms uni, int rr, int grad_sky,
+    float* __restrict__ col, float* __restrict__ mw, float* __restrict__ md,
+    int* __restrict__ live_count) {
+  __shared__ float s_st[kStateRows * kBounceThreads];
+  __shared__ int s_lane[kBounceThreads];
+  __shared__ float s_time[kBounceThreads];
+  __shared__ int s_warp[kBounceThreads / 32];
+  const int base = blockIdx.x * kBounceThreads;
+  const int i = base + threadIdx.x;
+  const bool in = i < n;
+  const StateRows mine{s_st + threadIdx.x, kBounceThreads};
+  // bounce_state's rows: the camera ray, colour 0, throughput 1, alive, no
+  // latched miss; lanes past n are dead
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    mine[k] = in ? o[3 * i + k] : 0.0f;
+    mine[3 + k] = in ? d[3 * i + k] : 0.0f;
+    mine[7 + k] = 0.0f;
+    mine[10 + k] = 1.0f;
+    mine[14 + k] = 0.0f;
+    mine[17 + k] = 0.0f;
+  }
+  mine[6] = in ? time_in[i] : 0.0f;
+  mine[13] = in ? 1.0f : 0.0f;
+  for (int b = 0; b < n_bounces; ++b) {
+    const float time = mine[6];
+    mine[6] = 0.0f;  // scattered rays carry time 0 (common.glsl:43-46)
+    const int n_live = drt::compact_lanes<kBounceThreads>(
+        mine[13] > 0.0f, threadIdx.x, time, s_lane, s_time, s_warp);
+    if (live_count != nullptr && threadIdx.x == 0 && n_live > 0)
+      atomicAdd(live_count + b, n_live);
+    if (n_live == 0) break;  // the block's count: every thread leaves
+    const drt::Group grp = drt::make_group(n_live, kBounceThreads);
+    if (grp.active) {  // whole groups: no vote or shuffle misses them
+      const int lane = s_lane[grp.slot];
+      bounce_lane(table, mrow, T, S, M, plights, n_pl, qlights, n_ql, grp,
+                  StateRows{s_st + lane, kBounceThreads}, s_time[grp.slot],
+                  StackedUniforms{uni, b, base + lane}, rr, grad_sky);
+    }
+    __syncthreads();  // the bounce's writes before the next compaction
+  }
+  if (!in) return;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    col[3 * i + k] = mine[7 + k];
+    if (!grad_sky) {
+      mw[3 * i + k] = mine[14 + k];
+      md[3 * i + k] = mine[17 + k];
+    }
+  }
 }
 
 int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
@@ -1020,6 +1168,39 @@ extern "C" int drt_pt_bounce(const void* table, const void* mrow, int T,
         S, M, static_cast<const float*>(plights), n_pl,
         static_cast<const float*>(qlights), n_ql, static_cast<float*>(state),
         static_cast<const float*>(uni), n, rr, grad_sky);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// uni: the device pointers of BounceUniforms' five tensors (uq, uch, u3a,
+// u3b, urr); strides: their bounce strides, then their lane strides, in
+// elements; both arrays on the host.  mw, md: null for the gradient sky;
+// live: (n_bounces,) i32 to add each bounce's live lanes to, or null.
+extern "C" int drt_pt_trace(const void* table, const void* mrow, int T,
+                            int S, int M, const void* plights, int n_pl,
+                            const void* qlights, int n_ql, const void* o,
+                            const void* d, const void* time, int n,
+                            int n_bounces, const void* const* uni,
+                            const long long* strides, int rr, int grad_sky,
+                            void* col, void* mw, void* md, void* live,
+                            void* stream) {
+  if (n > 0) {
+    BounceUniforms u;
+    for (int x = 0; x < 5; ++x) {
+      u.p[x] = static_cast<const float*>(uni[x]);
+      u.sb[x] = strides[x];
+      u.sr[x] = strides[5 + x];
+    }
+    pt_bounce_kernel_loop<<<(n + kBounceThreads - 1) / kBounceThreads,
+                            kBounceThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(table), static_cast<const float*>(mrow), T,
+        S, M, static_cast<const float*>(plights), n_pl,
+        static_cast<const float*>(qlights), n_ql,
+        static_cast<const float*>(o), static_cast<const float*>(d),
+        static_cast<const float*>(time), n, n_bounces, u, rr, grad_sky,
+        static_cast<float*>(col), static_cast<float*>(mw),
+        static_cast<float*>(md), static_cast<int*>(live));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -21,23 +21,27 @@ Counterpart of ``distributionraytracer_tpu.integrator.pathtracer``.
 - miss: sky gradient (scene 0) or GL cubemap with SRGBToLinear (x1 or x3,
   P3D_RT.glsl:661-671).
 
-``ray_color`` has the JAX package's two bodies: the fused body, one K6
-``pt_bounce`` per bounce with the cubemap miss latched and gathered once
-after the loop, and the staged body (closest query, per-light occlusion,
-direct light, ``scatter``, roulette, sky) over a :class:`PTQueries` pair.
-Random numbers come from a ``torch.Generator``, drawn per bounce in one
-fixed order by both bodies, or are injected (:class:`BounceUniforms`).
+``ray_color`` has the JAX package's two bodies: the fused body, K6 with
+the cubemap miss latched and gathered once after the loop, and the staged
+body (closest query, per-light occlusion, direct light, ``scatter``,
+roulette, sky) over a :class:`PTQueries` pair.  The fused body is one
+``cuda_pt.pt_trace`` call for every bounce: one looped K6 launch on CUDA
+tensors, B plain bounces on CPU tensors.  Random numbers come from a
+``torch.Generator``, drawn per bounce in one fixed order by both bodies
+(the looped launch draws its B bounces up front in that order:
+:func:`draw_bounces`), or are injected (:class:`BounceUniforms`).
 
 GLSL leaves ``atten`` undefined on some non-writing paths (out-param
 semantics); those paths use atten = 1 here, documented deviations.
 
 Spans and counters (``utils/spans.py``, off by default): ``pt.frame``
 (``render_pt``), ``pt.tile`` (one ``ray_color`` call of
-``ray_color_tiled``), ``pt.bounce`` (one bounce of either body),
-``pt.intersect`` (the staged body's queries), ``pt.sky`` (the fused
-body's cubemap gather); ``pt.paths`` (a tile's paths at each bounce) and
-``pt.paths_live`` (those alive at the bounce's start, counted on the
-device only while the recorder is on).
+``ray_color_tiled``), ``pt.bounce`` (one bounce of the staged body; the
+fused body's one ``pt_trace`` call, every bounce), ``pt.intersect`` (the staged body's
+queries), ``pt.sky`` (the fused body's cubemap gather); ``pt.paths`` (a
+tile's paths at each bounce) and ``pt.paths_live`` (those alive at the
+bounce's start, counted on the device only while the recorder is on: by
+the looped K6 itself on CUDA tensors).
 """
 
 from __future__ import annotations
@@ -466,13 +470,31 @@ class BounceUniforms(NamedTuple):
         return BounceUniforms(*(x.to(device) for x in self))
 
 
+def _uniform_shapes(scene: PTScene, R: int):
+    nq = max(scene.qlight_pos.shape[0], 1)
+    return (R, 2 * nq), (R,), (R, 3), (R, 3), (R,)
+
+
 def draw_uniforms(scene: PTScene, R: int, generator: torch.Generator,
                   device) -> BounceUniforms:
     """One bounce's uniforms, drawn in the fixed order uq, uch, u3a, u3b,
     urr (both bodies of ``ray_color`` draw them so)."""
-    nq = max(scene.qlight_pos.shape[0], 1)
-    u = lambda *shape: torch.rand(shape, generator=generator, device=device)
-    return BounceUniforms(u(R, 2 * nq), u(R), u(R, 3), u(R, 3), u(R))
+    return BounceUniforms(*(torch.rand(sh, generator=generator, device=device)
+                            for sh in _uniform_shapes(scene, R)))
+
+
+def draw_bounces(scene: PTScene, R: int, B: int, generator: torch.Generator,
+                 device) -> BounceUniforms:
+    """B bounces' uniforms drawn up front and stacked (B, R, ...): the
+    numbers, in the order, of B :func:`draw_uniforms` calls, one a
+    bounce."""
+    shapes = _uniform_shapes(scene, R)
+    out = BounceUniforms(*(torch.empty((B,) + sh, device=device)
+                           for sh in shapes))
+    for b in range(B):
+        for x, sh in zip(out, shapes):
+            torch.rand(sh, generator=generator, out=x[b])
+    return out
 
 
 @dataclasses.dataclass
@@ -518,11 +540,11 @@ def ray_color(scene: PTScene, cfg: RenderConfig, o, d, time,
               tables: Optional[CP.PTTables] = None):
     """Trace a batch of camera rays to radiance (P3D_RT.glsl:583-676).
 
-    ``queries=None`` takes the fused body (K6 on CUDA tensors, its plain
-    version on CPU tensors) unless ``cfg.kernels == 'off'``, which takes
-    the staged body with :func:`plain_queries`; ``queries`` given takes
-    the staged body with them (``kernel_queries(scene)``: K4 and K5).
-    ``uniforms`` (stacked over bounces) replaces the generator's draws."""
+    ``queries=None`` takes the fused body (the looped K6, ``pt_trace``)
+    unless ``cfg.kernels == 'off'``, which takes the staged body with
+    :func:`plain_queries`; ``queries`` given takes the staged body with
+    them (``kernel_queries(scene)``: K4 and K5).  ``uniforms`` (stacked over bounces) replaces the generator's
+    draws."""
     R = o.shape[0]
     if generator is None and uniforms is None:
         generator = torch.Generator(device=o.device).manual_seed(0)
@@ -534,41 +556,44 @@ def ray_color(scene: PTScene, cfg: RenderConfig, o, d, time,
 
     if queries is None and cfg.kernels == "off":
         queries = plain_queries(scene)
-    if queries is None:
-        return _ray_color_fused(scene, cfg, o, d, time, draws, tables)
-    return _ray_color_staged(scene, cfg, o, d, time, draws, queries)
+    if queries is not None:
+        return _ray_color_staged(scene, cfg, o, d, time, draws, queries)
+    B = cfg.max_bounces
+    if uniforms is None:
+        uniforms = draw_bounces(scene, R, B, generator, o.device)
+    elif uniforms.uch.shape[0] < B:
+        raise ValueError(f"ray_color: uniforms of {uniforms.uch.shape[0]} "
+                         f"bounces for {B}")
+    return _ray_color_fused(scene, cfg, o, d, time,
+                            BounceUniforms(*(x[:B] for x in uniforms)),
+                            tables)
 
 
 def _sky_factor(scene: PTScene) -> float:
     return 3.0 if scene.sky_mode == SKY_CUBEMAP_X3 else 1.0
 
 
-def _ray_color_fused(scene, cfg, o, d, time, draws, tables):
-    """One K6 launch per bounce.  The state is one (S, R) tensor that the
-    kernel updates in place.  Cubemap skies latch (throughput, direction)
-    at the miss bounce — misses are terminal — and pay one texel gather
-    per path after the loop (P3D_RT.glsl:661-671)."""
+def _sky_gather(scene, col, mw, md):
+    """Cubemap skies latch (throughput, direction) at the miss bounce —
+    misses are terminal — and pay one texel gather per path after the
+    loop (P3D_RT.glsl:661-671)."""
+    if scene.sky_mode == SKY_GRADIENT:
+        return col
+    with spans.span("pt.sky"):
+        tex = srgb_to_linear(gl_cubemap_color(scene.sky_faces, scene.sky_res,
+                                              md))
+        return col + mw * tex * _sky_factor(scene)
+
+
+def _ray_color_fused(scene, cfg, o, d, time, uniforms, tables):
+    """The looped K6 (``cuda_pt.pt_trace``): every bounce of every path in
+    one call, one launch on CUDA tensors, on the stacked ``uniforms`` of
+    ``cfg.max_bounces`` bounces."""
     tb = tables if tables is not None else CP.pt_tables(scene)
-    n_ql = scene.qlight_pos.shape[0]
-    state = CP.bounce_state(o, d, time)
-    for b in range(cfg.max_bounces):
-        with spans.span("pt.bounce"):
-            spans.count("pt.paths", o.shape[0])
-            if spans.enabled():
-                spans.count_device("pt.paths_live",
-                                   torch.count_nonzero(state[CP.ST_ALIVE]))
-            u = draws(b)
-            CP.pt_bounce(scene, state,
-                         CP.bounce_streams(u.uch, u.u3a, u.u3b, u.urr, u.uq,
-                                           n_ql),
-                         cfg.russian_roulette, tables=tb)
-    col = state[CP.ST_COL].T
-    if scene.sky_mode != SKY_GRADIENT:
-        with spans.span("pt.sky"):
-            tex = srgb_to_linear(gl_cubemap_color(
-                scene.sky_faces, scene.sky_res, state[CP.ST_MD].T))
-            col = col + state[CP.ST_MW].T * tex * _sky_factor(scene)
-    return col
+    with spans.span("pt.bounce"):
+        out = CP.pt_trace(scene, o, d, time, uniforms, cfg.russian_roulette,
+                          tables=tb)
+    return _sky_gather(scene, out.col, out.mw, out.md)
 
 
 def _ray_color_staged(scene, cfg, o, d, time, draws, queries: PTQueries):
@@ -651,22 +676,42 @@ def _ray_color_staged(scene, cfg, o, d, time, draws, queries: PTQueries):
     return col
 
 
+def trace_tiles(R: int, cfg: RenderConfig, device, injected: bool,
+                queries: Optional[PTQueries] = None):
+    """The lane ranges ``[(a, b), ...]`` of :func:`ray_color_tiled`'s
+    ``ray_color`` calls.
+
+    Where the looped K6 launches (the fused body on CUDA tensors) on
+    injected uniforms, one range of all R paths: the launch keeps each
+    block's state on the chip, and one launch over the frame leaves one
+    tail where a launch a tile leaves one each (an 800x600 spp16 frame of
+    scene 0 on an H100: about 19 ms a frame against 26).  Otherwise tiles
+    of ``cfg.pt_tile_rays`` paths (0: one tile), the last shorter: a
+    generator draws each tile's uniforms in turn (so its image stays what
+    tiles give), and the plain versions' per-bounce planes grow with the
+    tile."""
+    whole = (injected and queries is None and cfg.kernels != "off"
+             and torch.device(device).type == "cuda")
+    tile = R if whole else (min(cfg.pt_tile_rays, R) if cfg.pt_tile_rays
+                            else R)
+    tile = max(tile, 1)
+    return [(a, min(a + tile, R)) for a in range(0, R, tile)]
+
+
 def ray_color_tiled(scene: PTScene, cfg: RenderConfig, o, d, time,
                     generator: Optional[torch.Generator] = None,
                     uniforms: Optional[BounceUniforms] = None,
                     queries: Optional[PTQueries] = None):
-    """``ray_color`` over tiles of ``cfg.pt_tile_rays`` paths (0: one tile).
-
-    Bounds the live per-bounce state whatever the frame size.  Tiles draw
-    from one generator in turn; the last tile is shorter, not padded."""
+    """``ray_color`` over the lane ranges of :func:`trace_tiles`: tiles of
+    ``cfg.pt_tile_rays`` paths, or one call over all R where the looped K6
+    takes injected uniforms.  Tiles draw from one generator in turn; the
+    last tile is shorter, not padded."""
     R = o.shape[0]
-    tile = max(min(cfg.pt_tile_rays, R) if cfg.pt_tile_rays else R, 1)
     tb = CP.pt_tables(scene) if queries is None else None
     if generator is None and uniforms is None:
         generator = torch.Generator(device=o.device).manual_seed(0)
     cols = []
-    for a in range(0, R, tile):
-        b = min(a + tile, R)
+    for a, b in trace_tiles(R, cfg, o.device, uniforms is not None, queries):
         with spans.span("pt.tile"):
             cols.append(ray_color(
                 scene, cfg, o[a:b], d[a:b], time[a:b], generator,

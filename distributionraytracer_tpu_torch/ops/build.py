@@ -77,6 +77,11 @@ SIGNATURES = {
     # state, uniforms, n, russian_roulette, gradient_sky, stream
     "drt_pt_bounce": [_P, _P, _I, _I, _I, _P, _I, _P, _I, _P, _P, _I, _I,
                       _I, _P],
+    # table, mrow, n_tri, n_sph, n_msph, plights, n_pl, qlights, n_ql, o,
+    # d, time, n, n_bounces, uniform pointers, uniform strides,
+    # russian_roulette, gradient_sky, col, mw, md, live, stream
+    "drt_pt_trace": [_P, _P, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P, _I, _I,
+                     _P, _P, _I, _I, _P, _P, _P, _P, _P],
 }
 
 

@@ -14,13 +14,19 @@ Dispatch is by the tensors' device: CPU tensors take the plain version,
 CUDA tensors launch the kernel (a failed build or launch raises).  Each
 launch adds one to ``LAUNCHES``.
 
-K6 keeps a tile's path state in one contiguous ``(STATE_ROWS, R)`` f32
-tensor and updates it in place each bounce, so no bounce re-stacks its
-state streams.
+K6 runs one bounce a launch (:func:`pt_bounce`) on a tile's path state in
+one contiguous ``(STATE_ROWS, R)`` f32 tensor, updated in place, or a
+path's whole bounce loop in one launch (:func:`pt_trace`, the path
+tracer's fused body), which keeps each block's state on the chip
+and reads every bounce's uniforms in place from the stacked
+:class:`~distributionraytracer_tpu_torch.integrator.pathtracer.BounceUniforms`.
+Its plain version, :func:`pt_trace_plain`, is B bounces of
+:func:`pt_bounce_plain`.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -29,7 +35,7 @@ import torch
 from distributionraytracer_tpu_torch.integrator import pathtracer as PT
 from distributionraytracer_tpu_torch.ops import build
 from distributionraytracer_tpu_torch.ops.cuda_intersect import (
-    ray_inputs, require_cuda,
+    ray_inputs, refuse_grad, require_cuda,
 )
 from distributionraytracer_tpu_torch.scene.pt_scenes import (
     MT_DIELECTRIC, MT_DIFFUSE, MT_METAL, MT_PLASTIC, PTScene, SKY_GRADIENT,
@@ -40,7 +46,7 @@ EPS = 1e-3  # common.glsl:7
 PI = float(np.float32(3.14159265358979))
 
 # Kernel launches since the last reset_launches(), by kernel.
-LAUNCHES = {"pt_closest": 0, "pt_any_hit": 0, "pt_bounce": 0}
+LAUNCHES = {"pt_closest": 0, "pt_any_hit": 0, "pt_bounce": 0, "pt_trace": 0}
 
 # Rows of K6's in-place path state (STATE_ROWS, R).
 ST_O, ST_D, ST_TIME = slice(0, 3), slice(3, 6), 6
@@ -523,3 +529,123 @@ def pt_bounce(scene: PTScene, state, uni, rr: bool,
     if state.device.type == "cpu":
         return pt_bounce_plain(scene, state, uni, rr, tables)
     return pt_bounce_kernel(scene, state, uni, rr, tables)
+
+
+# ------------------------------------------------------------- looped K6
+class Traced(NamedTuple):
+    """The looped K6's outputs: each path's colour (R,3) and, for cubemap
+    skies (None under the gradient sky), the throughput and direction
+    latched at its miss (R,3), zero where it never missed."""
+
+    col: torch.Tensor
+    mw: Optional[torch.Tensor]
+    md: Optional[torch.Tensor]
+
+
+def _trace_uniforms(uniforms, R: int, n_ql: int):
+    """The stacked uniforms as f32 tensors the looped K6 reads in place
+    through their bounce and lane strides: shapes and devices checked, a
+    vector's components adjacent (a copy only where they are not)."""
+    B = uniforms.uch.shape[0]
+    tails = ((2 * max(n_ql, 1),), (), (3,), (3,), ())
+    out = []
+    for name, x, tail in zip(uniforms._fields, uniforms, tails):
+        x = x.to(torch.float32)
+        if tuple(x.shape) != (B, R) + tail:
+            raise ValueError(f"pt_trace: {name} must be "
+                             f"{(B, R) + tail}, got {tuple(x.shape)}")
+        if x.dim() == 3 and x.stride(2) != 1:
+            x = x.contiguous()
+        out.append(x)
+    return type(uniforms)(*out)
+
+
+def launch_trace(tb: PTTables, o, d, time, uni, rr: bool, grad_sky: bool,
+                 out: Traced, live=None):
+    """The looped K6 on (R,3) o and d and (R,) f32 time, read in place,
+    over every bounce of the stacked uniforms ``uni``, into ``out``'s
+    tensors; ``live`` (B,) i32, if given, gains each bounce's live paths."""
+    ptrs = (ctypes.c_void_p * 5)(*(x.data_ptr() for x in uni))
+    strides = (ctypes.c_longlong * 10)(*(x.stride(0) for x in uni),
+                                       *(x.stride(1) for x in uni))
+    ptr = lambda x: None if x is None else x.data_ptr()
+    with torch.cuda.device(o.device):
+        err = build.load().lib.drt_pt_trace(
+            tb.data.data_ptr(), tb.mrow.data_ptr(), *tb.counts,
+            tb.plights.data_ptr(), tb.plights.shape[0],
+            tb.qlights.data_ptr(), tb.qlights.shape[0], o.data_ptr(),
+            d.data_ptr(), time.data_ptr(), o.shape[0], uni.uch.shape[0],
+            ptrs, strides, int(rr), int(grad_sky), out.col.data_ptr(),
+            ptr(out.mw), ptr(out.md), ptr(live), _stream())
+    build.check(err, "drt_pt_trace")
+
+
+def pt_trace_plain(scene: PTScene, o, d, time, uniforms, rr: bool,
+                   tables: Optional[PTTables] = None) -> Traced:
+    """The looped K6's plain version: B bounces of :func:`pt_bounce_plain`
+    on one ``(STATE_ROWS, R)`` state, bounce b on ``uniforms.bounce(b)``."""
+    tb = _tables(scene, tables)
+    n_ql = scene.qlight_pos.shape[0]
+    B = uniforms.uch.shape[0]
+    state = bounce_state(o, d, time)
+    live = (torch.zeros((), dtype=torch.int64, device=o.device)
+            if spans.enabled() else None)
+    for b in range(B):
+        if live is not None:
+            live += torch.count_nonzero(state[ST_ALIVE])
+        u = uniforms.bounce(b)
+        pt_bounce_plain(scene, state, bounce_streams(
+            u.uch, u.u3a, u.u3b, u.urr, u.uq, n_ql), rr, tb)
+    _count_paths(o.shape[0] * B, live)
+    if scene.sky_mode == SKY_GRADIENT:
+        return Traced(state[ST_COL].T, None, None)
+    return Traced(state[ST_COL].T, state[ST_MW].T, state[ST_MD].T)
+
+
+def _count_paths(paths: int, live):
+    """``pt.paths`` and, while the recorder is on, ``pt.paths_live``: the
+    counts of one bounce loop, as a launch a bounce gives them."""
+    spans.count("pt.paths", paths)
+    if live is not None:
+        spans.count_device("pt.paths_live", live)
+
+
+def pt_trace_kernel(scene: PTScene, o, d, time, uniforms, rr: bool,
+                    tables: Optional[PTTables] = None) -> Traced:
+    """The looped K6 on CUDA tensors: every bounce of the paths from camera
+    rays ``o``, ``d`` (R,3) at ``time`` (R,), one bounce a leading index of
+    the stacked ``uniforms`` (``pathtracer.BounceUniforms``, (B, R, ...)),
+    in one launch; the live paths of each bounce are summed on the card."""
+    tb = _tables(scene, tables)
+    R = o.shape[0]
+    time = time.to(torch.float32).contiguous()
+    o, d = ray_inputs("pt_trace", o, d, time)
+    require_cuda("pt_trace", o, tb.data, tb.mrow, tb.plights, tb.qlights)
+    uni = _trace_uniforms(uniforms, R, tb.qlights.shape[0])
+    refuse_grad("pt_trace", *uni)
+    for x in uni:
+        if x.device != o.device:
+            raise ValueError(f"pt_trace: uniforms on {x.device}, rays on "
+                             f"{o.device}")
+    B = uni.uch.shape[0]
+    grad_sky = scene.sky_mode == SKY_GRADIENT
+    rows = lambda: torch.empty((R, 3), dtype=torch.float32, device=o.device)
+    out = Traced(rows(), None if grad_sky else rows(),
+                 None if grad_sky else rows())
+    live = (torch.zeros((B,), dtype=torch.int32, device=o.device)
+            if spans.enabled() else None)
+    launch_trace(tb, o, d, time, uni, rr, grad_sky, out, live)
+    LAUNCHES["pt_trace"] += 1
+    _count_paths(R * B, None if live is None else live.sum())
+    return out
+
+
+def pt_trace(scene: PTScene, o, d, time, uniforms, rr: bool,
+             tables: Optional[PTTables] = None) -> Traced:
+    """The looped K6: the plain version for CPU tensors, one launch for
+    every bounce on CUDA tensors.  Counts ``pt.paths`` (R a bounce) and,
+    while the recorder is on, ``pt.paths_live`` (those alive at each
+    bounce's start)."""
+    if o.device.type == "cpu":
+        return pt_trace_plain(scene, o, d, time, uniforms, rr, tables)
+    return pt_trace_kernel(scene, o, d, time, uniforms, rr, tables)

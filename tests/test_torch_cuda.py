@@ -701,13 +701,14 @@ def test_pt_scene_without_primitives_launches_kernels(dev, si):
     CP.reset_launches()
     fused = run(cfg)
     torch.cuda.synchronize()
-    assert CP.LAUNCHES == {"pt_closest": 0, "pt_any_hit": 0, "pt_bounce": 3}
+    assert CP.LAUNCHES == {"pt_closest": 0, "pt_any_hit": 0, "pt_bounce": 0,
+                           "pt_trace": 1}
     CP.reset_launches()
     staged = run(cfg, PT.kernel_queries(scene))
     torch.cuda.synchronize()
     n_pl = scene.plight_pos.shape[0]
     assert CP.LAUNCHES == {"pt_closest": 3, "pt_any_hit": 3 * n_pl,
-                           "pt_bounce": 0}
+                           "pt_bounce": 0, "pt_trace": 0}
     plain = run(cfg.replace(kernels="off"))
     assert float(plain.min()) > 0.0
     for img in (fused, staged):
@@ -739,17 +740,20 @@ def test_pt_routes_match_plain_on_card(dev, si):
     fused = run(cfg)
     torch.cuda.synchronize()
     tiles = -(-R // cfg.pt_tile_rays)
+    # injected uniforms: one looped K6 launch over every tile's paths
     assert CP.LAUNCHES == {"pt_closest": 0, "pt_any_hit": 0,
-                           "pt_bounce": tiles * B}
+                           "pt_bounce": 0, "pt_trace": 1}
     CP.reset_launches()
     staged = run(cfg, PT.kernel_queries(scene))
     torch.cuda.synchronize()
     n_pl = scene.plight_pos.shape[0]
     assert CP.LAUNCHES == {"pt_closest": tiles * B,
-                           "pt_any_hit": tiles * B * n_pl, "pt_bounce": 0}
+                           "pt_any_hit": tiles * B * n_pl, "pt_bounce": 0,
+                           "pt_trace": 0}
     CP.reset_launches()
     plain = run(cfg.replace(kernels="off"))
-    assert CP.LAUNCHES == {"pt_closest": 0, "pt_any_hit": 0, "pt_bounce": 0}
+    assert CP.LAUNCHES == {"pt_closest": 0, "pt_any_hit": 0, "pt_bounce": 0,
+                           "pt_trace": 0}
     assert float(plain.std()) > 0.02
     for img in (fused, staged):
         assert torch.isfinite(img).all()
@@ -1857,7 +1861,7 @@ def test_pt_frame_matches_the_benchmark_reference_on_card(dev):
                        spp=cfg["spp"],
                        samples=PT.PTSamples(jitter, times,
                                             PT.BounceUniforms(*uni)))
-    assert CP.LAUNCHES["pt_bounce"] == cfg["max_bounces"]
+    assert CP.LAUNCHES["pt_trace"] == 1 and CP.LAUNCHES["pt_bounce"] == 0
     want = pt_frames.reference_pixels(pt_scene.ref_scene(cfg, dev), cfg,
                                       drawn, None)
     checks = pt_frames.compare([(got, want)], limits)
