@@ -1169,18 +1169,17 @@ def light_rows(torch, dev, card, st, errs, add_row):
     for key, mode in (("bvh", "bvh"), ("grid", "grid")):
         r = st[key]
         sc = r.scene
-        bins = r._bins_for(sc.static.res_y, sc.static.res_x, 1)
-        inter, tile = r._intersectors(bins)
+        plan = r._plan(samples)
         log = {}
-        render_from_samples(sc, r.cfg, samples, inter=recording(inter, log),
-                            accel_tile=tile)
+        render_from_samples(sc, r.cfg, samples, plan=plan._replace(
+            inter=recording(plan.inter, log)))
         o, d, dist, valid = log["shadow1"]
         nl = o.shape[0]
         lid = CBN.shadow_light_ids(nl, sc.static.n_lights, dev)
         check(lid is not None, f"{key}: the primary shadow batch of {nl} "
               "lanes does not hold one light a chain")
         tabs = r.tabs.tabs if key == "grid" else r.tabs
-        lb = bins.lights
+        lb = plan.bins.lights
         types = tuple(sorted(set(sc.static.obj_types)))
         differing = {}
         for m in (mode, "grid" if mode == "bvh" else "bvh"):
@@ -1324,11 +1323,11 @@ def accel_rows(torch, np, dev, card, st, errs, add_row):
 
     bvh, samples, cfg = st["bvh"], st["samples"], st["cfg"]
     W, H = bvh.scene.static.res_x, bvh.scene.static.res_y
-    bins = bvh._bins_for(H, W, 1)
-    inter, tile = bvh._intersectors(bins)
+    plan = bvh._plan(samples)
+    bins = plan.bins
     log = {}
-    render_from_samples(bvh.scene, bvh.cfg, samples,
-                        inter=recording(inter, log), accel_tile=tile)
+    render_from_samples(bvh.scene, bvh.cfg, samples, plan=plan._replace(
+        inter=recording(plan.inter, log)))
     torch.cuda.synchronize()
     f4 = lambda k: 4 * k
     types = tuple(sorted(set(bvh.scene.static.obj_types)))
@@ -1453,11 +1452,11 @@ def accel_rows(torch, np, dev, card, st, errs, add_row):
 
     # ---- K9 and K7 on the grid route's own inputs and emulation tree ----
     grid = st["grid"]
-    gbins = grid._bins_for(H, W, 1)
-    ginter, gtile = grid._intersectors(gbins)
+    gplan = grid._plan(samples)
+    gbins = gplan.bins
     glog = {}
-    render_from_samples(grid.scene, grid.cfg, samples,
-                        inter=recording(ginter, glog), accel_tile=gtile)
+    render_from_samples(grid.scene, grid.cfg, samples, plan=gplan._replace(
+        inter=recording(gplan.inter, glog)))
     torch.cuda.synchronize()
     gtabs, where = grid.tabs.tabs, "grid route"
     o, d, t, valid = glog["closest1"]

@@ -37,10 +37,11 @@ class RenderConfig:
                        kernel per tree level where the scene has lights,
                        the closest/any-hit kernels with the staged shading
                        where it has none, the packet and binned kernels of
-                       grid and BVH scenes, and one fused bounce kernel per
-                       path-tracer bounce; 'off' forces the plain staged
-                       path of accel-NONE scenes, and the plain versions on
-                       the same route for grid and BVH scenes.
+                       grid and BVH scenes, and the looped path-tracer
+                       kernel, one launch per ``pt_trace`` call; 'off'
+                       forces the plain staged path of accel-NONE scenes,
+                       and the plain versions on the same route for grid
+                       and BVH scenes.
     - ``packet_kernel``: the packet kernel of grid and BVH scenes: 'grouped'
                        (K7, over 8-object groups; the binned route needs
                        its tables) or 'legacy' (K8, the threaded tables; also
@@ -48,9 +49,9 @@ class RenderConfig:
                        The renderer traces these scenes in tiles of
                        ``tile_rays`` primary samples, the binned route in
                        one tile of the whole frame.
-    - ``accel_backend``: the route of grid and BVH scenes, the JAX
-                       package's ``'auto' | 'pallas' | 'xla'``:
-                       'auto' and 'kernel' take the packet and binned
+    - ``accel_backend``: the route of grid and BVH scenes, ``'auto' |
+                       'traversal'`` for the JAX package's ``'pallas' |
+                       'xla'``: 'auto' takes the packet and binned
                        kernels on CUDA tensors and their plain versions on
                        CPU ones (the routes listed in ``renderer.py``);
                        'traversal' takes the plain torch traversals on any
@@ -96,7 +97,7 @@ class RenderConfig:
     static_prune: bool = True
     kernels: str = "auto"  # 'auto' | 'off'
     packet_kernel: str = "grouped"  # 'grouped' | 'legacy'
-    accel_backend: str = "auto"  # 'auto' | 'kernel' | 'traversal'
+    accel_backend: str = "auto"  # 'auto' | 'traversal'
     accel_cost_threshold: int = 1024
     dof: bool = False
     motion_blur: bool = False
@@ -116,7 +117,7 @@ class RenderConfig:
             raise ValueError(f"bad kernels mode: {self.kernels}")
         if self.packet_kernel not in ("grouped", "legacy"):
             raise ValueError(f"bad packet_kernel: {self.packet_kernel}")
-        if self.accel_backend not in ("auto", "kernel", "traversal"):
+        if self.accel_backend not in ("auto", "traversal"):
             raise ValueError(f"bad accel_backend: {self.accel_backend}")
         for name in ("soft_shadow", "soft_silhouette"):
             if not getattr(self, name) >= 0.0:

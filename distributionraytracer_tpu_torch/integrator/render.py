@@ -10,13 +10,13 @@ Counterpart of ``distributionraytracer_tpu.integrator.render``.  Mirrors
 - Zone A (progressive): one jittered sample per pixel per call with a
   running-mean update ``lerp(old, new, 1/frame)`` (main.cpp:536-599).
 
-PyTorch runs eagerly: the frame is traced in tiles of ``cfg.tile_rays``
-primary samples by a Python loop, which bounds the live ray-tree state.  The
-renderer's grid and BVH routes pass their own tile (``accel_tile``), and
-their rays are first grouped into square pixel blocks (:func:`_block_perm`),
+PyTorch runs eagerly: the frame is traced in tiles by a Python loop, which
+bounds the live ray-tree state, as the frame's plan (:func:`_plan_frame`)
+says.  The renderer's grid and BVH routes plan their own tile, and their
+rays are first grouped into square pixel blocks (:func:`_block_perm`),
 which the packet kernels and the binned route rely on.  On the card's
 fused-level route, a :class:`TileGraphs` replays each tile's whole
-``trace_whitted`` as one CUDA graph instead (:func:`graph_engages`).
+``trace_whitted`` as one CUDA graph instead.
 """
 
 from __future__ import annotations
@@ -29,7 +29,8 @@ import torch
 
 from distributionraytracer_tpu_torch.config import RenderConfig
 from distributionraytracer_tpu_torch.integrator.whitted import (
-    Intersectors, level_route, trace_whitted, trace_whitted_soft, tree_nodes,
+    Intersectors, _tile_mode, level_route, trace_whitted, trace_whitted_soft,
+    tree_nodes,
 )
 from distributionraytracer_tpu_torch.ops import cuda_whitted as CW
 from distributionraytracer_tpu_torch.ops import sampling
@@ -171,47 +172,10 @@ def _block_perm(H: int, W: int, S: int, tile: int = 1024) -> np.ndarray:
     return (order[:, None] * S + np.arange(S)).ravel().astype(np.int32)
 
 
-def graph_engages(device_type: str, route: str, inter, fused_grid,
-                  soft_silhouette: float, needs_grad: bool,
-                  skybox: bool) -> bool:
-    """Whether a frame's tiles replay :class:`TileGraphs`: CUDA tensors on
-    the fused-level route (:func:`level_route`, with no intersectors and no
-    fused grid), hard silhouettes, no gradient being recorded through a
-    tensor that requires one (what ``ops.cuda_intersect.refuse_grad``
-    refuses), and no skybox (its lookup copies host constants to the card,
-    which a capture does not allow).  Every other frame runs its tiles
-    eagerly."""
-    return (device_type == "cuda" and route == "fused-level"
-            and inter is None and fused_grid is None
-            and soft_silhouette == 0.0 and not needs_grad and not skybox)
-
-
 # The scene leaves a fused-level tile reads: all but the camera's, whose
 # rays are the tile's inputs.
 _TILE_LEAVES = tuple(n for n in SceneData._LEAF_NAMES
                     if not n.startswith("cam_"))
-
-
-def _graphs_engage(scene: SceneData, cfg: RenderConfig, rays, inter,
-                   fused_grid) -> bool:
-    """:func:`graph_engages` for a frame's rays and arguments."""
-    needs_grad = torch.is_grad_enabled() and any(
-        x.requires_grad
-        for x in (*rays, *(getattr(scene, n) for n in _TILE_LEAVES)))
-    return graph_engages(rays[0].device.type, level_route(scene, cfg),
-                         inter, fused_grid, cfg.soft_silhouette, needs_grad,
-                         scene.static.has_skybox)
-
-
-def _k3_tables(scene: SceneData, cfg: RenderConfig, inter,
-               fused_grid) -> Optional[CW.LevelTables]:
-    """The K3 tables of an eager frame whose tiles run K3 (the fused-level
-    and fused-grid routes), built once for all its tiles; else None."""
-    if inter is not None or cfg.soft_silhouette > 0.0:
-        return None
-    if fused_grid is None and level_route(scene, cfg) != "fused-level":
-        return None
-    return CW.level_tables(scene)
 
 
 class _Graph(NamedTuple):
@@ -224,11 +188,10 @@ class _Graph(NamedTuple):
 
 class TileGraphs:
     """CUDA graphs of a tile's whole :func:`trace_whitted`, replayed for
-    every tile of a fused-level frame on the card (:func:`graph_engages`):
-    a tile then costs four input copies, one replay and one output copy
-    on the host.
+    every tile of a frame whose plan's mode is ``graph``: a tile then
+    costs four input copies, one replay and one output copy on the host.
 
-    A ``Renderer`` owns one, kept across its frames; every other engaged
+    A ``Renderer`` owns one, kept across its frames; every other such
     frame makes its own.  It builds the scene's K3 tables
     (``CW.level_tables``) once, and keeps them and its graphs while the
     leaves a tile reads (``_TILE_LEAVES``) are the same tensors at the same
@@ -316,25 +279,63 @@ class TileGraphs:
         return out, stats
 
 
+class _FramePlan(NamedTuple):
+    """How a Whitted frame runs, decided once by :func:`_plan_frame`."""
+
+    label: str  # the route's label (``Renderer.executed_backend``)
+    mode: str  # how each tile runs (``whitted._tile_mode``)
+    inter: Optional[Intersectors]  # the staged levels' intersectors
+    tables: Optional[CW.LevelTables]  # the K3 tables of every tile
+    tile: int  # primary samples a tile
+    blocked: bool  # whether the rays take the pixel-block order
+    bins: Optional[object]  # the binned route's ``cuda_binned.BinSet``
+    graphs: Optional[TileGraphs]  # the ``graph`` mode's replayer
+
+
+def _plan_frame(scene: SceneData, cfg: RenderConfig,
+                samples: Optional[SampleSet] = None,
+                inter: Optional[Intersectors] = None, fused_grid=None,
+                graphs: Optional[TileGraphs] = None) -> _FramePlan:
+    """The plan of a frame of ``samples`` (None: of the scene's own frame):
+    the level route as its label, the tiles' mode (from the samples'
+    device and whether a gradient is recorded through the rays or a scene
+    leaf) and the K3 tables the mode reads, built once for all the tiles,
+    by ``graphs`` (else a :class:`TileGraphs` of the frame's own) in the
+    ``graph`` mode.  The Renderer's grid and BVH routes pass their
+    intersectors and replace the label, tile, block order and bins."""
+    route = level_route(scene, cfg)
+    read = () if samples is None else (
+        samples.pixel, samples.light, *((samples.lens,) if cfg.dof else ()),
+        *((samples.time,) if cfg.motion_blur else ()))
+    needs_grad = torch.is_grad_enabled() and any(
+        x.requires_grad
+        for x in (*read, *(getattr(scene, n) for n in SceneData._LEAF_NAMES)))
+    device = scene.device if samples is None else samples.time.device
+    mode = _tile_mode(route, inter, fused_grid, cfg.soft_silhouette,
+                      device.type, needs_grad, scene.static.has_skybox)
+    tables = None
+    if mode == "graph":
+        graphs = TileGraphs() if graphs is None else graphs
+        graphs.prepare(scene, cfg)
+        tables = graphs.tables
+    elif mode == "k3":
+        tables = CW.level_tables(scene)
+    return _FramePlan(route, mode, inter, tables, cfg.tile_rays, False, None,
+                      graphs if mode == "graph" else None)
+
+
 def render_from_samples(scene: SceneData, cfg: RenderConfig,
                         samples: SampleSet, row_offset=0,
                         inter: Optional[Intersectors] = None,
                         average: bool = True, return_rays: bool = False,
-                        fused_grid=None, accel_tile: Optional[int] = None,
-                        graphs: Optional[TileGraphs] = None):
-    """Trace a SampleSet in tiles of ``cfg.tile_rays`` primary samples.
-
-    ``accel_tile`` (the renderer's grid and BVH routes) groups the rays
-    into pixel blocks (:func:`_block_perm`) and traces them in tiles of
-    that many.  ``fused_grid`` (the grid's ``(bbox_min, bbox_max)``) runs
-    every level on K3 in grid mode.  With ``cfg.soft_silhouette > 0`` and
-    no ``inter``, each tile goes through :func:`trace_whitted_soft`.
-    Where :func:`graph_engages` says so, each tile is replayed as a CUDA
-    graph: by ``graphs``, kept across frames, or else by a
-    :class:`TileGraphs` of this frame's own.  The image is the eager
-    path's, bit for bit (the same kernels run in the same order on the
-    same inputs).  An eager frame on a K3 route builds the K3 tables once
-    for all its tiles.
+                        fused_grid=None, graphs: Optional[TileGraphs] = None,
+                        plan: Optional[_FramePlan] = None):
+    """Trace a SampleSet in tiles as ``plan`` (the Renderer's) says, or as
+    :func:`_plan_frame` plans it from the arguments: ``inter`` stages every
+    level on it, ``fused_grid`` (the grid's ``(bbox_min, bbox_max)``) runs
+    them on K3 in grid mode, and ``graphs`` keeps the card's fused-level
+    tile graphs across frames.  The image is the eager path's, bit for bit
+    (the same kernels run in the same order on the same inputs).
 
     ``return_rays=True`` also returns the exact traced-ray count (tree
     nodes + shadow rays, the whitted.py counters) as an int64 tensor; the
@@ -342,40 +343,35 @@ def render_from_samples(scene: SceneData, cfg: RenderConfig,
     is on: see :func:`trace_whitted`).  The last tile is shorter rather
     than padded, so the count has no padding lanes.
     """
+    if plan is None:
+        plan = _plan_frame(scene, cfg, samples, inter, fused_grid, graphs)
     H, W, S = samples.time.shape
     o, d, t, ls = _rays_from_samples(scene, cfg, samples, row_offset)
-    n = o.shape[0]
+    n, tile = o.shape[0], plan.tile
     perm = None
-    tile = cfg.tile_rays
-    if accel_tile is not None:
+    if plan.blocked:
         spans.count("tables.builds.block_perm")
         perm = torch.as_tensor(_block_perm(H, W, S), device=o.device).long()
         o, d, t, ls = o[perm], d[perm], t[perm], ls[perm]
-        tile = accel_tile
-    graphed = _graphs_engage(scene, cfg, (o, d, t, ls), inter, fused_grid)
+    graphed = plan.mode == "graph"
     if graphed:
-        graphs = TileGraphs() if graphs is None else graphs
-        graphs.prepare(scene, cfg)
         frame = torch.empty((n, 3), dtype=torch.float32, device=o.device)
-    else:
-        tables = _k3_tables(scene, cfg, inter, fused_grid)
     colors, counts = [], []
     for a in range(0, n, tile):
         b = min(a + tile, n)
+        rays = (o[a:b], d[a:b], t[a:b], ls[a:b])
         with spans.span("render.tile"):
             if graphed:
-                color, stats = graphs.trace(
-                    scene, cfg, (o[a:b], d[a:b], t[a:b], ls[a:b]),
-                    frame[a:b], return_rays, b - a == tile)
-            elif cfg.soft_silhouette > 0.0 and inter is None:
-                color, stats = trace_whitted_soft(
-                    scene, cfg, o[a:b], d[a:b], t[a:b], ls[a:b],
-                    count_rays=return_rays)
+                color, stats = plan.graphs.trace(
+                    scene, cfg, rays, frame[a:b], return_rays, b - a == tile)
+            elif plan.mode == "soft":
+                color, stats = trace_whitted_soft(scene, cfg, *rays,
+                                                  count_rays=return_rays)
             else:
                 color, stats = trace_whitted(
-                    scene, cfg, o[a:b], d[a:b], t[a:b], ls[a:b], inter=inter,
+                    scene, cfg, *rays, inter=plan.inter,
                     fused_grid=fused_grid, count_rays=return_rays,
-                    tables=tables)
+                    tables=plan.tables)
         colors.append(color)
         if return_rays:
             counts += [stats["rays_traced"], stats["shadow_rays"]]

@@ -90,13 +90,36 @@ def level_route(scene: SceneData, cfg: RenderConfig) -> str:
     return "brute-kernel"
 
 
+def _tile_mode(route: str, inter=None, fused_grid=None,
+               soft_silhouette: float = 0.0, device_type: str = "cpu",
+               needs_grad: bool = False, skybox: bool = False) -> str:
+    """How each tile of a frame on level route ``route`` runs: ``staged``
+    on ``inter`` (else on :func:`brute_intersectors`, off the K3 routes),
+    ``soft`` (:func:`trace_whitted_soft`), ``k3`` (the fused-level route or
+    ``fused_grid``), or ``graph``: K3 replayed as CUDA graphs
+    (``integrator.render.TileGraphs``) for CUDA tiles with no gradient
+    recorded (the kernels refuse one) and no skybox (its lookup copies
+    host constants, which a capture does not allow).  The defaults are an
+    eager hard trace's, :func:`trace_whitted`'s."""
+    if inter is not None:
+        return "staged"
+    if soft_silhouette > 0.0:
+        return "soft"
+    if fused_grid is None and route != "fused-level":
+        return "staged"
+    if (fused_grid is None and device_type == "cuda" and not needs_grad
+            and not skybox):
+        return "graph"
+    return "k3"
+
+
 def brute_intersectors(scene: SceneData, cfg: RenderConfig,
                        tables: Optional[CI.ObjectTables] = None
                        ) -> Intersectors:
     """Accel NONE: linear scans (main.cpp:310-336, 432-440), through the
-    K1/K2 wrappers unless the route is ``plain``."""
+    K1/K2 wrappers unless ``kernels='off'`` (the ``plain`` route)."""
     mb = cfg.motion_blur
-    if level_route(scene, cfg) == "plain":
+    if cfg.kernels == "off":
         def closest(o, d, time, valid=None):
             return closest_hit_brute(scene, o, d, time, mb)
 
@@ -208,22 +231,19 @@ def trace_whitted(scene: SceneData, cfg: RenderConfig, o, d, time,
     shadow rays (``whitted.shadow_rays``) to the recorder's device counts.
     Otherwise nothing is launched to count rays.
 
-    The K3 routes (``fused_grid``, or no ``inter`` on the fused-level
-    route) read ``tables``, ``CW.level_tables(scene)``, which the caller
-    builds once for all its tiles.
+    Given ``inter``, every level is staged on it; else, given ``tables``
+    (``CW.level_tables(scene)``, built by the caller once for all its
+    tiles), on K3.  Given neither, the K3 routes (:func:`_tile_mode`)
+    raise, and every other is staged on :func:`brute_intersectors`.
     """
-    level_tabs = None
+    if inter is None and tables is None:
+        if _tile_mode(level_route(scene, cfg), None, fused_grid) != "staged":
+            raise ValueError("the K3 routes read the caller's K3 tables: "
+                             "pass tables=CW.level_tables(scene)")
+        inter = brute_intersectors(scene, cfg)
     fused = CW.fused_level
-    if inter is None:
-        if fused_grid is not None or level_route(scene, cfg) == "fused-level":
-            if tables is None:
-                raise ValueError("the K3 routes read the caller's K3 tables: "
-                                 "pass tables=CW.level_tables(scene)")
-            level_tabs = tables
-            if fused_grid is not None and cfg.kernels == "off":
-                fused = CW.fused_level_plain
-        else:
-            inter = brute_intersectors(scene, cfg)
+    if fused_grid is not None and cfg.kernels == "off":
+        fused = CW.fused_level_plain
     st = scene.static
     R, dev = o.shape[0], o.device
     recording = spans.enabled()
@@ -255,12 +275,12 @@ def trace_whitted(scene: SceneData, cfg: RenderConfig, o, d, time,
 
             spawn = depth <= cfg.max_depth and branching > 0
             fv = flat(node_valid)
-            if level_tabs is not None:
+            if inter is None:
                 with spans.span("whitted.intersect"):
                     res = fused(
                         scene, cfg, flat(node_o), flat(node_d), flat(node_t),
                         flat(node_ior), flat(node_ls), fv, spawn=spawn,
-                        tables=level_tabs, grid_bbox=fused_grid)
+                        tables=tables, grid_bbox=fused_grid)
                 hit_flags = res.pop("_hit")
                 res["miss_color"] = _miss_color(scene, flat(node_d))
             else:

@@ -4,8 +4,8 @@ The scene's tensors move to ``device`` once (the card unless the caller asks
 for ``"cpu"``).  A grid or BVH scene's acceleration structure is built on
 the host once (:func:`build_accel`) and its tables moved there too.  Each
 frame takes the route the JAX package takes on a TPU, chosen by the same
-predicates, and :meth:`Renderer.executed_backend` names it with the JAX
-package's label:
+predicates once a frame into its plan (:meth:`Renderer._plan`), and
+:meth:`Renderer.executed_backend` names it with the JAX package's label:
 
 - accel NONE: ``fused-level`` (K3 per tree level), ``brute-kernel`` (K1/K2,
   scenes without lights) or ``plain`` (``kernels='off'``);
@@ -66,13 +66,11 @@ from distributionraytracer_tpu_torch.accel.grid import (
 )
 from distributionraytracer_tpu_torch.config import RenderConfig
 from distributionraytracer_tpu_torch.integrator.render import (
-    SampleSet, TileGraphs, _sample_count, default_config, make_samples,
-    progressive_init, progressive_samples, progressive_update,
-    render_from_samples,
+    SampleSet, TileGraphs, _FramePlan, _plan_frame, _sample_count,
+    default_config, make_samples, progressive_init, progressive_samples,
+    progressive_update, render_from_samples,
 )
-from distributionraytracer_tpu_torch.integrator.whitted import (
-    Intersectors, level_route,
-)
+from distributionraytracer_tpu_torch.integrator.whitted import Intersectors
 from distributionraytracer_tpu_torch.ops import cuda_intersect as CI
 from distributionraytracer_tpu_torch.ops.intersect import (
     any_hit_brute, closest_hit_brute,
@@ -219,9 +217,7 @@ class Renderer:
         self.accel_build = None
         self.tabs = None  # PacketTables (BVH) or CudaGrid (grid)
         self._traversal = None  # the 'traversal' route's intersectors
-        # the fused-level route's K3 tables and tile graphs, kept across
-        # frames (render_from_samples decides whether they engage)
-        self._graphs = TileGraphs()
+        self._graphs = TileGraphs()  # the fused-level route's, kept
         if self.accel != ACCEL_NONE:
             ab = build_accel(scene, verbose=verbose,
                              motion_blur=self.cfg.motion_blur,
@@ -243,7 +239,7 @@ class Renderer:
         self._light_bins = None
         self._primary_cache = {}
         if (self.accel == ACCEL_NONE or self.cfg.soft_shadow > 0.0
-                or self._traverses()):
+                or self.cfg.accel_backend == "traversal"):
             return
         tabs = self.tabs.tabs if self.accel == ACCEL_GRID else self.tabs
         if tabs.kind != "grouped" or not CB.binned_supported(self.scene,
@@ -275,80 +271,65 @@ class Renderer:
             pb = self._primary_cache[key]
         return None if pb is None else CB.BinSet(pb, self._light_bins)
 
-    def _traverses(self) -> bool:
-        """Whether grid/BVH frames take the plain torch traversals."""
-        return (self.accel != ACCEL_NONE
-                and self.cfg.accel_backend == "traversal")
-
-    def executed_backend(self) -> str:
-        """The route a render of the scene's own frame takes, by the
-        routing predicates themselves (the binned prefix only where the
-        frame's bins build), labelled as the JAX package labels it; the
-        trees it walks by XLA (``bvh-xla``, ``grid-xla``) take K8 here.
-        ``accel_backend='traversal'`` gives ``grid-dda`` / ``bvh-threaded``
-        (the JAX package's ``grid-xla`` / ``bvh-xla``)."""
-        cfg, st = self.cfg, self.scene.static
-        if self.accel == ACCEL_NONE:
-            return level_route(self.scene, cfg)
-        if self._traverses():
-            return "grid-dda" if self.accel == ACCEL_GRID else "bvh-threaded"
-        if _use_cost_brute(self.scene, cfg):
-            return "cost-brute"
-        bins = self._bins_for(st.res_y, st.res_x,
-                              _sample_count(self.scene, cfg))
-        binned = ("" if bins is None else "binned-primary+"
-                  if bins.lights is None else "binned+")
-        if self.accel == ACCEL_GRID:
-            return binned + "grid-packet"
-        return binned + ("grouped-packet" if self.tabs.kind == "grouped"
-                         else "legacy-packet")
-
-    def _intersectors(self, bins):
-        """The frame's intersectors and the tile size they take."""
+    def _plan(self, samples: Optional[SampleSet] = None) -> _FramePlan:
+        """The plan of a frame of ``samples`` (None: of the scene's own
+        frame shape), from its shape and the scene, camera included, as it
+        stands.  Grid and BVH frames take their route here (module
+        docstring), in pixel-block order; ``_plan_frame`` does the rest."""
         sc, cfg = self.scene, self.cfg
+        if self.accel == ACCEL_NONE:
+            return _plan_frame(sc, cfg, samples, graphs=self._graphs)
         mb, plain = cfg.motion_blur, cfg.kernels == "off"
-        if self._traverses():
+        grid = self.accel == ACCEL_GRID
+        tile, bins = cfg.tile_rays, None
+        if cfg.accel_backend == "traversal":
+            label = "grid-dda" if grid else "bvh-threaded"
             if self._traversal is None:
                 host = self.accel_build.host
                 self._traversal = (
-                    make_grid_intersectors(sc, host, mb)
-                    if self.accel == ACCEL_GRID
+                    make_grid_intersectors(sc, host, mb) if grid
                     else make_threaded_intersectors(sc, host, mb))
-            return self._traversal, cfg.tile_rays
-        if self.accel == ACCEL_GRID:
+            inter = self._traversal
+        elif _use_cost_brute(sc, cfg):
+            label = "cost-brute"
+            inter = (make_brute_grid_intersectors(sc, self.tabs, mb, plain)
+                     if grid else _brute_bvh_intersectors(sc, cfg))
+        else:
+            shape = (samples.time.shape if samples is not None else
+                     (sc.static.res_y, sc.static.res_x,
+                      _sample_count(sc, cfg)))
+            bins = self._bins_for(*shape)
+            label = ("" if bins is None else "binned-primary+"
+                     if bins.lights is None else "binned+")
+            if grid:
+                label += "grid-packet"
+                inter = make_cuda_grid_intersectors(sc, self.tabs, mb, bins,
+                                                    plain)
+            else:
+                label += ("grouped-packet" if self.tabs.kind == "grouped"
+                          else "legacy-packet")
+                inter = packet_intersectors(sc, self.tabs, mb, plain=plain)
+                if bins is not None:
+                    inter = CB.leveled_binned_intersectors(
+                        sc, self.tabs, bins, inter, mb, plain)
             if bins is not None:
-                return (make_cuda_grid_intersectors(sc, self.tabs, mb, bins,
-                                                    plain), 1 << 30)
-            if _use_cost_brute(sc, cfg):
-                return (make_brute_grid_intersectors(sc, self.tabs, mb,
-                                                     plain), cfg.tile_rays)
-            return (make_cuda_grid_intersectors(sc, self.tabs, mb,
-                                                plain=plain), cfg.tile_rays)
-        if _use_cost_brute(sc, cfg):
-            return _brute_bvh_intersectors(sc, cfg), cfg.tile_rays
-        inter = packet_intersectors(sc, self.tabs, mb, plain=plain)
-        if bins is None:
-            return inter, cfg.tile_rays
-        # the chain CSR addresses the whole frame: one tile
-        return (CB.leveled_binned_intersectors(sc, self.tabs, bins, inter,
-                                               mb, plain), 1 << 30)
+                tile = 1 << 30  # the chain CSR addresses the whole frame
+        return _plan_frame(sc, cfg, samples, inter=inter)._replace(
+            label=label, tile=tile, blocked=True, bins=bins)
+
+    def executed_backend(self) -> str:
+        """The label of the route a render of the scene's own frame takes,
+        from its plan (which builds what that frame builds), as the JAX
+        package labels it (module docstring)."""
+        return self._plan().label
 
     # ------------------------------------------------------------- batch
     def render_with_samples(self, samples: SampleSet, return_rays=False):
         with spans.span("render.frame"):
             samples = samples.to(self.device)
-            if self.accel == ACCEL_NONE:
-                return render_from_samples(self.scene, self.cfg, samples,
-                                           return_rays=return_rays,
-                                           graphs=self._graphs)
-            bins = None
-            if not (_use_cost_brute(self.scene, self.cfg)
-                    or self._traverses()):
-                bins = self._bins_for(*samples.time.shape)
-            inter, tile = self._intersectors(bins)
             return render_from_samples(self.scene, self.cfg, samples,
-                                       inter=inter, return_rays=return_rays,
-                                       accel_tile=tile)
+                                       return_rays=return_rays,
+                                       plan=self._plan(samples))
 
     def render(self, generator: Optional[torch.Generator] = None,
                return_rays=False):

@@ -3,7 +3,7 @@
 - ``accel_backend``: its validation; the routes and labels it selects in
   ``Renderer`` for grid and BVH scenes (``grid-dda`` / ``bvh-threaded``
   under ``'traversal'``, the JAX package's ``grid-xla`` / ``bvh-xla``; the
-  kernel routes under ``'auto'`` and ``'kernel'``); the traversal route's
+  kernel routes under ``'auto'``); the traversal route's
   image equal to ``render_from_samples`` through the traversal itself
   (atol 1e-6) and within the reference's image budget
   (``assert_images_close``) of the kernel route's.
@@ -57,7 +57,7 @@ def test_accel_backend_routes_and_labels():
         assert JaxRenderer(js, JaxConfig(spp=0, accel_backend="xla")
                            ).executed_backend() == jax_label
         imgs = {}
-        for backend in ("auto", "kernel", "traversal"):
+        for backend in ("auto", "traversal"):
             cfg = RenderConfig(spp=0, accel_backend=backend)
             r = Renderer(ps, cfg, device="cpu")
             assert r.executed_backend() == (label if backend == "traversal"
@@ -69,7 +69,6 @@ def test_accel_backend_routes_and_labels():
             ps, cfg, r.accel_build.host))
         np.testing.assert_allclose(imgs["traversal"].numpy(), ref.numpy(),
                                    rtol=0, atol=1e-6)
-        assert torch.equal(imgs["auto"], imgs["kernel"])
         assert_images_close(imgs["traversal"].numpy(), imgs["auto"].numpy())
         # a cost-brute sized scene keeps the traversal under 'traversal'
         small = mesh_scene(JaxSceneBuilder, n_tri=200, accel=accel,

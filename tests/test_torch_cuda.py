@@ -337,7 +337,13 @@ def _k3_kernels(run):
 def _eager_tiles():
     """Within it, every frame runs its tiles eagerly: the reference the
     tile graphs are held to."""
-    return mock.patch.object(RD, "graph_engages", lambda *args: False)
+    mode = RD._tile_mode
+
+    def eager(*args):
+        m = mode(*args)
+        return "k3" if m == "graph" else m
+
+    return mock.patch.object(RD, "_tile_mode", eager)
 
 
 def _tiles(samples, cfg):
@@ -1070,9 +1076,8 @@ def _box_mesh(accel, n_tri=MESH_TRI, res=(128, 128)):
 def _first_shadow(r, samples):
     """The inputs of the first shadow query of ``r``'s frame (the primary
     level's: 3 lights x H*W lanes)."""
-    st = r.scene.static
-    bins = r._bins_for(st.res_y, st.res_x, 1)
-    inter, tile = r._intersectors(bins)
+    plan = r._plan(samples)
+    inter = plan.inter
     log = []
 
     def shadow(o, d, dist, exclude_obj, valid=None):
@@ -1080,10 +1085,9 @@ def _first_shadow(r, samples):
             log.append((o, d, dist, valid))
         return inter.shadow(o, d, dist, exclude_obj, valid=valid)
 
-    render_from_samples(r.scene, r.cfg, samples,
-                        inter=Intersectors(inter.closest, shadow),
-                        accel_tile=tile)
-    return bins, log[0]
+    render_from_samples(r.scene, r.cfg, samples, plan=plan._replace(
+        inter=Intersectors(inter.closest, shadow)))
+    return plan.bins, log[0]
 
 
 @pytest.mark.parametrize("accel", [ACCEL_BVH, ACCEL_GRID], ids=["bvh", "grid"])

@@ -266,6 +266,8 @@ def test_renderer_refusals():
         RenderConfig(kernels="on")
     with pytest.raises(ValueError, match="packet_kernel"):
         RenderConfig(packet_kernel="fast")
+    with pytest.raises(ValueError, match="accel_backend"):
+        RenderConfig(accel_backend="kernel")  # 'auto' is the kernel route
     if torch.cuda.is_available():
         return  # the refusals below are for machines without a card
     # the card is the default, and there is no quiet CPU fallback

@@ -39,9 +39,11 @@ def frame():
                        res=(16, 16), ground="box")
     r = Renderer(scene, RenderConfig(spp=0, accel_cost_threshold=0),
                  device="cpu")
-    lb = CBN.build_light_bins(r.scene, r._gbox, SMALL_K)
-    bins = r._bins_for(16, 16, 1)._replace(lights=lb)
-    inter, tile = r._intersectors(bins)
+    lb = r._light_bins = CBN.build_light_bins(r.scene, r._gbox, SMALL_K)
+    samples = make_samples(r.scene, r.cfg, torch.Generator().manual_seed(3))
+    plan = r._plan(samples)
+    assert plan.bins.lights is lb
+    inter = plan.inter
     log = []
 
     def shadow(o, d, dist, exclude_obj, valid=None):
@@ -49,10 +51,8 @@ def frame():
             log.append((o, d, dist, valid))
         return inter.shadow(o, d, dist, exclude_obj, valid=valid)
 
-    samples = make_samples(r.scene, r.cfg, torch.Generator().manual_seed(3))
-    render_from_samples(r.scene, r.cfg, samples,
-                        inter=Intersectors(inter.closest, shadow),
-                        accel_tile=tile)
+    render_from_samples(r.scene, r.cfg, samples, plan=plan._replace(
+        inter=Intersectors(inter.closest, shadow)))
     return r, lb, log[0]
 
 

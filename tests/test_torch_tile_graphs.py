@@ -1,11 +1,12 @@
-"""When the fused-level route replays its tiles as CUDA graphs
-(``integrator.render.graph_engages``, ``TileGraphs``), on the CPU: the
-predicate as a pure function, what a frame's inputs hand it, when
-``TileGraphs`` keeps and when it rebuilds its K3 tables, which graphs it
-keeps, the recorder's pause that its capture runs under, that every CPU
-render stays on the eager path, and that ``trace_whitted`` takes the K3
-tables from its caller.  The graphs themselves run only on the card
-(``tests/test_torch_cuda.py``).  CPU only; no JAX."""
+"""When the fused-level route replays its tiles as CUDA graphs (the
+``graph`` mode of ``integrator.whitted._tile_mode``, ``TileGraphs``), on
+the CPU: the tile mode as a pure function, what a frame's inputs hand it
+(``integrator.render._plan_frame``), when ``TileGraphs`` keeps and when it
+rebuilds its K3 tables, which graphs it keeps, the recorder's pause that
+its capture runs under, that every CPU render stays on the eager path, and
+that ``trace_whitted`` takes the K3 tables from its caller.  The graphs
+themselves run only on the card (``tests/test_torch_cuda.py``).  CPU only;
+no JAX."""
 
 import dataclasses
 import threading
@@ -16,10 +17,10 @@ import torch
 from distributionraytracer_tpu_torch.config import RenderConfig
 from distributionraytracer_tpu_torch.integrator import render as RD
 from distributionraytracer_tpu_torch.integrator.render import (
-    TileGraphs, graph_engages, make_samples, render_from_samples,
+    TileGraphs, make_samples, render_from_samples,
 )
 from distributionraytracer_tpu_torch.integrator.whitted import (
-    brute_intersectors, trace_whitted, tree_nodes,
+    _tile_mode, brute_intersectors, trace_whitted, tree_nodes,
 )
 from distributionraytracer_tpu_torch.ops import cuda_whitted as CW
 from distributionraytracer_tpu_torch.renderer import Renderer
@@ -30,28 +31,31 @@ from distributionraytracer_tpu_torch.utils import spans
 
 torch.set_num_threads(1)
 
-ENGAGED = dict(device_type="cuda", route="fused-level", inter=None,
-               fused_grid=None, soft_silhouette=0.0, needs_grad=False,
+# _tile_mode's arguments, in order, on the card's fused-level route
+ENGAGED = dict(route="fused-level", inter=None, fused_grid=None,
+               soft_silhouette=0.0, device_type="cuda", needs_grad=False,
                skybox=False)
+# case: (what differs from ENGAGED, the mode its tiles take instead)
 BYPASSES = {
-    "cpu": dict(device_type="cpu"),
-    "brute-kernel": dict(route="brute-kernel"),
-    "plain": dict(route="plain"),
-    "intersectors": dict(inter=object()),
-    "fused-grid": dict(fused_grid=((0.0,) * 3, (1.0,) * 3)),
-    "soft-silhouette": dict(soft_silhouette=0.01),
-    "gradient": dict(needs_grad=True),
-    "skybox": dict(skybox=True),
+    "cpu": (dict(device_type="cpu"), "k3"),
+    "brute-kernel": (dict(route="brute-kernel"), "staged"),
+    "plain": (dict(route="plain"), "staged"),
+    "intersectors": (dict(inter=object()), "staged"),
+    "fused-grid": (dict(fused_grid=((0.0,) * 3, (1.0,) * 3)), "k3"),
+    "soft-silhouette": (dict(soft_silhouette=0.01), "soft"),
+    "gradient": (dict(needs_grad=True), "k3"),
+    "skybox": (dict(skybox=True), "k3"),
 }
 
 
 def test_graph_engages_on_the_cards_fused_level_route():
-    assert graph_engages(**ENGAGED)
+    assert _tile_mode(**ENGAGED) == "graph"
 
 
 @pytest.mark.parametrize("case", sorted(BYPASSES))
 def test_graph_bypasses(case):
-    assert not graph_engages(**{**ENGAGED, **BYPASSES[case]})
+    over, mode = BYPASSES[case]
+    assert _tile_mode(**{**ENGAGED, **over}) == mode
 
 
 def small_frame(tile_rays=100, spp=1):
@@ -64,14 +68,14 @@ def small_frame(tile_rays=100, spp=1):
 
 @pytest.fixture
 def seen(monkeypatch):
-    """The arguments a frame's inputs hand ``graph_engages``."""
+    """The arguments a frame's inputs hand ``_tile_mode``."""
     calls = []
 
     def record(*args):
         calls.append(dict(zip(ENGAGED, args)))
-        return False
+        return _tile_mode(*args)
 
-    monkeypatch.setattr(RD, "graph_engages", record)
+    monkeypatch.setattr(RD, "_tile_mode", record)
     return calls
 
 
@@ -82,13 +86,14 @@ def _rays(r, requires_grad=False, n=8):
 
 
 def test_engages_reads_device_route_and_config(seen):
-    r, _ = small_frame()
-    assert not RD._graphs_engage(r.scene, r.cfg, _rays(r), None, None)
+    r, samples = small_frame()
+    assert RD._plan_frame(r.scene, r.cfg, samples).mode == "k3"
     assert seen[-1] == dict(ENGAGED, device_type="cpu")
     inter = brute_intersectors(r.scene, r.cfg)
-    RD._graphs_engage(r.scene,
-                      r.cfg.replace(kernels="off", soft_silhouette=0.5),
-                      _rays(r), inter, None)
+    plan = RD._plan_frame(r.scene,
+                          r.cfg.replace(kernels="off", soft_silhouette=0.5),
+                          samples, inter)
+    assert plan.mode == "staged" and plan.inter is inter
     assert seen[-1]["route"] == "plain" and seen[-1]["inter"] is inter
     assert seen[-1]["soft_silhouette"] == 0.5
 
@@ -96,17 +101,20 @@ def test_engages_reads_device_route_and_config(seen):
 @pytest.mark.parametrize("leaf", ["rays", "mat_cd", "sph_center",
                                   "light_pos", "bg_color"])
 def test_engages_sees_a_gradient_only_where_one_is_recorded(seen, leaf):
-    r, _ = small_frame()
-    scene, rays = r.scene, _rays(r, requires_grad=leaf == "rays")
-    if leaf != "rays":
+    r, samples = small_frame()
+    scene, grad_samples = r.scene, samples
+    if leaf == "rays":  # the pixel samples the rays are made from
+        grad_samples = dataclasses.replace(
+            samples, pixel=samples.pixel.clone().requires_grad_())
+    else:
         scene = dataclasses.replace(
             scene, **{leaf: getattr(scene, leaf).clone().requires_grad_()})
-    RD._graphs_engage(scene, r.cfg, rays, None, None)
+    RD._plan_frame(scene, r.cfg, grad_samples)
     assert seen[-1]["needs_grad"]
     with torch.no_grad():
-        RD._graphs_engage(scene, r.cfg, rays, None, None)
+        RD._plan_frame(scene, r.cfg, grad_samples)
     assert not seen[-1]["needs_grad"]
-    RD._graphs_engage(r.scene, r.cfg, _rays(r), None, None)
+    RD._plan_frame(r.scene, r.cfg, samples)
     assert not seen[-1]["needs_grad"]
 
 
