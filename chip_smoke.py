@@ -368,6 +368,60 @@ def bound(nbytes, ops):
     return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
 
 
+def cmp_level_into(torch, CW, scene, cfg, rays, tile, kinds, spawn=True,
+                   tables=None, grid_bbox=None, what="K3"):
+    """K3 as the tree loop launches it (``CW.level_into_kernel``: on a
+    spawn level the combine's 10 rows and each child into the next
+    level's streams, on the last the 4 rows) against
+    ``CW.level_into_plain`` on one level's (11, n) ray streams.  A lane
+    differs where its combine rows do (valid lanes; the hit flag exactly),
+    where one of its children's valid rows does (every lane, exactly), or
+    where a valid child's other rows do: points by 1e-5 of their
+    magnitude, the rest by 2e-4.  The kernel's ``next`` starts as NaN, so
+    a row the next level reads that K3 left unwritten differs.  At most
+    LANE_BUDGET of the lanes may differ.  Returns (max abs err on the
+    lanes that agree, share of lanes differing)."""
+    n, b = rays.shape[1], len(kinds)
+    valid = rays[10] != 0.0
+    ref_next = torch.empty((11, b * n), device=rays.device) if spawn else None
+    got_next = (torch.full_like(ref_next, float("nan")) if spawn
+                else None)
+    ref = CW.level_into_plain(scene, cfg, rays, ref_next, tile, kinds,
+                              tables, grid_bbox)
+    got = CW.level_into_kernel(scene, cfg, rays, got_next, tile, kinds,
+                               tables, grid_bbox)
+    torch.cuda.synchronize()
+    rows = [k for k in range(ref.shape[0]) if k != 3]  # all but hit
+    bad = ((ref[3] > 0.0) != (got[3] > 0.0)) | ~(
+        (got[rows] - ref[rows]).abs() <= 2e-4).all(0)
+    bad &= valid
+    ok = valid & ~bad
+    err = (float((got[:, ok] - ref[:, ok]).abs().max()) if bool(ok.any())
+           else 0.0)
+    if not spawn:
+        share = float(bad.float().mean())
+        check(share <= LANE_BUDGET, f"{what}: {share} of lanes differ")
+        return err, share
+    kid = ref_next[10] != 0.0
+    lim = torch.full((10, 1), 2e-4, device=rays.device).expand(10, b * n)
+    lim = torch.cat([1e-5 * torch.clamp(ref_next[0:3].abs().amax(0),
+                                        min=1.0).expand(3, -1), lim[3:]])
+    kid_bad = (got_next[10] != ref_next[10]) | (kid & ~(
+        (got_next[:10] - ref_next[:10]).abs() <= lim).all(0))
+    # child (j*b + k)*tile + r is of lane j*tile + r
+    bad |= kid_bad.reshape(-1, b, tile).any(1).reshape(-1)
+    share = float(bad.float().mean())
+    check(share <= LANE_BUDGET, f"{what} into the next level's streams: "
+          f"{share} of lanes differ")
+    ok, kid_ok = valid & ~bad, kid & ~kid_bad
+    if bool(ok.any()):
+        err = float((got[:, ok] - ref[:, ok]).abs().max())
+    if bool(kid_ok.any()):
+        err = max(err, float((got_next[:10, kid_ok]
+                              - ref_next[:10, kid_ok]).abs().max()))
+    return err, share
+
+
 def kernel_scene(SceneBuilder):
     b = SceneBuilder()
     b.set_camera([0, 1, 6], [0, 0, 0], [0, 1, 0], 45, 0.01, 16, 12, 0, 1)
@@ -425,55 +479,56 @@ def ptxas_report(log, kernels):
     return out
 
 
-def level_breakdown(torch, dev, card, scene, cfg, samples, cmp_level=None):
+def level_breakdown(torch, dev, card, scene, cfg, samples):
     """K3 at each level of the Whitted frame's middle tile (the first
-    tiles are the floor's, where almost no child ray spawns): the inputs
-    that ``trace_whitted`` gives ``fused_level`` for that tile's
+    tiles are the floor's, where almost no child ray spawns): the streams
+    that ``trace_whitted`` gives ``fused_level_into`` for that tile's
     ``tile_rays`` samples (level L holds tile x 2^L lanes), each level's
-    valid share and its bare launch time; ``cmp_level`` (if given) holds
-    each level to its plain version.  Returns [(lanes, valid share, ms)]."""
+    valid share and its bare launch time as the tree loop launches it
+    (children into the next level's streams), each level held to its
+    plain version by :func:`cmp_level_into`.  Returns ([(lanes, valid
+    share, ms)], the largest error of those comparisons)."""
     from distributionraytracer_tpu_torch.integrator.render import (
         _rays_from_samples,
     )
     from distributionraytracer_tpu_torch.integrator.whitted import (
         trace_whitted,
     )
-    from distributionraytracer_tpu_torch.ops import cuda_intersect as CI
     from distributionraytracer_tpu_torch.ops import cuda_whitted as CW
     rays = _rays_from_samples(scene, cfg, samples)
     a = (-(-rays[0].shape[0] // cfg.tile_rays) // 2) * cfg.tile_rays
     o, d, t, ls = (x[a:a + cfg.tile_rays].contiguous() for x in rays)
-    log, orig = [], CW.fused_level
+    log, orig = [], CW.fused_level_into
 
-    def recorder(sc, c, *args, **kw):
-        log.append((args, kw["spawn"]))
-        return orig(sc, c, *args, **kw)
+    def recorder(sc, c, rays, nxt, tile, kinds, *args):
+        log.append((rays.clone(), nxt is not None, tile, kinds))
+        return orig(sc, c, rays, nxt, tile, kinds, *args)
 
     tb, n_obj, res = CW.level_tables(scene), scene.static.n_objects, []
-    CW.fused_level = recorder
+    CW.fused_level_into = recorder
     try:
         trace_whitted(scene, cfg, o, d, t, ls, tables=tb)
     finally:
-        CW.fused_level = orig
-    for lv, ((lo, ld, lt, lior, lls, lval), spawn) in enumerate(log):
-        n = lo.shape[0]
-        rays = CI.ray_streams(n, lo[:, 0], lo[:, 1], lo[:, 2], ld[:, 0],
-                              ld[:, 1], ld[:, 2], lt, lior, lls[:, 0],
-                              lls[:, 1], lval.float())
-        out = torch.empty((29 if spawn else 4, n), device=dev)
-        ms = timed_ms(torch, lambda: CW.launch_level(tb, n_obj, rays, cfg,
-                                                     spawn, out), 20)
-        share = float(lval.float().mean())
-        note = ""
-        if cmp_level is not None:
-            e, m = cmp_level(scene, cfg, [lo, ld, lt, lior, lls, lval],
-                             spawn)
-            note = f"; vs plain: lanes differing {m:.2e}, max abs err {e:.3e}"
+        CW.fused_level_into = orig
+    err = 0.0
+    for lv, (rays, spawn, tile, kinds) in enumerate(log):
+        n = rays.shape[1]
+        out = torch.empty((len(CW.COMBINE_ROWS) if spawn else 4, n),
+                          device=dev)
+        nxt = (torch.empty((11, len(kinds) * n), device=dev) if spawn
+               else None)
+        ms = timed_ms(torch, lambda: CW.launch_level(
+            tb, n_obj, rays, cfg, spawn, out, None, nxt, tile, kinds), 20)
+        share = float((rays[10] != 0.0).float().mean())
+        e, m = cmp_level_into(torch, CW, scene, cfg, rays, tile, kinds,
+                              spawn, tables=tb, what=f"K3 level {lv}")
+        err = max(err, e)
+        note = f"; vs plain: lanes differing {m:.2e}, max abs err {e:.3e}"
         print(f"K3 level {lv} (samples {a}:{a + cfg.tile_rays}): {n} lanes, "
               f"valid {share:.4f}, spawn {spawn}: "
               f"{ms:.4f} ms{note} | {card}")
         res.append((n, share, ms))
-    return res
+    return res, err
 
 
 def bounce_breakdown(torch, card, pts, pcfg, paths, pt_frame,
@@ -1318,6 +1373,9 @@ def accel_rows(torch, np, dev, card, st, errs, add_row):
     from distributionraytracer_tpu_torch.integrator.render import (
         _rays_from_samples, render_from_samples,
     )
+    from distributionraytracer_tpu_torch.integrator.whitted import (
+        _tree_shape,
+    )
     from distributionraytracer_tpu_torch.ops import cuda_intersect as CI
     from distributionraytracer_tpu_torch.ops import cuda_whitted as CW
 
@@ -1483,43 +1541,31 @@ def accel_rows(torch, np, dev, card, st, errs, add_row):
                    for x in _rays_from_samples(sc, cfg, samples))
     nl = o.shape[0]
     ones = torch.ones(nl, device=dev)
-    allv = torch.ones(nl, dtype=torch.bool, device=dev)
     ltab = CW.level_tables(sc)
-    ref = CW.fused_level_plain(sc, cfg, o, d, t, ones, ls, allv, True,
-                               tables=ltab, grid_bbox=gb)
-    res = CW.fused_level_kernel(sc, cfg, o, d, t, ones, ls, allv, True,
-                                tables=ltab, grid_bbox=gb)
-    torch.cuda.synchronize()
-    bad = torch.zeros_like(allv)
-    err = 0.0
-    for k, x in ref.items():
-        if x.dtype == torch.bool:
-            bad |= x != res[k]
-            continue
-        lim = (1e-5 * torch.clamp(x.abs().amax(-1, keepdim=True), min=1.0)
-               if k in POINT_KEYS else 2e-4)
-        off_ = ~((res[k] - x).abs() <= lim)
-        bad |= off_ if off_.dim() == 1 else off_.any(-1)
-        err = max(err, float((res[k] - x).abs().max()))
-    share = float(bad.float().mean())
-    check(share <= LANE_BUDGET, f"K3 grid mode: {share} of lanes differ")
-    errs["K3g"] = err
-    print(f"K3 fused_level grid mode vs plain on {nl} lanes: lanes differing "
-          f"{share:.2e}, max abs err {err:.3e}  PASS")
+    # level 0 of the tile as the tree loop launches it: one node of nl rays
+    kinds = _tree_shape(sc, cfg)[0]
     rays3 = CI.ray_streams(nl, o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1],
                            d[:, 2], t, ones, ls[:, 0], ls[:, 1], ones)
-    out3 = torch.empty((29, nl), device=dev)
+    err, share = cmp_level_into(torch, CW, sc, cfg, rays3, nl, kinds,
+                                tables=ltab, grid_bbox=gb,
+                                what="K3 grid mode")
+    errs["K3g"] = err
+    print(f"K3 fused_level_into grid mode vs plain on {nl} lanes: lanes "
+          f"differing {share:.2e}, max abs err {err:.3e}  PASS")
+    nk = len(kinds)
+    out3 = torch.empty((len(CW.COMBINE_ROWS), nl), device=dev)
+    next3 = torch.empty((11, nk * nl), device=dev)
     gbox = CW.grid_box(gb, dev)
     n_obj = sc.static.n_objects
     add_row("K3g", st["runs"]["fused-grid"][0]["K3grid"], "fused grid route "
             "frame", nl,
             lambda: CW.launch_level(ltab, n_obj, rays3, cfg, True, out3,
-                                    gbox),
-            lambda: CW.fused_level_kernel(sc, cfg, o, d, t, ones, ls, allv,
-                                          True, tables=ltab, grid_bbox=gb),
-            lambda: CW.fused_level_plain(sc, cfg, o, d, t, ones, ls, allv,
-                                         True, tables=ltab, grid_bbox=gb),
-            nl * f4(11 + 29) + n_obj * f4(12 + 1 + 13)
+                                    gbox, next3, nl, kinds),
+            lambda: CW.level_into_kernel(sc, cfg, rays3, next3, nl, kinds,
+                                         tables=ltab, grid_bbox=gb),
+            lambda: CW.level_into_plain(sc, cfg, rays3, next3, nl, kinds,
+                                        tables=ltab, grid_bbox=gb),
+            nl * f4(11 + 10 + 11 * nk) + n_obj * f4(12 + 1 + 13)
             + sc.static.n_lights * f4(10) + f4(6),
             k3_grid_ops(torch, CW, sc, cfg, o, d, t, ls, gb),
             f"{nl} lanes of level 0, {n_obj} objects, spawn")
@@ -2899,7 +2945,7 @@ def main():
         render_from_samples,
     )
     from distributionraytracer_tpu_torch.integrator.whitted import (
-        brute_intersectors,
+        _tree_shape, brute_intersectors,
     )
     from distributionraytracer_tpu_torch.ops import build
     from distributionraytracer_tpu_torch.ops import cuda_intersect as CI
@@ -3061,6 +3107,16 @@ def main():
         errs["K3"] = max(errs["K3"], e)
         print(f"K3 fused_level spawn={spawn} motion_blur=True: lanes "
               f"differing {m:.2e}, max abs err elsewhere {e:.3e}  PASS")
+        # as the tree loop launches it: 4 nodes of R / 4 rays, dead lanes
+        rays_ = CI.ray_streams(R, o[:, 0], o[:, 1], o[:, 2], d[:, 0],
+                               d[:, 1], d[:, 2], t, ior, ls[:, 0], ls[:, 1],
+                               valid.float())
+        for kinds in ((("refr", "refl"), ("refl",)) if spawn else ((),)):
+            e, m = cmp_level_into(torch, CW, ks, lcfg, rays_, R // 4, kinds,
+                                  spawn)
+            errs["K3"] = max(errs["K3"], e)
+            print(f"K3 fused_level_into spawn={spawn} kinds={kinds}: lanes "
+                  f"differing {m:.2e}, max abs err elsewhere {e:.3e}  PASS")
 
     # ---- 3. path-tracer kernels vs plain, scenes 0 and 3 ----
     phase("3")
@@ -3542,10 +3598,14 @@ def main():
     e1, _ = cmp_closest(sc, o, d, t, mb, torch.ones_like(h.hit))
     e2, _ = cmp_any(sc, so_, sd_, sdist, sex, "none", valid=svalid)
     ones, allv = torch.ones(n, device=dev), torch.ones_like(h.hit)
-    e3, _ = cmp_level(sc, cfg, [o, d, t, ones, ls, allv], True)
+    ltab = CW.level_tables(sc)
+    # level 0 of the tile as the tree loop launches it: one node of n rays
+    kinds = _tree_shape(sc, cfg)[0]
+    rays3 = CI.ray_streams(n, o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1],
+                           d[:, 2], t, ones, ls[:, 0], ls[:, 1], ones)
+    e3, _ = cmp_level_into(torch, CW, sc, cfg, rays3, n, kinds, tables=ltab)
     for k, e in (("K1", e1), ("K2", e2), ("K3", e3)):
         errs[k] = max(errs[k], e)
-    ltab = CW.level_tables(sc)
     f4 = lambda k: k * 4
     closest_ops = float(w_test_ops(torch, sc, o, d, t, mb).sum())
 
@@ -3595,15 +3655,18 @@ def main():
                 + float((~((d * nn_).sum(-1) < 0)).sum()) * W_BEER_OPS
                 + float(lv["refr_valid"].sum()) * W_REFR_OPS
                 + float(lv["refl_valid"].sum()) * W_REFL_OPS)
-    rays3 = CI.ray_streams(n, o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1],
-                           d[:, 2], t, ones, ls[:, 0], ls[:, 1], ones)
-    out3 = torch.empty((29, n), device=dev)
-    row("K3", n, lambda: CW.launch_level(ltab, n_obj, rays3, cfg, True, out3),
-        lambda: CW.fused_level_kernel(sc, cfg, o, d, t, ones, ls, allv, True,
-                                      tables=ltab),
-        lambda: CW.fused_level_plain(sc, cfg, o, d, t, ones, ls, allv, True,
+    # it reads the 11 rays rows, writes the combine's 10 rows and each
+    # child's 11 rows of the next level
+    nk = len(kinds)
+    out3 = torch.empty((len(CW.COMBINE_ROWS), n), device=dev)
+    next3 = torch.empty((11, nk * n), device=dev)
+    row("K3", n, lambda: CW.launch_level(ltab, n_obj, rays3, cfg, True, out3,
+                                         None, next3, n, kinds),
+        lambda: CW.level_into_kernel(sc, cfg, rays3, next3, n, kinds,
                                      tables=ltab),
-        n * f4(11 + 29) + n_obj * f4(12 + 1 + 13) + n_l * f4(10),
+        lambda: CW.level_into_plain(sc, cfg, rays3, next3, n, kinds,
+                                    tables=ltab),
+        n * f4(11 + 10 + 11 * nk) + n_obj * f4(12 + 1 + 13) + n_l * f4(10),
         closest_ops + n * W_LANE_OPS + w_normal_ops(sc, h, mb) + k3_light
         + k3_spawn)
 
@@ -3700,8 +3763,8 @@ def main():
 
     # ---- 7b. K3 per level and K6 per bounce on one tile of each frame ----
     phase("7b")
-    levels = level_breakdown(torch, dev, card, r.scene, cfg, samples,
-                             cmp_level)
+    levels, e = level_breakdown(torch, dev, card, r.scene, cfg, samples)
+    errs["K3"] = max(errs["K3"], e)
     bounces, btile = bounce_breakdown(torch, card, pts, pcfg,
                                       pf["res"][0] * pf["res"][1] * pf["spp"],
                                       pt_frame, cmp_pt_bounce, cmp_pt_trace)

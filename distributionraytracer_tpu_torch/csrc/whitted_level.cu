@@ -19,7 +19,9 @@
 // of ~100 uncontracted tests x (1 + lights) with IEEE sqrt and divisions
 // in it, with too few warps to hide it; rays x objects x (1 + lights)
 // tests per level at the FP32 peak take a fraction of the time.  Memory
-// traffic is 11 input and 4 or 29 output f32 streams per lane.  What held
+// traffic is 11 input and 4 or 29 output f32 streams per lane; on the
+// tree loop's route, 10 output streams and each child's 11 input streams
+// of the next level (a dead lane writes 10 and its children's valid rows).  What held
 // the first version (one thread per lane, 128 a block) back, and what
 // this design does about it (lanes.cuh):
 //   - divergence on invalid lanes: level L holds tile x 2^L lanes, of which
@@ -49,7 +51,15 @@
 //   lights (L,9) f32 [pos3, e1_3, e2_3], light_quad (L,) i32;
 //   gbox (6,) f32 [grid bbox_min, bbox_max], or null (accel NONE);
 //   rays (11,R) f32 rows ox oy oz dx dy dz time ior lsx lsy valid;
-//   out (4,R) or (29,R) f32, in the order of fused_level's outputs.
+//   out (4,R) or (29,R) f32, in the order of fused_level's outputs;
+//   with next (spawn only): out (10,R) f32 [direct3, hit, refr weight3,
+//   refl weight3], what the bottom-up combine reads, and next the next
+//   level's (11, b*R) rays.  R = n_nodes * tile lanes run node-major
+//   (lane j * tile + r is node j of primary ray r), and child k of that
+//   lane lands at lane (j * b + k) * tile + r of next, b the number of
+//   child kinds spawned (refr_k, refl_k: a kind's k, or -1 if pruned).
+//   A dead child (of an invalid lane) gets only its valid row: the next
+//   level reads a lane's other rows only where its valid row is nonzero.
 
 #include "lanes.cuh"
 #include "primitives.cuh"
@@ -63,6 +73,25 @@ constexpr float kOffset = 1e-4f;  // secondary/shadow ray offset (main.cpp:378)
 __device__ __forceinline__ void norm3(float& x, float& y, float& z) {
   const float inv = rsqrtf(fmaxf(x * x + y * y + z * z, 1e-24f));
   x *= inv; y *= inv; z *= inv;
+}
+
+// The lane of next that child k of lane i takes (see Layouts above).
+__device__ __forceinline__ size_t child_lane(int i, int k, int tile, int b) {
+  const int j = i / tile;
+  return ((size_t)j * b + k) * tile + (i - j * tile);
+}
+
+// One child's 11 input rows of the next level (children carry time 0).
+__device__ __forceinline__ void write_child(float* c, size_t NN, float ox,
+                                            float oy, float oz, float dx,
+                                            float dy, float dz, float ior,
+                                            float lsx, float lsy, bool valid) {
+  c[0] = ox; c[NN] = oy; c[2 * NN] = oz;
+  c[3 * NN] = dx; c[4 * NN] = dy; c[5 * NN] = dz;
+  c[6 * NN] = 0.0f;
+  c[7 * NN] = ior;
+  c[8 * NN] = lsx; c[9 * NN] = lsy;
+  c[10 * NN] = valid ? 1.0f : 0.0f;
 }
 
 // Init_Traverse's slab (grid.cpp:104-171, accel/grid.py::
@@ -94,17 +123,24 @@ __global__ void __launch_bounds__(kThreads, 2) whitted_level_kernel(
     const float* __restrict__ lights, const int* __restrict__ light_quad,
     int n_lights, const float* __restrict__ gbox,
     const float* __restrict__ rays, int n, int motion_blur, int spawn,
-    int ref_shadow, float* __restrict__ out) {
+    int ref_shadow, float* __restrict__ out, float* __restrict__ next,
+    int tile, int refr_k, int refl_k) {
   __shared__ int s_lane[kThreads];
   __shared__ int s_warp[kThreads / 32];
   const size_t N = n;
-  const int n_out = spawn ? 29 : 4;
+  const int b = (refr_k >= 0) + (refl_k >= 0);
+  const size_t NN = N * b;  // next's lanes
+  const int n_out = !spawn ? 4 : (next != nullptr ? 10 : 29);
   const int i = blockIdx.x * kThreads + threadIdx.x;
   bool valid = false;
   if (i < n) {
     valid = !(rays[10 * N + i] == 0.0f);
-    if (!valid)  // one coalesced pass of zero rows
+    if (!valid) {  // one coalesced pass of zero rows
       for (int k = 0; k < n_out; ++k) out[k * N + i] = 0.0f;
+      if (next != nullptr)
+        for (int k = 0; k < b; ++k)
+          next[10 * NN + child_lane(i, k, tile, b)] = 0.0f;
+    }
   }
   const int live = drt::compact_lanes<kThreads>(valid, i, 0.0f, s_lane,
                                                 nullptr, s_warp);
@@ -251,31 +287,55 @@ __global__ void __launch_bounds__(kThreads, 2) whitted_level_kernel(
   const bool refl_gate = (flx * Nx + fly * Ny + flz * Nz) > 0.0f;
   const bool do_refl = hit && ks > 0.0f && refl_gate;
 
+  const float ro[3] = {px - Nx * kOffset, py - Ny * kOffset,
+                       pz - Nz * kOffset};
+  const float fo[3] = {px + Nx * kOffset, py + Ny * kOffset,
+                       pz + Nz * kOffset};
+  float refr_w[3], refl_w[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float beer = outside ? 1.0f : expf((1.0f - m[k]) * (-t_beer));
+    refr_w[k] = do_refr ? beer * (1.0f - krf) : 0.0f;
+    refl_w[k] = do_refl ? m[3 + k] * krf : 0.0f;
+  }
+
+  if (next != nullptr) {  // the combine's weights; the children into next
+    float* w = out + 4 * N + lane;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      w[k * N] = refr_w[k];
+      w[(3 + k) * N] = refl_w[k];
+    }
+    if (refr_k >= 0)
+      write_child(next + child_lane(lane, refr_k, tile, b), NN, ro[0], ro[1],
+                  ro[2], rdx, rdy, rdz, ior2, llx, lly, do_refr);
+    if (refl_k >= 0)
+      write_child(next + child_lane(lane, refl_k, tile, b), NN, fo[0], fo[1],
+                  fo[2], flx, fly, flz, ior1, llx, lly, do_refl);
+    return;
+  }
+
   float* o = out + 4 * N + lane;
   o[0] = do_refr ? 1.0f : 0.0f;
-  o[1 * N] = px - Nx * kOffset;
-  o[2 * N] = py - Ny * kOffset;
-  o[3 * N] = pz - Nz * kOffset;
+  o[1 * N] = ro[0];
+  o[2 * N] = ro[1];
+  o[3 * N] = ro[2];
   o[4 * N] = rdx;
   o[5 * N] = rdy;
   o[6 * N] = rdz;
   o[7 * N] = ior2;
 #pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    const float beer = outside ? 1.0f : expf((1.0f - m[k]) * (-t_beer));
-    o[(8 + k) * N] = do_refr ? beer * (1.0f - krf) : 0.0f;
-  }
+  for (int k = 0; k < 3; ++k) o[(8 + k) * N] = refr_w[k];
   o[11 * N] = do_refl ? 1.0f : 0.0f;
-  o[12 * N] = px + Nx * kOffset;
-  o[13 * N] = py + Ny * kOffset;
-  o[14 * N] = pz + Nz * kOffset;
+  o[12 * N] = fo[0];
+  o[13 * N] = fo[1];
+  o[14 * N] = fo[2];
   o[15 * N] = flx;
   o[16 * N] = fly;
   o[17 * N] = flz;
   o[18 * N] = ior1;
 #pragma unroll
-  for (int k = 0; k < 3; ++k)
-    o[(19 + k) * N] = do_refl ? m[3 + k] * krf : 0.0f;
+  for (int k = 0; k < 3; ++k) o[(19 + k) * N] = refl_w[k];
   o[22 * N] = llx;
   o[23 * N] = lly;
   o[24 * N] = llz;
@@ -283,13 +343,16 @@ __global__ void __launch_bounds__(kThreads, 2) whitted_level_kernel(
 
 }  // namespace
 
-// gbox: null for accel NONE, the grid's (6,) f32 box for grid mode.
+// gbox: null for accel NONE, the grid's (6,) f32 box for grid mode;
+// next: null for the 29-row output, else the next level's rays (spawn
+// only; n a multiple of tile, and at least one of refr_k, refl_k >= 0).
 extern "C" int drt_whitted_level(const void* table, const void* types,
                                  const void* mrow, int n_obj,
                                  const void* lights, const void* light_quad,
                                  int n_lights, const void* gbox,
                                  const void* rays, int n, int motion_blur,
                                  int spawn, int ref_shadow, void* out,
+                                 void* next, int tile, int refr_k, int refl_k,
                                  void* stream) {
   if (n > 0) {
     whitted_level_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
@@ -299,7 +362,8 @@ extern "C" int drt_whitted_level(const void* table, const void* types,
         static_cast<const float*>(lights),
         static_cast<const int*>(light_quad), n_lights,
         static_cast<const float*>(gbox), static_cast<const float*>(rays), n,
-        motion_blur, spawn, ref_shadow, static_cast<float*>(out));
+        motion_blur, spawn, ref_shadow, static_cast<float*>(out),
+        static_cast<float*>(next), tile, refr_k, refl_k);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -29,8 +29,8 @@ import torch
 
 from distributionraytracer_tpu_torch.config import RenderConfig
 from distributionraytracer_tpu_torch.integrator.whitted import (
-    Intersectors, _tile_mode, level_route, trace_whitted, trace_whitted_soft,
-    tree_nodes,
+    Intersectors, _tile_mode, level_route, levels_in_place, trace_whitted,
+    trace_whitted_soft, tree_nodes,
 )
 from distributionraytracer_tpu_torch.ops import cuda_whitted as CW
 from distributionraytracer_tpu_torch.ops import sampling
@@ -274,6 +274,7 @@ class TileGraphs:
         # copies: the next replay overwrites the graph's own counts
         stats = {k: v.clone() for k, v in g.stats.items()}
         spans.count("whitted.lanes", g.lanes)
+        spans.count("whitted.levels_in_place", levels_in_place(scene, cfg))
         spans.count_device("whitted.lanes_live", stats["rays_traced"])
         spans.count_device("whitted.shadow_rays", stats["shadow_rays"])
         return out, stats

@@ -212,6 +212,12 @@ def tree_nodes(scene: SceneData, cfg: RenderConfig) -> int:
     return sum(len(kinds) ** level for level in range(levels))
 
 
+def levels_in_place(scene: SceneData, cfg: RenderConfig) -> int:
+    """Levels of a K3-route tree whose children K3 writes into the next
+    level's ray streams (``whitted.levels_in_place``): all but the last."""
+    return _tree_shape(scene, cfg)[1] - 1
+
+
 def trace_whitted(scene: SceneData, cfg: RenderConfig, o, d, time,
                   light_sample, inter: Optional[Intersectors] = None,
                   fused_grid=None, count_rays: bool = False,
@@ -231,27 +237,96 @@ def trace_whitted(scene: SceneData, cfg: RenderConfig, o, d, time,
     shadow rays (``whitted.shadow_rays``) to the recorder's device counts.
     Otherwise nothing is launched to count rays.
 
-    Given ``inter``, every level is staged on it; else, given ``tables``
-    (``CW.level_tables(scene)``, built by the caller once for all its
-    tiles), on K3.  Given neither, the K3 routes (:func:`_tile_mode`)
-    raise, and every other is staged on :func:`brute_intersectors`.
+    Given ``inter``, every level is staged on it (:func:`_expand_staged`);
+    else, given ``tables`` (``CW.level_tables(scene)``, built by the caller
+    once for all its tiles), on K3 (:func:`_expand_k3`).  Given neither,
+    the K3 routes (:func:`_tile_mode`) raise, and every other is staged on
+    :func:`brute_intersectors`.
     """
     if inter is None and tables is None:
         if _tile_mode(level_route(scene, cfg), None, fused_grid) != "staged":
             raise ValueError("the K3 routes read the caller's K3 tables: "
                              "pass tables=CW.level_tables(scene)")
         inter = brute_intersectors(scene, cfg)
-    fused = CW.fused_level
-    if fused_grid is not None and cfg.kernels == "off":
-        fused = CW.fused_level_plain
-    st = scene.static
-    R, dev = o.shape[0], o.device
-    recording = spans.enabled()
+    counting = count_rays or spans.enabled()
+    if inter is None:
+        lvl, live, shadows = _expand_k3(scene, cfg, o, d, time, light_sample,
+                                        tables, fused_grid, counting)
+    else:
+        lvl, live, shadows = _expand_staged(scene, cfg, o, d, time,
+                                            light_sample, inter, counting)
+    with spans.span("whitted.combine"):
+        color = _combine(lvl, _tree_shape(scene, cfg)[0], o.device)
+    stats = {}
+    if count_rays:
+        stats = {"rays_traced": torch.stack(live).sum(),
+                 "shadow_rays": torch.stack(shadows).sum()}
+    return color, stats
 
+
+def _count_level(scene, R, n, valid, hit, live, shadows, counting):
+    """A level's ray counts: ``whitted.lanes`` always; its live lanes and
+    shadow rays, on the device, only when they are read."""
+    spans.count("whitted.lanes", R * n)
+    if counting:
+        live.append(valid.sum())
+        shadows.append(scene.static.n_lights * (valid & hit).sum())
+        spans.count_device("whitted.lanes_live", live[-1])
+        spans.count_device("whitted.shadow_rays", shadows[-1])
+
+
+def _expand_k3(scene, cfg, o, d, time, light_sample, tables, fused_grid,
+               counting):
+    """The top-down pass on K3 (:func:`CW.fused_level_into`): one (11,
+    n*R) f32 ray-stream buffer a level, node-major (lane ``j*R + r`` is
+    node ``j`` of ray ``r``), into which the level before wrote its
+    children; returns the levels' combine inputs, node-major (R, n, ...)
+    views of K3's output rows, and the count lists."""
+    kinds, levels = _tree_shape(scene, cfg)
+    R, dev = o.shape[0], o.device
+    ones = torch.ones((R,), dtype=torch.float32, device=dev)
+    rays = CI.ray_streams(R, o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1],
+                          d[:, 2], time, ones, light_sample[:, 0],
+                          light_sample[:, 1], ones)
+    # _miss_color's skybox lookup reads every lane's d, so there a dead
+    # child's rows, which K3 does not write, are zeros
+    alloc = torch.zeros if scene.static.has_skybox else torch.empty
+    lvl, live, shadows = [], [], []
+    for level in range(levels):
+        with spans.span("whitted.level"):
+            n = rays.shape[1] // R
+            nxt = None
+            if level < levels - 1:
+                nxt = alloc((11, len(kinds) * n * R), dtype=torch.float32,
+                            device=dev)
+            with spans.span("whitted.intersect"):
+                out = CW.fused_level_into(scene, cfg, rays, nxt, R, kinds,
+                                          tables, fused_grid)
+
+            def unflat(a, n=n):
+                return a.reshape((n, R) + a.shape[1:]).transpose(0, 1)
+
+            valid, hit = rays[10] != 0.0, out[3] > 0.0
+            _count_level(scene, R, n, valid, hit, live, shadows, counting)
+            cur = {"direct": unflat(out[0:3].T), "valid": unflat(valid),
+                   "miss": unflat(valid & ~hit),
+                   "miss_color": unflat(_miss_color(scene, rays[3:6].T))}
+            if nxt is not None:
+                spans.count("whitted.levels_in_place")
+                cur["refr_weight"] = unflat(out[4:7].T)
+                cur["refl_weight"] = unflat(out[7:10].T)
+                rays = nxt
+            lvl.append(cur)
+    return lvl, live, shadows
+
+
+def _expand_staged(scene, cfg, o, d, time, light_sample, inter, counting):
+    """The top-down pass staged on ``inter`` (:func:`_shade_node`), on
+    (R, n, ...) node arrays with autograd; returns the levels' combine
+    inputs and the count lists."""
     kinds, levels = _tree_shape(scene, cfg)
     branching = len(kinds)
-
-    # ---------------- top-down expansion ----------------
+    R, dev = o.shape[0], o.device
     lvl = []
     node_o = o[:, None, :]
     node_d = d[:, None, :]
@@ -275,30 +350,14 @@ def trace_whitted(scene: SceneData, cfg: RenderConfig, o, d, time,
 
             spawn = depth <= cfg.max_depth and branching > 0
             fv = flat(node_valid)
-            if inter is None:
-                with spans.span("whitted.intersect"):
-                    res = fused(
-                        scene, cfg, flat(node_o), flat(node_d), flat(node_t),
-                        flat(node_ior), flat(node_ls), fv, spawn=spawn,
-                        tables=tables, grid_bbox=fused_grid)
-                hit_flags = res.pop("_hit")
-                res["miss_color"] = _miss_color(scene, flat(node_d))
-            else:
-                with spans.span("whitted.intersect"):
-                    hit: HitResult = inter.closest(
-                        flat(node_o), flat(node_d), flat(node_t), valid=fv)
-                res = _shade_node(scene, cfg, inter, flat(node_o),
-                                  flat(node_d), flat(node_t), flat(node_ior),
-                                  flat(node_ls), fv, hit,
-                                  spawn_children=spawn)
-                hit_flags = hit.hit
+            with spans.span("whitted.intersect"):
+                hit: HitResult = inter.closest(
+                    flat(node_o), flat(node_d), flat(node_t), valid=fv)
+            res = _shade_node(scene, cfg, inter, flat(node_o),
+                              flat(node_d), flat(node_t), flat(node_ior),
+                              flat(node_ls), fv, hit, spawn_children=spawn)
             cur = {k: unflat(v) for k, v in res.items()}
-            spans.count("whitted.lanes", R * n)
-            if count_rays or recording:
-                live.append(fv.sum())
-                shadows.append(st.n_lights * (fv & hit_flags).sum())
-                spans.count_device("whitted.lanes_live", live[-1])
-                spans.count_device("whitted.shadow_rays", shadows[-1])
+            _count_level(scene, R, n, fv, hit.hit, live, shadows, counting)
 
             if spawn:
                 # children: interleave the spawned kinds per node -> b*n
@@ -319,39 +378,40 @@ def trace_whitted(scene: SceneData, cfg: RenderConfig, o, d, time,
             lvl.append({k: v for k, v in cur.items()
                         if k in ("direct", "miss", "miss_color", "valid",
                                  "refr_weight", "refl_weight")})
+    return lvl, live, shadows
 
-    # ---------------- bottom-up combine ----------------
-    with spans.span("whitted.combine"):
-        child_color = None
-        for level in reversed(range(levels)):
-            cur = lvl[level]
-            if child_color is None:
-                color = cur["direct"]
-            else:
-                acc = cur["direct"]
-                for ci, k in enumerate(kinds):
-                    acc = acc + (clamp_color(child_color[:, ci::branching])
-                                 * cur[k + "_weight"])
-                color = clamp_color(acc)
-            color = torch.where(cur["miss"][..., None], cur["miss_color"],
-                                color)
-            color = torch.where(cur["valid"][..., None], color,
-                                torch.zeros((), dtype=color.dtype,
-                                            device=dev))
-            child_color = color
 
-    stats = {}
-    if count_rays:
-        stats = {"rays_traced": torch.stack(live).sum(),
-                 "shadow_rays": torch.stack(shadows).sum()}
-    return child_color[:, 0], stats
+def _combine(lvl, kinds, dev):
+    """The bottom-up pass: each level's colour from its direct light and
+    its children's clamped colours (see the module's docstring); returns
+    the primary rays' (R, 3) colours."""
+    branching = len(kinds)
+    child_color = None
+    for cur in reversed(lvl):
+        if child_color is None:
+            color = cur["direct"]
+        else:
+            acc = cur["direct"]
+            for ci, k in enumerate(kinds):
+                acc = acc + (clamp_color(child_color[:, ci::branching])
+                             * cur[k + "_weight"])
+            color = clamp_color(acc)
+        color = torch.where(cur["miss"][..., None], cur["miss_color"],
+                            color)
+        color = torch.where(cur["valid"][..., None], color,
+                            torch.zeros((), dtype=color.dtype, device=dev))
+        child_color = color
+    return child_color[:, 0]
 
 
 def _miss_color(scene: SceneData, d):
     """The colour of rays ``d`` that hit nothing: the skybox texel when the
     scene has one, else the background colour (main.cpp:328-357)."""
     if scene.static.has_skybox:
-        return clamp_color(skybox_color(scene.sky_faces, scene.sky_res, d))
+        # contiguous: K3's streams hand a transposed view, whose sums
+        # would round in another order
+        return clamp_color(skybox_color(scene.sky_faces, scene.sky_res,
+                                        d.contiguous()))
     return clamp_color(scene.bg_color.to(torch.float32)).expand(d.shape[0], 3)
 
 

@@ -50,9 +50,10 @@ SIGNATURES = {
     "drt_any_hit": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P,
                     _P],
     # table, types, mrow, n_obj, lights, light_quad, n_lights, gbox, rays,
-    # n, motion_blur, spawn, ref_shadow, out, stream
+    # n, motion_blur, spawn, ref_shadow, out, next, tile, refr_k, refl_k,
+    # stream
     "drt_whitted_level": [_P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I,
-                          _I, _P, _P],
+                          _I, _P, _P, _I, _I, _I, _P],
     # nodes, n_nodes, objs, rays, n, motion_blur, walk, out_f, out_i, stream
     "drt_packet_closest": [_P, _I, _P, _P, _I, _I, _I, _P, _P, _P],
     # nodes, n_nodes, objs, rays, n, motion_blur, walk, grid_mode, occ,

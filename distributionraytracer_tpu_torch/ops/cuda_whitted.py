@@ -15,6 +15,11 @@ grid box is shadowed.
 closest/any-hit; it keeps the kernel's own formulas where they differ from
 ``_shade_node`` (``rsqrt(max(x, 1e-24))`` normalisation, the clamped
 Schlick term).
+
+The tree loop (``integrator.whitted.trace_whitted``) runs each level by
+:func:`fused_level_into` on the level's (11, n*R) ray streams: K3 writes
+the rows the bottom-up combine reads and each child's rays straight into
+the next level's streams, in the lane order the loop reads them.
 """
 
 from __future__ import annotations
@@ -121,6 +126,13 @@ def fused_level_plain(scene: SceneData, cfg, o, d, time, ior, light_sample,
                       valid, spawn: bool,
                       tables: Optional[LevelTables] = None, grid_bbox=None):
     """Plain torch version of K3 (same outputs as the kernel)."""
+    return _unpack(_plain_rows(scene, cfg, o, d, time, ior, light_sample,
+                               valid, spawn, tables, grid_bbox), valid, spawn)
+
+
+def _plain_rows(scene: SceneData, cfg, o, d, time, ior, light_sample, valid,
+                spawn: bool, tables: Optional[LevelTables], grid_bbox):
+    """The plain K3's (4 or 29, R) output rows, the kernel's layout."""
     tb = tables if tables is not None else level_tables(scene)
     st = scene.static
     R = o.shape[0]
@@ -223,7 +235,34 @@ def fused_level_plain(scene: SceneData, cfg, o, d, time, ior, light_sample,
                  + [ior2] + list(refr_w.T)
                  + [do_refl.to(torch.float32)] + list(fo.T) + list(fl.T)
                  + [ior1] + list(refl_w.T) + list(ll.T))
-    return _unpack(torch.stack(outs), valid, spawn)
+    return torch.stack(outs)
+
+
+# The tree loop's route (``next`` given): K3's (10, R) output rows are the
+# rows of its 29-row output that the bottom-up combine reads, [direct3,
+# hit, refr_weight3, refl_weight3]; a child's 11 rays rows (ox oy oz dx dy
+# dz time ior lsx lsy valid) are these rows of the 29, None for time 0.
+COMBINE_ROWS = (0, 1, 2, 3, 12, 13, 14, 23, 24, 25)
+_CHILD_ROWS = {"refr": (5, 6, 7, 8, 9, 10, None, 11, 26, 27, 4),
+               "refl": (16, 17, 18, 19, 20, 21, None, 22, 26, 27, 15)}
+
+
+def level_into_plain(scene: SceneData, cfg, rays, next, tile: int, kinds,
+                     tables: Optional[LevelTables] = None, grid_bbox=None):
+    """Plain torch version of :func:`fused_level_into`: writes every row of
+    ``next`` (the kernel writes only a dead child's valid row)."""
+    o, d, ls = (rays[a:a + w].T.contiguous() for a, w in ((0, 3), (3, 3),
+                                                          (8, 2)))
+    rows = _plain_rows(scene, cfg, o, d, rays[6], rays[7], ls,
+                       rays[10] != 0.0, next is not None, tables, grid_bbox)
+    if next is None:
+        return rows
+    zero = torch.zeros_like(rows[0])
+    kids = [torch.stack([zero if r is None else rows[r]
+                         for r in _CHILD_ROWS[k]]).reshape(11, -1, tile)
+            for k in kinds]  # each (11, n, tile)
+    next.copy_(torch.stack(kids, dim=2).reshape(next.shape))
+    return rows[list(COMBINE_ROWS)]
 
 
 def grid_box(grid_bbox, device) -> torch.Tensor:
@@ -235,10 +274,15 @@ def grid_box(grid_bbox, device) -> torch.Tensor:
 
 
 def launch_level(tb: LevelTables, n_obj: int, rays, cfg, spawn: bool, out,
-                 gbox: Optional[torch.Tensor] = None):
+                 gbox: Optional[torch.Tensor] = None, next=None,
+                 tile: int = 0, kinds=()):
     """K3 on packed (11, R) rays into (4 or 29, R) f32 outputs, in grid
     mode when ``gbox`` (:func:`grid_box`) is given; counts nothing (the
-    wrapper below packs, launches and counts)."""
+    wrappers below pack, launch and count).  Given ``next`` (spawn only),
+    into (10, R) ``out`` (:data:`COMBINE_ROWS`) and the children into
+    ``next``, as :func:`fused_level_into` says."""
+    refr_k, refl_k = (kinds.index(k) if k in kinds else -1
+                      for k in ("refr", "refl"))
     with torch.cuda.device(rays.device):
         err = build.load().lib.drt_whitted_level(
             tb.data.data_ptr(), tb.types.data_ptr(), tb.mrow.data_ptr(),
@@ -247,8 +291,26 @@ def launch_level(tb: LevelTables, n_obj: int, rays, cfg, spawn: bool, out,
             None if gbox is None else gbox.data_ptr(),
             rays.data_ptr(), rays.shape[1], int(cfg.motion_blur), int(spawn),
             int(cfg.shadow_mode == "reference"), out.data_ptr(),
+            None if next is None else next.data_ptr(), tile, refr_k, refl_k,
             torch.cuda.current_stream().cuda_stream)
     build.check(err, "drt_whitted_level")
+
+
+def _checked_launch(scene: SceneData, cfg, rays, spawn: bool, n_out: int,
+                    tb: LevelTables, grid_bbox, next=None, tile: int = 0,
+                    kinds=()):
+    """Checks the tensors, launches K3 on packed (11, R) ``rays`` into a
+    new (``n_out``, R) output, counts the launch; returns the output."""
+    gbox = None if grid_bbox is None else grid_box(grid_bbox, rays.device)
+    require_cuda("fused_level", rays, tb.data, tb.types, tb.mrow, tb.lights,
+                 tb.light_quad, *(() if gbox is None else (gbox,)),
+                 *(() if next is None else (next,)))
+    out = torch.empty((n_out, rays.shape[1]), dtype=torch.float32,
+                      device=rays.device)
+    launch_level(tb, scene.static.n_objects, rays, cfg, spawn, out, gbox,
+                 next, tile, kinds)
+    LAUNCHES["fused_level" if gbox is None else "fused_level_grid"] += 1
+    return out
 
 
 def fused_level_kernel(scene: SceneData, cfg, o, d, time, ior, light_sample,
@@ -260,14 +322,8 @@ def fused_level_kernel(scene: SceneData, cfg, o, d, time, ior, light_sample,
     rays = ray_streams(R, o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1],
                        d[:, 2], time, ior, light_sample[:, 0],
                        light_sample[:, 1], valid.to(torch.float32))
-    gbox = None if grid_bbox is None else grid_box(grid_bbox, rays.device)
-    require_cuda("fused_level", rays, tb.data, tb.types, tb.mrow, tb.lights,
-                 tb.light_quad, *(() if gbox is None else (gbox,)))
-    n_out = 29 if spawn else 4
-    out = torch.empty((n_out, R), dtype=torch.float32, device=rays.device)
-    launch_level(tb, scene.static.n_objects, rays, cfg, spawn, out, gbox)
-    LAUNCHES["fused_level" if gbox is None else "fused_level_grid"] += 1
-    return _unpack(out, valid, spawn)
+    return _unpack(_checked_launch(scene, cfg, rays, spawn, 29 if spawn
+                                   else 4, tb, grid_bbox), valid, spawn)
 
 
 def fused_level(scene: SceneData, cfg, o, d, time, ior, light_sample, valid,
@@ -280,3 +336,37 @@ def fused_level(scene: SceneData, cfg, o, d, time, ior, light_sample, valid,
                                  valid, spawn, tables, grid_bbox)
     return fused_level_kernel(scene, cfg, o, d, time, ior, light_sample,
                               valid, spawn, tables, grid_bbox)
+
+
+def level_into_kernel(scene: SceneData, cfg, rays, next, tile: int, kinds,
+                      tables: Optional[LevelTables] = None, grid_bbox=None):
+    """K3 on CUDA tensors, as :func:`fused_level_into` says."""
+    tb = tables if tables is not None else level_tables(scene)
+    n = rays.shape[1]
+    if next is not None and (n % tile or not kinds
+                             or next.shape != (11, len(kinds) * n)):
+        raise ValueError(f"next must be (11, {len(kinds) * n}) for {n} "
+                         f"lanes of tile {tile}, kinds {kinds}; got "
+                         f"{tuple(next.shape)}")
+    return _checked_launch(scene, cfg, rays, next is not None,
+                           4 if next is None else len(COMBINE_ROWS), tb,
+                           grid_bbox, next, tile, kinds)
+
+
+def fused_level_into(scene: SceneData, cfg, rays, next, tile: int, kinds,
+                     tables: Optional[LevelTables] = None, grid_bbox=None):
+    """One tree level on its (11, n * tile) f32 ray streams (:func:`
+    launch_level`'s rows): lane ``j * tile + r`` is node ``j`` of primary
+    ray ``r``.  Returns the rows the bottom-up combine reads: (4, .) [direct3,
+    hit] on the last level (``next`` None), else (10, .) [direct3, hit,
+    refr_weight3, refl_weight3]; and writes child ``k`` (the index of its
+    kind in ``kinds``) of lane ``j * tile + r`` into lane ``(j * b + k) *
+    tile + r`` of ``next``, the next level's (11, b * n * tile) streams, b =
+    ``len(kinds)``.  The kernel writes a dead child (of an invalid lane)
+    only its valid row, 0.  The plain version on CPU tensors and with
+    ``kernels='off'`` (the grid mode's plain route), else K3."""
+    if rays.device.type == "cpu" or cfg.kernels == "off":
+        return level_into_plain(scene, cfg, rays, next, tile, kinds, tables,
+                                grid_bbox)
+    return level_into_kernel(scene, cfg, rays, next, tile, kinds, tables,
+                             grid_bbox)

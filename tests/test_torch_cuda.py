@@ -21,7 +21,7 @@ from distributionraytracer_tpu_torch.integrator.render import (
     default_config, make_samples, render_from_samples,
 )
 from distributionraytracer_tpu_torch.integrator.whitted import (
-    Intersectors, brute_intersectors,
+    Intersectors, _tree_shape, brute_intersectors, trace_whitted,
 )
 from distributionraytracer_tpu_torch.ops import build
 from distributionraytracer_tpu_torch.ops import cuda_intersect as CI
@@ -37,11 +37,12 @@ from distributionraytracer_tpu_torch.scene import (
 
 from distributionraytracer_tpu_torch.scene import pt_scenes as PS
 
+from torch_level_chain import old_trace_k3
 from torch_scenes import (
-    compare_levels, crowd_scene, level_inputs, occlusion_inputs, prim_scene,
-    PT_PRIM_LEAVES, PT_VIEWS, pt_crowd_leaves, pt_own_material_leaves,
-    pt_rays, pt_tie_leaves, random_rays, synthetic_faces, tie_rays,
-    tie_scene,
+    compare_levels, crowd_scene, level_inputs, occlusion_inputs,
+    one_kind_scene, prim_scene, PT_PRIM_LEAVES, PT_VIEWS, pt_crowd_leaves,
+    pt_own_material_leaves, pt_rays, pt_tie_leaves, random_rays,
+    synthetic_faces, tie_rays, tie_scene, with_skybox,
 )
 
 torch.set_num_threads(1)
@@ -1795,21 +1796,13 @@ def test_tile_graphs_count_what_the_eager_tiles_count(dev):
     again, _ = recorded(lambda: r.render_with_samples(samples))
     for c in (got, again):
         for k in ("whitted.lanes", "whitted.lanes_live",
-                  "whitted.shadow_rays"):
+                  "whitted.shadow_rays", "whitted.levels_in_place"):
             assert c[k] == eager[k], k
         assert c["whitted.graph_replays"] == tiles
     assert got["whitted.graph_captures"] == 2
     assert "whitted.graph_captures" not in again
     assert got_spans.count("whitted.graph") == tiles
     assert "whitted.level" not in got_spans and "whitted.level" in eager_spans
-
-
-def _skybox(scene):
-    faces, res = synthetic_faces(4)
-    return dataclasses.replace(
-        scene, sky_faces=torch.from_numpy(faces),
-        sky_res=torch.from_numpy(res),
-        static=dataclasses.replace(scene.static, has_skybox=True))
 
 
 def test_tile_graphs_bypass_other_routes(dev):
@@ -1835,12 +1828,119 @@ def test_tile_graphs_bypass_other_routes(dev):
     off = Renderer(create_random_scene(0, 64, 48),
                    r.cfg.replace(kernels="off"), device=dev)
     off.render_with_samples(samples)
-    sky = Renderer(_skybox(create_random_scene(0, 64, 48)), r.cfg,
+    sky = Renderer(with_skybox(create_random_scene(0, 64, 48)), r.cfg,
                    device=dev)
     img = sky.render_with_samples(samples)
     assert torch.equal(img, render_from_samples(sky.scene, sky.cfg, samples))
     torch.cuda.synchronize()
     assert _captures() == c0
+
+
+# ------------------- K3 writes its children into the next level's streams
+def _streams_close(got, want, budget=BUDGET):
+    """Two (rows, lanes) outputs of a level: the lanes where a row differs
+    (by more than 2e-4 plus 1e-5 of its magnitude) are at most ``budget``
+    of the lanes."""
+    off = ~torch.isclose(got, want, rtol=1e-5, atol=2e-4).all(0)
+    assert float(off.float().mean()) <= budget, float(off.float().mean())
+
+
+def _first_streams(o, d, t, ls):
+    ones = torch.ones_like(t)
+    return CI.ray_streams(t.shape[0], o[:, 0], o[:, 1], o[:, 2], d[:, 0],
+                          d[:, 1], d[:, 2], t, ones, ls[:, 0], ls[:, 1], ones)
+
+
+@pytest.mark.parametrize("grid", [False, True], ids=["none", "grid"])
+@pytest.mark.parametrize("name", ["random", "refl", "refr"])
+def test_level_into_kernel_matches_plain(dev, name, grid):
+    """K3's ``next`` streams and combine rows against the plain version's
+    at every level of a frame's tree, each level fed the plain version's
+    streams: the valid rows equal on every lane (written, though ``next``
+    starts as NaN), the rest within the budgets on valid lanes."""
+    scene = (create_random_scene(0, 64, 48) if name == "random"
+             else one_kind_scene(SceneBuilder, name)).to(dev)
+    cfg = default_config(scene, spp=4)
+    kinds, levels = _tree_shape(scene, cfg)
+    box = ((np.array([-12, -2, -12], np.float32),
+            np.array([12, 3, 12], np.float32)) if grid else None)
+    samples = make_samples(scene, cfg,
+                           torch.Generator(device=dev).manual_seed(5))
+    o, d, t, ls = RD._rays_from_samples(scene, cfg, samples)
+    R, tb = o.shape[0], CW.level_tables(scene)
+    rays = _first_streams(o, d, t, ls)
+    for level in range(levels):
+        spawn = level < levels - 1
+        shape = (11, len(kinds) * rays.shape[1])
+        got = torch.full(shape, float("nan"), device=dev) if spawn else None
+        want = torch.empty(shape, device=dev) if spawn else None
+        out = CW.level_into_kernel(scene, cfg, rays, got, R, kinds, tb, box)
+        ref = CW.level_into_plain(scene, cfg, rays, want, R, kinds, tb, box)
+        v = rays[10] != 0.0
+        _streams_close(out[:, v], ref[:, v])
+        if not spawn:
+            break
+        assert not bool(got[10].isnan().any())
+        assert _mismatch(got[10], want[10]) <= BUDGET
+        both = (got[10] != 0.0) & (want[10] != 0.0)
+        assert int(both.sum()) > 0
+        _streams_close(got[:, both], want[:, both])
+        rays = want
+
+
+def _rtow_tile(dev, tile_rays=65536):
+    """``rtow_final``'s scene at 800x600 and 16 spp, and the rays of the
+    frame's middle tile (the first tiles are the floor's)."""
+    scene = create_random_scene(0, 800, 600).to(dev)
+    cfg = default_config(scene, spp=16, tile_rays=tile_rays)
+    samples = make_samples(scene, cfg,
+                           torch.Generator(device=dev).manual_seed(1))
+    rays = RD._rays_from_samples(scene, cfg, samples)
+    a = (rays[0].shape[0] // tile_rays // 2) * tile_rays
+    return scene, cfg, tuple(x[a:a + tile_rays].contiguous() for x in rays)
+
+
+def test_graphed_and_eager_tiles_equal_the_old_expansion(dev):
+    """A full ``rtow_final`` tile, graphed and eager, gives the colours of
+    the same tile traced with the old expansion (``torch_level_chain``),
+    bit for bit."""
+    scene, cfg, rays = _rtow_tile(dev)
+    tb = CW.level_tables(scene)
+    want = old_trace_k3(scene, cfg, *rays, tb)
+    eager, _ = trace_whitted(scene, cfg, *rays, tables=tb)
+    g = RD.TileGraphs()
+    g.prepare(scene, cfg)
+    graphed = torch.empty_like(want)
+    g.trace(scene, cfg, rays, graphed, False, True)
+    g.trace(scene, cfg, rays, graphed, False, True)  # a replay
+    torch.cuda.synchronize()
+    assert float(want.std()) > 0.01
+    assert torch.equal(eager, want)
+    assert torch.equal(graphed, want)
+
+
+@pytest.mark.parametrize("case", ["grid", "skybox", "refl", "refr"])
+def test_eager_k3_tiles_equal_the_old_expansion(dev, case):
+    """K3's grid mode (``fused_grid``), a skybox scene (whose lookup reads
+    every lane's direction) and one-kind trees, eager, against the old
+    expansion, bit for bit."""
+    scene = (one_kind_scene(SceneBuilder, case) if case in ("refl", "refr")
+             else create_random_scene(0, 96, 64))
+    if case == "skybox":
+        scene = with_skybox(scene)
+    scene = scene.to(dev)
+    box = ((np.array([-12, -2, -12], np.float32),
+            np.array([12, 3, 12], np.float32)) if case == "grid" else None)
+    cfg = default_config(scene, spp=4)
+    samples = make_samples(scene, cfg,
+                           torch.Generator(device=dev).manual_seed(2))
+    rays = RD._rays_from_samples(scene, cfg, samples)
+    tb = CW.level_tables(scene)
+    want = old_trace_k3(scene, cfg, *rays, tb, box)
+    got, _ = trace_whitted(scene, cfg, *rays, tables=tb, fused_grid=box)
+    torch.cuda.synchronize()
+    assert float(want.std()) > 0.01
+    assert torch.equal(got, want)
 
 
 def test_pt_frame_matches_the_benchmark_reference_on_card(dev):

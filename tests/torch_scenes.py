@@ -497,3 +497,46 @@ def silhouette_scene(builder_cls):
     b.add_point_light([3.0, 4.0, 6.0], [1, 1, 1])
     b.bg_color = np.array([0.1, 0.1, 0.6], np.float32)
     return b.build()
+
+
+def one_kind_scene(builder_cls, kind):
+    """A scene whose ray tree spawns one child kind: ``"refl"`` (metal and
+    shiny diffuse, no T == 1 material) or ``"refr"`` (glass with ks = 0
+    and matte walls); a point and a quad light.  ``builder_cls`` is either
+    package's SceneBuilder."""
+    b = builder_cls()
+    b.set_camera([0, 1.5, 6], [0, 0.5, 0], [0, 1, 0], 45, 0.01, 16, 12, 0, 1)
+    if kind == "refl":
+        ground = b.add_material([0.7, 0.7, 0.6], 0.8, [0.5, 0.5, 0.5], 0.3,
+                                20, 0, 1)
+        a = b.add_material([0.9, 0.4, 0.1], 0.2, [0.9, 0.9, 0.9], 0.9, 80,
+                           0, 1)
+        c = b.add_material([0.2, 0.3, 0.9], 0.6, [1, 1, 1], 0.4, 40, 0.5, 1)
+    else:
+        ground = b.add_material([0.7, 0.7, 0.6], 0.9, [0, 0, 0], 0.0, 10, 0,
+                                1)
+        a = b.add_material([0.9, 0.95, 0.9], 0.1, [1, 1, 1], 0.0, 60, 1,
+                           1.5)
+        c = b.add_material([0.6, 0.9, 0.7], 0.2, [1, 1, 1], 0.0, 30, 1,
+                           1.33)
+    b.add_plane_hessian([0, 1, 0], 1.0, ground)
+    b.add_sphere([-0.9, 0, 0], 0.9, a)
+    b.add_sphere([0.9, 0.2, -0.5], 0.7, c)
+    b.add_sphere([0.2, -0.4, 1.2], 0.5, a)
+    b.add_box([1.5, -1, 0.5], [2.3, 0.2, 1.3], c)
+    b.add_point_light([2, 4, 3], [1, 1, 1])
+    b.add_quad_light([-2, 4, 2], [1, 1, 1], [-1, 4, 2], [-2, 4, 3], 4)
+    return b.build()
+
+
+def with_skybox(scene):
+    """A port scene with ``synthetic_faces(4)`` as its skybox."""
+    import dataclasses
+
+    import torch
+
+    faces, res = synthetic_faces(4)
+    return dataclasses.replace(
+        scene, sky_faces=torch.from_numpy(faces),
+        sky_res=torch.from_numpy(res),
+        static=dataclasses.replace(scene.static, has_skybox=True))
