@@ -54,6 +54,7 @@ from distributionraytracer_tpu_torch.ops.intersect import (
 from distributionraytracer_tpu_torch.scene.types import (
     OBJ_BOX, OBJ_SPHERE, OBJ_TRIANGLE, SceneData,
 )
+from distributionraytracer_tpu_torch.utils import spans
 
 
 class CudaGrid(NamedTuple):
@@ -123,20 +124,28 @@ def pack_grid(scene: SceneData, grid: GridArrays, motion_blur: bool = False,
 
 def gate_closest(pg: CudaGrid, h: HitResult, o, d) -> HitResult:
     """The grid's closest-hit gates on top of a hit: a failed slab init is
-    a miss, walking out of the grid drops the record (grid.cpp:258-304)."""
-    ok, *_, t1 = grid_slab(pg.bbox_min, pg.bbox_max, o, d)
-    hit = h.hit & ok & (h.t < t1)
-    return HitResult(hit=hit, t=torch.where(hit, h.t,
-                                            torch.full_like(h.t, FLT_MAX)),
-                     normal=h.normal,
-                     obj_id=torch.where(hit, h.obj_id,
-                                        torch.full_like(h.obj_id, -1)),
-                     mat_id=h.mat_id)
+    a miss, walking out of the grid drops the record (grid.cpp:258-304).
+    Recorded as an ``accel.grid_gate`` span; ``grid.gate_rays`` counts
+    the query's rays."""
+    with spans.span("accel.grid_gate"):
+        spans.count("grid.gate_rays", o.shape[0])
+        ok, *_, t1 = grid_slab(pg.bbox_min, pg.bbox_max, o, d)
+        hit = h.hit & ok & (h.t < t1)
+        return HitResult(hit=hit,
+                         t=torch.where(hit, h.t,
+                                       torch.full_like(h.t, FLT_MAX)),
+                         normal=h.normal,
+                         obj_id=torch.where(hit, h.obj_id,
+                                            torch.full_like(h.obj_id, -1)),
+                         mat_id=h.mat_id)
 
 
 def gate_shadow(pg: CudaGrid, occ, o, d):
-    """A failed Init_Traverse counts as shadowed (grid.cpp:321-324)."""
-    return occ | ~grid_slab(pg.bbox_min, pg.bbox_max, o, d)[0]
+    """A failed Init_Traverse counts as shadowed (grid.cpp:321-324).
+    Recorded as :func:`gate_closest` is."""
+    with spans.span("accel.grid_gate"):
+        spans.count("grid.gate_rays", o.shape[0])
+        return occ | ~grid_slab(pg.bbox_min, pg.bbox_max, o, d)[0]
 
 
 def make_brute_grid_intersectors(scene: SceneData, pg: CudaGrid,

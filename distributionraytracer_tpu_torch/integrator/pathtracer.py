@@ -41,7 +41,9 @@ fused body's one ``pt_trace`` call, every bounce), ``pt.intersect`` (the staged 
 queries), ``pt.sky`` (the fused body's cubemap gather); ``pt.paths`` (a
 tile's paths at each bounce) and ``pt.paths_live`` (those alive at the
 bounce's start, counted on the device only while the recorder is on: by
-the looped K6 itself on CUDA tensors).
+the looped K6 itself on CUDA tensors); ``pt.draws`` (the generator's
+``torch.rand`` calls: a frame's jitter and times, and each bounce's five
+uniforms, where nothing is injected).
 """
 
 from __future__ import annotations
@@ -479,8 +481,10 @@ def draw_uniforms(scene: PTScene, R: int, generator: torch.Generator,
                   device) -> BounceUniforms:
     """One bounce's uniforms, drawn in the fixed order uq, uch, u3a, u3b,
     urr (both bodies of ``ray_color`` draw them so)."""
+    shapes = _uniform_shapes(scene, R)
+    spans.count("pt.draws", len(shapes))
     return BounceUniforms(*(torch.rand(sh, generator=generator, device=device)
-                            for sh in _uniform_shapes(scene, R)))
+                            for sh in shapes))
 
 
 def draw_bounces(scene: PTScene, R: int, B: int, generator: torch.Generator,
@@ -489,6 +493,7 @@ def draw_bounces(scene: PTScene, R: int, B: int, generator: torch.Generator,
     numbers, in the order, of B :func:`draw_uniforms` calls, one a
     bounce."""
     shapes = _uniform_shapes(scene, R)
+    spans.count("pt.draws", B * len(shapes))
     out = BounceUniforms(*(torch.empty((B,) + sh, device=device)
                            for sh in shapes))
     for b in range(B):
@@ -780,6 +785,7 @@ def render_pt(scene: PTScene, cfg: RenderConfig, res_x: int, res_y: int,
         if samples is None:
             if generator is None:
                 generator = torch.Generator(device=dev).manual_seed(0)
+            spans.count("pt.draws", 2)
             jitter = torch.rand((res_y, res_x, spp, 2), generator=generator,
                                 device=dev)
             time = torch.rand((res_y, res_x, spp), generator=generator,
