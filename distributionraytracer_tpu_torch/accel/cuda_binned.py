@@ -64,7 +64,7 @@ from distributionraytracer_tpu_torch.integrator.whitted import Intersectors
 from distributionraytracer_tpu_torch.ops import build
 from distributionraytracer_tpu_torch.ops.common import EPSILON, FLT_MAX
 from distributionraytracer_tpu_torch.ops.cuda_intersect import (
-    geometry_leaves, ray_inputs, refuse_grad, require_cuda,
+    ObjectColumns, object_columns, ray_inputs, refuse_grad, require_cuda,
 )
 from distributionraytracer_tpu_torch.ops.intersect import hit_packed
 from distributionraytracer_tpu_torch.scene.types import (
@@ -134,15 +134,18 @@ def _host_camera(scene: SceneData):
     return eye, u, v, n, pd, w, h
 
 
-def _chain_grid(H: int, W: int, S: int):
+def _chain_grid(H: int, W: int, S: int, perm: Optional[np.ndarray] = None):
     """The chain-to-pixel-rectangle structure of ``_block_perm``:
     ``(rw, rh, grid)`` where chains tile the image in (rh, rw) pixel
     rectangles and ``grid[y // rh, x // rw]`` is the chain owning pixel
     (x, y); None when it is no uniform tiling (odd S, resolutions that do
-    not divide), and such frames take the packet route."""
+    not divide), and such frames take the packet route.  ``perm`` is
+    ``_block_perm(H, W, S)`` where the caller holds it."""
+    spans.count("tables.builds.chain_grid")
     if S > LANES or (LANES % S) != 0:
         return None
-    perm = _block_perm(H, W, S)
+    if perm is None:
+        perm = _block_perm(H, W, S)
     R = perm.shape[0]
     if R % LANES:
         return None
@@ -190,7 +193,7 @@ def _corners(bmin, bmax):
 
 
 def build_primary_bins(scene: SceneData, gbox: np.ndarray, H: int, W: int,
-                       S: int) -> Optional[PrimaryBins]:
+                       S: int, chain_grid=None) -> Optional[PrimaryBins]:
     """Conservative screen binning of the object groups to the chains.
 
     Each group's 8 box corners are projected through the exact inverse of
@@ -199,8 +202,10 @@ def build_primary_bins(scene: SceneData, gbox: np.ndarray, H: int, W: int,
     projection of a convex hull contains its points' projections).  A group
     with a corner at or behind the eye plane goes into every chain's list.
     None where the chain structure is no uniform tiling, or past
-    ``MAX_CHAINS`` chains or ``MAX_CANDIDATES`` pairs."""
-    cg = _chain_grid(H, W, S)
+    ``MAX_CHAINS`` chains or ``MAX_CANDIDATES`` pairs.  ``chain_grid`` is
+    ``_chain_grid(H, W, S)`` where the caller keeps it (else built here).
+    """
+    cg = _chain_grid(H, W, S) if chain_grid is None else chain_grid
     if cg is None:
         return None
     rw, rh, grid = cg
@@ -1056,7 +1061,8 @@ def shadow_light_ids(R: int, n_lights: int, device):
 def leveled_binned_intersectors(scene: SceneData, tabs: PacketTables,
                                 bins: BinSet, inner, motion_blur: bool = False,
                                 plain: bool = False,
-                                shadow_mode: str = "bvh"):
+                                shadow_mode: str = "bvh",
+                                cols: Optional[ObjectColumns] = None):
     """The primary level's closest hit by K9 and its shadow query by K10,
     everything else by ``inner`` (the packet walk).  ``trace_whitted``
     calls closest and shadow once per tree level in order, so the first
@@ -1066,11 +1072,11 @@ def leveled_binned_intersectors(scene: SceneData, tabs: PacketTables,
     exist and every chain holds one light's lanes (:func:`shadow_light_ids`).
     Deeper levels scatter sparse live lanes over every chain, whose tile
     rectangles then grow towards the whole frustum: the packet walk takes
-    them.  The kernels refuse a scene whose geometry requires a gradient,
-    as the packet walk's do."""
-    mats = scene.packed_objects()[2]
-    types_present = tuple(sorted(set(scene.static.obj_types)))
-    geometry = geometry_leaves(scene)
+    them.  ``cols`` are the scene's :func:`object_columns` where the
+    caller keeps them.  The kernels refuse a scene whose geometry requires
+    a gradient, as the packet walk's do."""
+    mats, types_present, geometry = (object_columns(scene) if cols is None
+                                     else cols)
     state = {"calls": 0, "shadow_calls": 0}
     pb, lb = bins.primary, bins.lights
 

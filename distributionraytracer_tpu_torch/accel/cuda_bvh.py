@@ -24,6 +24,8 @@ launch adds one to ``LAUNCHES`` under its kernel's name and query
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -34,7 +36,7 @@ from distributionraytracer_tpu_torch.accel.bvh import (
 from distributionraytracer_tpu_torch.integrator.whitted import Intersectors
 from distributionraytracer_tpu_torch.ops import build
 from distributionraytracer_tpu_torch.ops.cuda_intersect import (
-    geometry_leaves, ray_streams, refuse_grad, require_cuda,
+    ObjectColumns, object_columns, ray_streams, refuse_grad, require_cuda,
 )
 from distributionraytracer_tpu_torch.scene.types import SceneData
 
@@ -143,14 +145,15 @@ def packet_shadow_kernel(tabs: PacketTables, o, d, dist, valid=None,
 
 def packet_intersectors(scene: SceneData, tabs: PacketTables,
                         motion_blur: bool = False, shadow_mode: str = "bvh",
-                        plain: bool = False):
+                        plain: bool = False,
+                        cols: Optional[ObjectColumns] = None):
     """Closest and shadow over ``tabs``: the kernel of its kind (K7 or K8)
     for CUDA tensors, the plain walk for CPU tensors or with ``plain``.
-    The kernels refuse a scene whose geometry requires a gradient: the
-    host-built tables would not carry it (``refuse_grad``)."""
-    mats = scene.packed_objects()[2]
-    types_present = tuple(sorted(set(scene.static.obj_types)))
-    geometry = geometry_leaves(scene)
+    ``cols`` are the scene's :func:`object_columns` where the caller keeps
+    them.  The kernels refuse a scene whose geometry requires a gradient:
+    the host-built tables would not carry it (``refuse_grad``)."""
+    mats, types_present, geometry = (object_columns(scene) if cols is None
+                                     else cols)
 
     def use_plain(o):
         return plain or o.device.type == "cpu"

@@ -190,6 +190,12 @@ def make_cuda_grid_intersectors(scene: SceneData, pg: CudaGrid,
         inner = leveled_binned_intersectors(scene, pg.tabs, bins, inner,
                                             motion_blur, plain=plain,
                                             shadow_mode="grid")
+    return gated_intersectors(pg, inner)
+
+
+def gated_intersectors(pg: CudaGrid, inner: Intersectors) -> Intersectors:
+    """``inner`` (a walk of ``pg``'s tables in grid shadow mode) with the
+    grid's gates on top of each query."""
 
     def closest(o, d, time, valid=None):
         return gate_closest(pg, inner.closest(o, d, time, valid=valid), o, d)

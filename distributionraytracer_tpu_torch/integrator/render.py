@@ -13,16 +13,17 @@ Counterpart of ``distributionraytracer_tpu.integrator.render``.  Mirrors
 PyTorch runs eagerly: the frame is traced in tiles by a Python loop, which
 bounds the live ray-tree state, as the frame's plan (:func:`_plan_frame`)
 says.  The renderer's grid and BVH routes plan their own tile, and their
-rays are first grouped into square pixel blocks (:func:`_block_perm`),
-which the packet kernels and the binned route rely on.  On the card's
-fused-level route, a :class:`TileGraphs` replays each tile's whole
-``trace_whitted`` as one CUDA graph instead.
+rays are first grouped into square pixel blocks (:func:`_block_perm`, an
+order the Renderer keeps across its frames), which the packet kernels and
+the binned route rely on.  On the card's fused-level route, a
+:class:`TileGraphs` replays each tile's whole ``trace_whitted`` as one
+CUDA graph instead.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -161,6 +162,7 @@ def _block_perm(H: int, W: int, S: int, tile: int = 1024) -> np.ndarray:
     the binned route a pixel rectangle.  The inverse gather restores image
     order, so output values are unchanged.
     """
+    spans.count("tables.builds.block_perm")
     per = max(tile // max(S, 1), 1)
     bw = 1
     while bw * bw < per:
@@ -172,10 +174,33 @@ def _block_perm(H: int, W: int, S: int, tile: int = 1024) -> np.ndarray:
     return (order[:, None] * S + np.arange(S)).ravel().astype(np.int32)
 
 
-# The scene leaves a fused-level tile reads: all but the camera's, whose
-# rays are the tile's inputs.
+# The scene leaves a table kept across frames reads: all but the camera's,
+# whose rays are a frame's inputs.
 _TILE_LEAVES = tuple(n for n in SceneData._LEAF_NAMES
                     if not n.startswith("cam_"))
+
+
+class SceneKey:
+    """What a table kept across frames reads of a scene under a config:
+    the config, the static metadata and every leaf but the camera's
+    (``_TILE_LEAVES``), each the same tensor at the same ``_version``.
+    Two keys are equal while all of these are; a new camera keeps the key,
+    a new or edited leaf, static or config does not.  The one rule by
+    which :class:`TileGraphs` and the Renderer's frame tables keep or
+    rebuild what they hold."""
+
+    __slots__ = ("cfg", "static", "leaves", "versions")
+
+    def __init__(self, scene: SceneData, cfg: RenderConfig):
+        self.cfg, self.static = cfg, scene.static
+        self.leaves = tuple(getattr(scene, n) for n in _TILE_LEAVES)
+        self.versions = tuple(x._version for x in self.leaves)
+
+    def __eq__(self, other):
+        return (isinstance(other, SceneKey) and self.cfg == other.cfg
+                and self.static == other.static
+                and all(a is b for a, b in zip(self.leaves, other.leaves))
+                and self.versions == other.versions)
 
 
 class _Graph(NamedTuple):
@@ -194,9 +219,8 @@ class TileGraphs:
     A ``Renderer`` owns one, kept across its frames; every other such
     frame makes its own.  It builds the scene's K3 tables
     (``CW.level_tables``) once, and keeps them and its graphs while the
-    leaves a tile reads (``_TILE_LEAVES``) are the same tensors at the same
-    ``_version`` under the same config; else it drops the graphs and
-    builds the tables anew.  A new camera keeps both.  It holds at most
+    scene's :class:`SceneKey` holds; else it drops the graphs and builds
+    the tables anew.  A new camera keeps both.  It holds at most
     two graphs for each "rays counted" (``return_rays``, or the recorder
     on): the full tile's, and one of the last, shorter tile, which a new
     short length replaces.  A capture first runs ``trace_whitted`` eagerly
@@ -207,23 +231,19 @@ class TileGraphs:
 
     def __init__(self):
         self.tables: Optional[CW.LevelTables] = None
-        self._held = None  # (cfg, static, leaves, versions) of the tables
+        self._held: Optional[SceneKey] = None  # the tables' key
         self._graphs = {}  # (full tile, rays counted) -> _Graph
         self._pool = None
 
     def prepare(self, scene: SceneData, cfg: RenderConfig):
         """Keep the tables and graphs for this frame, or drop the graphs
         and build the tables anew."""
-        leaves = tuple(getattr(scene, n) for n in _TILE_LEAVES)
-        versions = tuple(x._version for x in leaves)
-        held = self._held
-        if (held is not None and held[0] == cfg and held[1] == scene.static
-                and all(a is b for a, b in zip(held[2], leaves))
-                and held[3] == versions):
+        key = SceneKey(scene, cfg)
+        if key == self._held:
             return
         self._graphs.clear()
         self.tables = CW.level_tables(scene)
-        self._held = (cfg, scene.static, leaves, versions)
+        self._held = key
 
     def _capture(self, scene, cfg, rays, counting: bool) -> _Graph:
         inputs = tuple(x.clone() for x in rays)
@@ -288,7 +308,9 @@ class _FramePlan(NamedTuple):
     inter: Optional[Intersectors]  # the staged levels' intersectors
     tables: Optional[CW.LevelTables]  # the K3 tables of every tile
     tile: int  # primary samples a tile
-    blocked: bool  # whether the rays take the pixel-block order
+    # the pixel-block order of the rays (:func:`_block_perm` on the
+    # device, int64) and its inverse, or None: image order
+    order: Optional[Tuple[torch.Tensor, torch.Tensor]]
     bins: Optional[object]  # the binned route's ``cuda_binned.BinSet``
     graphs: Optional[TileGraphs]  # the ``graph`` mode's replayer
 
@@ -321,7 +343,7 @@ def _plan_frame(scene: SceneData, cfg: RenderConfig,
         tables = graphs.tables
     elif mode == "k3":
         tables = CW.level_tables(scene)
-    return _FramePlan(route, mode, inter, tables, cfg.tile_rays, False, None,
+    return _FramePlan(route, mode, inter, tables, cfg.tile_rays, None, None,
                       graphs if mode == "graph" else None)
 
 
@@ -349,10 +371,8 @@ def render_from_samples(scene: SceneData, cfg: RenderConfig,
     H, W, S = samples.time.shape
     o, d, t, ls = _rays_from_samples(scene, cfg, samples, row_offset)
     n, tile = o.shape[0], plan.tile
-    perm = None
-    if plan.blocked:
-        spans.count("tables.builds.block_perm")
-        perm = torch.as_tensor(_block_perm(H, W, S), device=o.device).long()
+    if plan.order is not None:
+        perm = plan.order[0]
         o, d, t, ls = o[perm], d[perm], t[perm], ls[perm]
     graphed = plan.mode == "graph"
     if graphed:
@@ -377,10 +397,8 @@ def render_from_samples(scene: SceneData, cfg: RenderConfig,
         if return_rays:
             counts += [stats["rays_traced"], stats["shadow_rays"]]
     colors = frame if graphed else torch.cat(colors)
-    if perm is not None:
-        inv = torch.empty_like(perm)
-        inv[perm] = torch.arange(n, device=perm.device)
-        colors = colors[inv]
+    if plan.order is not None:
+        colors = colors[plan.order[1]]
     colors = colors.reshape(H, W, S, 3)
     img = colors.mean(dim=2) if average else colors
     return (img, torch.stack(counts).sum()) if return_rays else img

@@ -205,6 +205,23 @@ def geometry_leaves(scene: SceneData):
             scene.box_max)
 
 
+class ObjectColumns(NamedTuple):
+    """What the packet and binned wrappers read of a scene besides their
+    tables: each object's material, the object types present, and the
+    geometry leaves they hand :func:`refuse_grad`."""
+
+    mats: torch.Tensor  # (O,) i32: ``scene.packed_objects()[2]``
+    types_present: tuple  # sorted object type tags
+    geometry: tuple  # :func:`geometry_leaves`
+
+
+def object_columns(scene: SceneData) -> ObjectColumns:
+    """The scene's :class:`ObjectColumns` (one ``packed_objects``)."""
+    return ObjectColumns(scene.packed_objects()[2],
+                         tuple(sorted(set(scene.static.obj_types))),
+                         geometry_leaves(scene))
+
+
 def require_cuda(name: str, *tensors):
     """Raise unless every tensor is a contiguous CUDA tensor on one device
     that needs no gradient (:func:`refuse_grad`); each wrapper hands it its

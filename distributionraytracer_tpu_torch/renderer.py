@@ -41,7 +41,7 @@ Usage:
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -56,7 +56,7 @@ from distributionraytracer_tpu_torch.accel.cuda_bvh import (
     PACKET_LEAF, pack_threaded, packet_intersectors,
 )
 from distributionraytracer_tpu_torch.accel.cuda_grid import (
-    make_brute_grid_intersectors, make_cuda_grid_intersectors, pack_grid,
+    gated_intersectors, make_brute_grid_intersectors, pack_grid,
 )
 from distributionraytracer_tpu_torch.accel.cuda_packet import (
     GROUPED_LEAF, pack_grouped,
@@ -66,12 +66,15 @@ from distributionraytracer_tpu_torch.accel.grid import (
 )
 from distributionraytracer_tpu_torch.config import RenderConfig
 from distributionraytracer_tpu_torch.integrator.render import (
-    SampleSet, TileGraphs, _FramePlan, _plan_frame, _sample_count,
-    default_config, make_samples, progressive_init, progressive_samples,
-    progressive_update, render_from_samples,
+    SampleSet, SceneKey, TileGraphs, _block_perm, _FramePlan, _plan_frame,
+    _sample_count, default_config, make_samples, progressive_init,
+    progressive_samples, progressive_update, render_from_samples,
 )
 from distributionraytracer_tpu_torch.integrator.whitted import Intersectors
 from distributionraytracer_tpu_torch.ops import cuda_intersect as CI
+from distributionraytracer_tpu_torch.ops.cuda_intersect import (
+    ObjectColumns, object_columns,
+)
 from distributionraytracer_tpu_torch.ops.intersect import (
     any_hit_brute, closest_hit_brute,
 )
@@ -207,6 +210,24 @@ def build_accel(scene: SceneData, verbose: bool = False,
     return out
 
 
+class _FrameTables(NamedTuple):
+    """What a grid or BVH frame reads that no camera changes, kept by the
+    Renderer across its frames (:meth:`Renderer._tables_for`)."""
+
+    shape: Tuple[int, int, int]  # the frame's (H, W, S)
+    tabs: object  # the accel tables they were made for
+    key: SceneKey
+    order: Tuple[torch.Tensor, torch.Tensor]  # ``_FramePlan.order``
+    # ``cuda_binned._chain_grid`` of the order; None off the binned route
+    chain_grid: Optional[tuple]
+    # the route's walk: the traversal's, or the packet route's
+    # (``packet_intersectors``); None on the cost-brute route
+    walk: Optional[Intersectors]
+    # the columns the packet walk and the binned wrapper read; None off
+    # the packet route
+    cols: Optional[ObjectColumns]
+
+
 class Renderer:
     def __init__(self, scene: SceneData, cfg: Optional[RenderConfig] = None,
                  device="cuda", verbose: bool = False):
@@ -216,8 +237,8 @@ class Renderer:
         self.accel = scene.static.accel
         self.accel_build = None
         self.tabs = None  # PacketTables (BVH) or CudaGrid (grid)
-        self._traversal = None  # the 'traversal' route's intersectors
         self._graphs = TileGraphs()  # the fused-level route's, kept
+        self._tables: Optional[_FrameTables] = None  # grid and BVH frames'
         if self.accel != ACCEL_NONE:
             ab = build_accel(scene, verbose=verbose,
                              motion_blur=self.cfg.motion_blur,
@@ -251,10 +272,49 @@ class Renderer:
             if CB.shadow_binning_ok(self.scene, lb):
                 self._light_bins = lb.to(self.device)
 
+    def _tables_for(self, H: int, W: int, S: int) -> _FrameTables:
+        """The frame tables of a grid or BVH frame of this shape: those kept
+        while the shape, the accel tables and the scene's ``SceneKey`` are
+        the same (a new camera keeps them), else built anew, which counts
+        ``tables.builds.frame_tables``: the pixel-block order of the rays,
+        the route's walk (the traversal's, or the packet walk), and on the
+        packet route its object columns and, where the binned route is
+        eligible, the chain grid of the order."""
+        sc, cfg = self.scene, self.cfg
+        key, ft = SceneKey(sc, cfg), self._tables
+        if (ft is not None and ft.shape == (H, W, S) and ft.tabs is self.tabs
+                and ft.key == key):
+            return ft
+        spans.count("tables.builds.frame_tables")
+        perm = _block_perm(H, W, S)
+        gather = torch.as_tensor(perm, device=self.device).long()
+        inverse = torch.empty_like(gather)
+        inverse[gather] = torch.arange(gather.shape[0], device=self.device)
+        chain_grid = walk = cols = None
+        grid = self.accel == ACCEL_GRID
+        if cfg.accel_backend == "traversal":
+            host = self.accel_build.host
+            walk = (make_grid_intersectors(sc, host, cfg.motion_blur) if grid
+                    else make_threaded_intersectors(sc, host, cfg.motion_blur))
+        elif not _use_cost_brute(sc, cfg):
+            cols = object_columns(sc)
+            walk = packet_intersectors(
+                sc, self.tabs.tabs if grid else self.tabs, cfg.motion_blur,
+                shadow_mode="grid" if grid else "bvh",
+                plain=cfg.kernels == "off", cols=cols)
+            if self._gbox is not None:
+                chain_grid = CB._chain_grid(H, W, S, perm)
+        self._tables = _FrameTables((H, W, S), self.tabs, key,
+                                    (gather, inverse), chain_grid, walk, cols)
+        return self._tables
+
     def _bins_for(self, H: int, W: int, S: int) -> Optional[CB.BinSet]:
         """The BinSet of this camera and frame shape, or None (the packet
         route takes the frame).  One camera's bins are cached."""
         if self._gbox is None:
+            return None
+        cg = self._tables_for(H, W, S).chain_grid
+        if cg is None:
             return None
         with spans.span("render.bins"):
             sc = self.scene
@@ -264,7 +324,7 @@ class Renderer:
                                               sc.cam_up))
             if key not in self._primary_cache:
                 spans.count("bins.primary_builds")
-                pb = CB.build_primary_bins(sc, self._gbox, H, W, S)
+                pb = CB.build_primary_bins(sc, self._gbox, H, W, S, cg)
                 self._primary_cache.clear()
                 self._primary_cache[key] = (None if pb is None
                                             else pb.to(self.device))
@@ -275,47 +335,44 @@ class Renderer:
         """The plan of a frame of ``samples`` (None: of the scene's own
         frame shape), from its shape and the scene, camera included, as it
         stands.  Grid and BVH frames take their route here (module
-        docstring), in pixel-block order; ``_plan_frame`` does the rest."""
+        docstring), in pixel-block order, from the frame tables this
+        Renderer keeps (:meth:`_tables_for`); ``_plan_frame`` does the
+        rest."""
         sc, cfg = self.scene, self.cfg
         if self.accel == ACCEL_NONE:
             return _plan_frame(sc, cfg, samples, graphs=self._graphs)
         mb, plain = cfg.motion_blur, cfg.kernels == "off"
         grid = self.accel == ACCEL_GRID
+        shape = (samples.time.shape if samples is not None else
+                 (sc.static.res_y, sc.static.res_x, _sample_count(sc, cfg)))
+        ft = self._tables_for(*shape)
         tile, bins = cfg.tile_rays, None
         if cfg.accel_backend == "traversal":
             label = "grid-dda" if grid else "bvh-threaded"
-            if self._traversal is None:
-                host = self.accel_build.host
-                self._traversal = (
-                    make_grid_intersectors(sc, host, mb) if grid
-                    else make_threaded_intersectors(sc, host, mb))
-            inter = self._traversal
+            inter = ft.walk
         elif _use_cost_brute(sc, cfg):
             label = "cost-brute"
             inter = (make_brute_grid_intersectors(sc, self.tabs, mb, plain)
                      if grid else _brute_bvh_intersectors(sc, cfg))
         else:
-            shape = (samples.time.shape if samples is not None else
-                     (sc.static.res_y, sc.static.res_x,
-                      _sample_count(sc, cfg)))
             bins = self._bins_for(*shape)
             label = ("" if bins is None else "binned-primary+"
                      if bins.lights is None else "binned+")
+            inter = ft.walk
+            if bins is not None:
+                inter = CB.leveled_binned_intersectors(
+                    sc, self.tabs.tabs if grid else self.tabs, bins, inter,
+                    mb, plain, shadow_mode="grid" if grid else "bvh",
+                    cols=ft.cols)
+                tile = 1 << 30  # the chain CSR addresses the whole frame
             if grid:
                 label += "grid-packet"
-                inter = make_cuda_grid_intersectors(sc, self.tabs, mb, bins,
-                                                    plain)
+                inter = gated_intersectors(self.tabs, inter)
             else:
                 label += ("grouped-packet" if self.tabs.kind == "grouped"
                           else "legacy-packet")
-                inter = packet_intersectors(sc, self.tabs, mb, plain=plain)
-                if bins is not None:
-                    inter = CB.leveled_binned_intersectors(
-                        sc, self.tabs, bins, inter, mb, plain)
-            if bins is not None:
-                tile = 1 << 30  # the chain CSR addresses the whole frame
         return _plan_frame(sc, cfg, samples, inter=inter)._replace(
-            label=label, tile=tile, blocked=True, bins=bins)
+            label=label, tile=tile, order=ft.order, bins=bins)
 
     def executed_backend(self) -> str:
         """The label of the route a render of the scene's own frame takes,

@@ -1,9 +1,10 @@
 """The frame plan (``Renderer._plan``, ``integrator.render._plan_frame``):
 on the CPU, one small frame of every route the Renderer labels, whose plan
 carries the label ``executed_backend()`` returns, and whose recorder
-counts of table builds, host reads and primary-bin builds are those the
-route made before the plan decided it (``PARENT_COUNTS``, recorded on the
-same frames before the routing moved into the plan)."""
+counts of table builds, host reads and primary-bin builds are those of a
+Renderer's first frame on that route (``PARENT_COUNTS``, first recorded on
+the same frames before the routing moved into the plan; a grid or BVH
+frame's since count the frame tables the Renderer keeps)."""
 
 import dataclasses
 
@@ -50,27 +51,39 @@ MORE_SCENES = {
 }
 CASES = sorted(ROUTE_SCENES) + sorted(MORE_SCENES)
 
-# Per frame: tables.builds.*, sync.host_reads (none: the CPU has no card
-# to read) and bins.primary_builds, as recorded before the plan.
+# A first frame's tables.builds.*, sync.host_reads (none: the CPU has no
+# card to read) and bins.primary_builds.  Every grid or BVH frame builds
+# the Renderer's frame tables once (frame_tables, and in them the pixel
+# block order, block_perm), whose packet walk holds the one packed_objects
+# of its material column and, on the binned route, the chain grid of that
+# same order; before the tables were kept, bvh and grid counted two
+# packed_objects and an uncounted second block order a frame.
 PARENT_COUNTS = {
     "bvh": {"bins.primary_builds": 1, "tables.builds.block_perm": 1,
-            "tables.builds.packed_objects": 2, "tables.builds.pixel_grid": 1},
+            "tables.builds.chain_grid": 1, "tables.builds.frame_tables": 1,
+            "tables.builds.packed_objects": 1, "tables.builds.pixel_grid": 1},
     "cost-brute": {"tables.builds.block_perm": 1,
+                   "tables.builds.frame_tables": 1,
                    "tables.builds.object_tables": 1,
                    "tables.builds.packed_objects": 1,
                    "tables.builds.pixel_grid": 1},
     "grid": {"bins.primary_builds": 1, "tables.builds.block_perm": 1,
-             "tables.builds.packed_objects": 2, "tables.builds.pixel_grid": 1},
+             "tables.builds.chain_grid": 1, "tables.builds.frame_tables": 1,
+             "tables.builds.packed_objects": 1, "tables.builds.pixel_grid": 1},
     "legacy": {"tables.builds.block_perm": 1,
+               "tables.builds.frame_tables": 1,
                "tables.builds.packed_objects": 1,
                "tables.builds.pixel_grid": 1},
     "legacy-grid": {"tables.builds.block_perm": 1,
+                    "tables.builds.frame_tables": 1,
                     "tables.builds.packed_objects": 1,
                     "tables.builds.pixel_grid": 1},
     "plane-bvh": {"tables.builds.block_perm": 1,
+                  "tables.builds.frame_tables": 1,
                   "tables.builds.packed_objects": 1,
                   "tables.builds.pixel_grid": 1},
     "plane-grid": {"tables.builds.block_perm": 1,
+                   "tables.builds.frame_tables": 1,
                    "tables.builds.packed_objects": 1,
                    "tables.builds.pixel_grid": 1},
     # two tiles, each building the brute scans' tables
@@ -78,6 +91,7 @@ PARENT_COUNTS = {
                      "tables.builds.packed_objects": 2,
                      "tables.builds.pixel_grid": 1},
     "bvh-threaded": {"tables.builds.block_perm": 1,
+                     "tables.builds.frame_tables": 1,
                      "tables.builds.packed_objects": 2,
                      "tables.builds.pixel_grid": 1},
     "fused-level": {"tables.builds.level_tables": 1,
@@ -85,6 +99,7 @@ PARENT_COUNTS = {
                     "tables.builds.packed_objects": 2,
                     "tables.builds.pixel_grid": 1},
     "grid-dda": {"tables.builds.block_perm": 1,
+                 "tables.builds.frame_tables": 1,
                  "tables.builds.packed_objects": 1,
                  "tables.builds.pixel_grid": 1},
     "plain": {"tables.builds.pixel_grid": 1},
@@ -127,7 +142,7 @@ def frame_counts(r, samples):
 def test_frame_plan_labels_and_counts(case, monkeypatch):
     """The plan the frame ran carries the label ``executed_backend()``
     returns, and the frame made the table builds, host reads and primary
-    bin builds the route made before the plan."""
+    bin builds of ``PARENT_COUNTS``."""
     r, samples, label = frame(case)
     plans, plan = [], r._plan
 
@@ -141,6 +156,6 @@ def test_frame_plan_labels_and_counts(case, monkeypatch):
     assert len(plans) == 1
     assert ran.label == r.executed_backend() == label
     assert ran.mode == ("k3" if case == "fused-level" else "staged")
-    assert ran.blocked == (r.accel != ACCEL_NONE)
+    assert (ran.order is not None) == (r.accel != ACCEL_NONE)
     assert (ran.bins is not None) == label.startswith("binned")
     assert counts == PARENT_COUNTS[case]

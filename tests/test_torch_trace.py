@@ -220,7 +220,9 @@ def test_bins_and_accel_build_spans(recorder):
     rec = recorder.collect()
     assert len(by_name(rec, "render.bins")) == 2
     assert counts(rec)["bins.primary_builds"] == 1  # the second is cached
-    assert counts(rec)["tables.builds.block_perm"] == 2
+    # the Renderer's frame tables: one block order for both frames
+    assert counts(rec)["tables.builds.block_perm"] == 1
+    assert counts(rec)["tables.builds.frame_tables"] == 1
     ab = build_accel(r.scene.to("cpu"))
     (sp,) = by_name(recorder.collect(), "accel.build")
     assert ab.seconds == (sp["end_ns"] - sp["start_ns"]) / 1e9
